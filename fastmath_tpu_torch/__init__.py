@@ -1,0 +1,12 @@
+"""fastmath_tpu_torch: the PyTorch / CUDA (NVIDIA H100) port of
+``fastmath_tpu``, fast math for huge batches of tiny matrix problems.
+
+Same public names, storage layouts and semantics as the JAX package;
+every Pallas TPU kernel becomes a CUDA kernel written for Hopper
+(``kernels/csrc``), with a plain PyTorch version beside it that serves
+CPU tensors. This package imports neither JAX nor ``fastmath_tpu``.
+"""
+from . import kernels, layouts
+from .ops.sym import sym_solve, sym_solve_, sym_solve_chain
+
+__all__ = ["sym_solve", "sym_solve_", "sym_solve_chain", "layouts", "kernels"]

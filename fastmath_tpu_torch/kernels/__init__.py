@@ -1,0 +1,9 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), built with ``nvcc`` at
+first use (:mod:`._build`), each with a plain PyTorch version beside it.
+
+Importing this package needs neither CUDA nor ``nvcc``: nothing is built
+until a kernel is launched on a CUDA tensor.
+"""
+from .sym_cuda import sym_solve_cf, sym_solve_chain_cf
+
+__all__ = ["sym_solve_cf", "sym_solve_chain_cf"]

@@ -1,0 +1,237 @@
+// Device code shared by the compact-symmetric solve kernels: the
+// compact index map, entry loads, residuals, and the partial-pivoting
+// LU in two forms (unrolled in registers for N <= 8, rolled over a
+// per-thread local array for 9 <= N <= 32).
+//
+// Pivoting is first-max partial pivoting: the pivot of column k is the
+// lowest row i >= k whose |A[i][k]| is the column maximum, as in the
+// JAX reference (fastmath_tpu/kernels/sym_pallas.py, _plu_grid).
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace fm {
+
+// Largest order the rolled tier serves, and the row width of its local
+// array: [A | v | I] when a refined solve needs the explicit inverse.
+constexpr int kMaxN = 32;
+constexpr int kRolledWidth = 2 * kMaxN + 1;
+
+// Flat compact index of entry (i, j): the diagonal first, then the
+// strict upper triangle row by row.
+__host__ __device__ constexpr int tri_index(int i, int j, int n) {
+  if (i == j) return i;
+  const int lo = i < j ? i : j;
+  const int hi = i < j ? j : i;
+  return n + lo * (n - 1) - lo * (lo - 1) / 2 + (hi - lo - 1);
+}
+
+__host__ __device__ __forceinline__ float fm_abs(float x) { return fabsf(x); }
+__host__ __device__ __forceinline__ double fm_abs(double x) { return fabs(x); }
+
+// Entry grid of one compact matrix (channel stride sc), with eps (n
+// values, or null) added to the diagonal.
+template <typename T, int N>
+__device__ __forceinline__ void load_sym(const T* __restrict__ m, long long sc,
+                                         const T* __restrict__ eps, T (&E)[N][N]) {
+  constexpr int NN = N * (N + 1) / 2;
+  T c[NN];
+#pragma unroll
+  for (int k = 0; k < NN; ++k) c[k] = m[k * sc];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) E[i][j] = c[tri_index(i, j, N)];
+  if (eps != nullptr) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) E[i][i] = E[i][i] + eps[i];
+  }
+}
+
+// Entry (i, j) read again from device memory (the tiers that overwrite
+// their copy of A during elimination use this for the residual).
+template <typename T>
+__device__ __forceinline__ T sym_entry(const T* __restrict__ m, long long sc,
+                                       const T* __restrict__ eps, int i, int j, int n) {
+  T a = m[tri_index(i, j, n) * sc];
+  if (i == j && eps != nullptr) a = a + eps[i];
+  return a;
+}
+
+// r = v - A x, summed diagonal first, then the other columns in order.
+template <typename T, int N>
+__device__ __forceinline__ void residual(const T (&E)[N][N], const T (&v)[N],
+                                         const T (&x)[N], T (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    T acc = v[i] - E[i][i] * x[i];
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (j != i) acc = acc - E[i][j] * x[j];
+    r[i] = acc;
+  }
+}
+
+// The same residual with A read again from device memory, for orders
+// up to n (compile-time n unrolls into registers; runtime n, in the
+// rolled tier, walks local arrays).
+template <typename T>
+__device__ __forceinline__ void residual_global(const T* __restrict__ m, long long sc,
+                                                const T* __restrict__ eps, int n,
+                                                const T* v, const T* x, T* r) {
+  for (int i = 0; i < n; ++i) {
+    T acc = v[i] - sym_entry(m, sc, eps, i, i, n) * x[i];
+    for (int j = 0; j < n; ++j)
+      if (j != i) acc = acc - sym_entry(m, sc, eps, i, j, n) * x[j];
+    r[i] = acc;
+  }
+}
+
+// y = adj v (the determinant is applied by the caller).
+template <typename T, int N>
+__device__ __forceinline__ void adj_apply(const T (&adj)[N][N], const T (&v)[N], T (&y)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    T acc = adj[i][0] * v[0];
+#pragma unroll
+    for (int j = 1; j < N; ++j) acc = acc + adj[i][j] * v[j];
+    y[i] = acc;
+  }
+}
+
+// Unrolled LU with partial pivoting, in place: U on and above the
+// diagonal, the multipliers below it, piv[k] the row swapped into k at
+// step k. Swaps move columns k.. only, so each multiplier stays in the
+// row it was computed for and plu_substitute can replay the steps in
+// order. All indices are compile-time constants: the pivot choice is a
+// predicate, and the arrays stay in registers.
+template <typename T, int N>
+__device__ __forceinline__ void plu_factor(T (&A)[N][N], int (&piv)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    int p = k;
+    if (k < N - 1) {
+      T m = fm_abs(A[k][k]);
+#pragma unroll
+      for (int i = k + 1; i < N; ++i) {
+        const T a = fm_abs(A[i][k]);
+        if (a > m) {
+          m = a;
+          p = i;
+        }
+      }
+#pragma unroll
+      for (int i = k + 1; i < N; ++i) {
+        if (p == i) {
+#pragma unroll
+          for (int j = k; j < N; ++j) {
+            const T t = A[k][j];
+            A[k][j] = A[i][j];
+            A[i][j] = t;
+          }
+        }
+      }
+    }
+    piv[k] = p;
+    const T inv_p = T(1) / A[k][k];
+#pragma unroll
+    for (int i = k + 1; i < N; ++i) {
+      const T l = A[i][k] * inv_p;
+      A[i][k] = l;
+#pragma unroll
+      for (int j = k + 1; j < N; ++j) A[i][j] = A[i][j] - l * A[k][j];
+    }
+  }
+}
+
+// Solve A x = rhs from plu_factor's output; inv_d[i] = 1 / U[i][i].
+template <typename T, int N>
+__device__ __forceinline__ void plu_substitute(const T (&LU)[N][N], const int (&piv)[N],
+                                               const T (&inv_d)[N], const T (&rhs)[N],
+                                               T (&x)[N]) {
+  T r[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = rhs[i];
+#pragma unroll
+  for (int k = 0; k < N - 1; ++k) {
+#pragma unroll
+    for (int i = k + 1; i < N; ++i) {
+      if (piv[k] == i) {
+        const T t = r[k];
+        r[k] = r[i];
+        r[i] = t;
+      }
+    }
+#pragma unroll
+    for (int i = k + 1; i < N; ++i) r[i] = r[i] - LU[i][k] * r[k];
+  }
+#pragma unroll
+  for (int i = N - 1; i >= 0; --i) {
+    T acc = r[i];
+#pragma unroll
+    for (int j = i + 1; j < N; ++j) acc = acc - LU[i][j] * x[j];
+    x[i] = acc * inv_d[i];
+  }
+}
+
+// Rolled LU with partial pivoting on a local array of n rows of width
+// w: A in columns [0, n), right-hand sides in [n, w). Eliminates the
+// right-hand sides with A (multipliers by division, as the reference's
+// rolled tier does), leaving U on and above the diagonal.
+template <typename T>
+__device__ void rolled_factor(T* a, int n, int w) {
+  for (int k = 0; k < n; ++k) {
+    int p = k;
+    T m = fm_abs(a[k * w + k]);
+    for (int i = k + 1; i < n; ++i) {
+      const T v = fm_abs(a[i * w + k]);
+      if (v > m) {
+        m = v;
+        p = i;
+      }
+    }
+    if (p != k) {
+      for (int j = k; j < w; ++j) {
+        const T t = a[k * w + j];
+        a[k * w + j] = a[p * w + j];
+        a[p * w + j] = t;
+      }
+    }
+    const T pv = a[k * w + k];
+    for (int i = k + 1; i < n; ++i) {
+      const T l = a[i * w + k] / pv;
+      for (int j = k + 1; j < w; ++j) a[i * w + j] = a[i * w + j] - l * a[k * w + j];
+    }
+  }
+}
+
+// Back-substitution with rolled_factor's U, overwriting each
+// right-hand-side column [n, w) with its solution.
+template <typename T>
+__device__ void rolled_backsub(T* a, int n, int w) {
+  for (int c = n; c < w; ++c) {
+    for (int i = n - 1; i >= 0; --i) {
+      T s = T(0);
+      for (int j = i + 1; j < n; ++j) s = s + a[i * w + j] * a[j * w + c];
+      a[i * w + c] = (a[i * w + c] - s) / a[i * w + i];
+    }
+  }
+}
+
+// Fill a local array with [A | extra columns]: the compact matrix (plus
+// eps) in columns [0, n); the caller fills the rest.
+template <typename T>
+__device__ __forceinline__ void rolled_load(T* a, int n, int w, const T* __restrict__ m,
+                                            long long sc, const T* __restrict__ eps) {
+  for (int i = 0; i < n; ++i)
+    for (int j = 0; j < n; ++j) a[i * w + j] = sym_entry(m, sc, eps, i, j, n);
+}
+
+// Columns [c0, c0 + n) of the local array set to the identity.
+template <typename T>
+__device__ __forceinline__ void rolled_identity(T* a, int n, int w, int c0) {
+  for (int i = 0; i < n; ++i)
+    for (int j = 0; j < n; ++j) a[i * w + c0 + j] = i == j ? T(1) : T(0);
+}
+
+}  // namespace fm

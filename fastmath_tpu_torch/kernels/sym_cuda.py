@@ -1,0 +1,510 @@
+"""CUDA compact-symmetric solve and fused chain solve, with their plain
+PyTorch versions and autograd.
+
+``sym_solve_cf`` replaces the Pallas ``_solve_kernel`` and
+``sym_solve_chain_cf`` replaces ``_solve_chain_kernel``
+(``fastmath_tpu/kernels/sym_pallas.py``). Both kernels live in
+``csrc/sym_solve.cu``; one thread owns one problem. The single solve at
+N <= 4 is bound by device memory (it moves ``NN + 2N`` values for a few
+hundred flops): it reads each operand once and keeps the cofactors and
+the refinement step in registers. The chain is bound by arithmetic
+(``iters`` solves per matrix read): it factors once and loops in
+registers. See the source's header for the tiers.
+
+Each wrapper launches its kernel on a CUDA tensor and runs its plain
+version, which repeats the kernel's arithmetic in PyTorch, on a CPU
+tensor. ``sym_solve_cf.launches`` and ``sym_solve_chain_cf.launches``
+count kernel launches, and nothing else.
+
+Operands are 2-D ``(B, NN)`` / ``(B, N)`` views, either batch-major
+contiguous (the public ops) or transposes of channel-first contiguous
+``(NN, B)`` tensors (the ``*_cf`` wrappers); the kernels take a batch
+and a channel stride per operand, so neither layout is transposed.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.dtypes import downcast, upcast_half
+from ..layouts.sym import compact_index_grid, compact_size
+from ..ops.sym import _adjugate_apply, _cofactors, _entries, _prep_eps
+
+__all__ = ["sym_solve_cf", "sym_solve_chain_cf", "solve_plain", "chain_plain",
+           "solve_function", "chain_function", "MAX_N", "KERNEL_DTYPES"]
+
+#: largest N the kernels serve (rolled tier 9..32)
+MAX_N = 32
+_LIB = "sym_solve"
+_DTYPES = {torch.float32: 0, torch.float64: 1}
+#: dtypes the kernels take
+KERNEL_DTYPES = tuple(_DTYPES)
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the kernels' arithmetic in PyTorch)
+# ---------------------------------------------------------------------------
+
+
+def _eps_tensor(eps, like):
+    """``eps`` (a tuple of N floats) as a tensor on ``like``'s device; the
+    upload does not wait for the work already queued on the stream."""
+    if eps is None:
+        return None
+    return torch.tensor(eps, dtype=like.dtype).to(like.device, non_blocking=True)
+
+
+def _dense(mat, n, eps):
+    """(B, n, n) entry grid of compact ``mat`` (B, NN), eps on the diagonal."""
+    idx = torch.as_tensor(compact_index_grid(n), dtype=torch.long,
+                          device=mat.device)
+    A = mat[:, idx]
+    if eps is not None:
+        A.diagonal(dim1=1, dim2=2).add_(eps)
+    return A
+
+
+def _swap_rows(A, k, p, c0):
+    """Swap rows k and p[b] of every A[b] in columns c0..; (B, n[, w])."""
+    rows = torch.arange(A.shape[0], device=A.device)
+    rk = A[:, k, c0:].clone()
+    A[:, k, c0:] = A[rows, p, c0:]
+    A[rows, p, c0:] = rk
+
+
+def _pivot(A, k):
+    """First-max partial pivot of column k: lowest row >= k of the
+    largest |A[:, i, k]|."""
+    return k + torch.argmax(A[:, k:, k].abs(), dim=1)
+
+
+def _plu_factor(A):
+    """Unrolled-tier LU with partial pivoting, in place on a copy: U on
+    and above the diagonal, multipliers (by the reciprocal pivot) below
+    it, kept in the row they were computed for; returns (LU, piv, 1/U_ii)."""
+    A = A.clone()
+    n = A.shape[1]
+    piv = torch.empty(A.shape[0], n, dtype=torch.long, device=A.device)
+    for k in range(n):
+        p = _pivot(A, k)
+        piv[:, k] = p
+        _swap_rows(A, k, p, k)
+        inv_p = 1.0 / A[:, k, k]
+        l = A[:, k + 1:, k] * inv_p[:, None]
+        A[:, k + 1:, k] = l
+        A[:, k + 1:, k + 1:] -= l[:, :, None] * A[:, k, None, k + 1:]
+    inv_d = 1.0 / A.diagonal(dim1=1, dim2=2)
+    return A, piv, inv_d
+
+
+def _plu_substitute(LU, piv, inv_d, rhs):
+    """Solve with _plu_factor's output, replaying its swaps and
+    eliminations on ``rhs`` (B, n)."""
+    n = LU.shape[1]
+    r = rhs.clone()
+    rows = torch.arange(r.shape[0], device=r.device)
+    for k in range(n - 1):
+        p = piv[:, k]
+        rk = r[:, k].clone()
+        r[:, k] = r[rows, p]
+        r[rows, p] = rk
+        r[:, k + 1:] -= LU[:, k + 1:, k] * r[:, k, None]
+    x = torch.empty_like(r)
+    for i in range(n - 1, -1, -1):
+        acc = r[:, i]
+        for j in range(i + 1, n):
+            acc = acc - LU[:, i, j] * x[:, j]
+        x[:, i] = acc * inv_d[:, i]
+    return x
+
+
+def _rolled_solve(A, R):
+    """Rolled-tier LU with partial pivoting of ``[A | R]`` (multipliers
+    by division, as the rolled kernel) and back-substitution; returns
+    the solutions (B, n, c) of the c right-hand-side columns."""
+    n = A.shape[1]
+    W = torch.cat([A, R], dim=2)
+    for k in range(n):
+        _swap_rows(W, k, _pivot(W, k), k)
+        l = W[:, k + 1:, k] / W[:, k, k, None]
+        W[:, k + 1:, k + 1:] -= l[:, :, None] * W[:, k, None, k + 1:]
+    X = W[:, :, n:].clone()
+    for i in range(n - 1, -1, -1):
+        s = torch.zeros_like(X[:, i])
+        for j in range(i + 1, n):
+            s = s + W[:, i, j, None] * X[:, j]
+        X[:, i] = (X[:, i] - s) / W[:, i, i, None]
+    return X
+
+
+def _residual(A, v, x):
+    """v - A x, summed diagonal first, then the other columns in order."""
+    r = v - A.diagonal(dim1=1, dim2=2) * x
+    for j in range(A.shape[1]):
+        col = A[:, :, j] * x[:, j, None]
+        col[:, j] = 0
+        r = r - col
+    return r
+
+
+def _matvec_rows(M, x):
+    """M x with each row summed left to right (M (B, n, n), x (B, n))."""
+    acc = M[:, :, 0] * x[:, 0, None]
+    for j in range(1, M.shape[2]):
+        acc = acc + M[:, :, j] * x[:, j, None]
+    return acc
+
+
+def solve_plain(mat, vec, eps=None, refine=None):
+    r"""Plain version of the solve kernel: ``mat`` (B, NN), ``vec``
+    (B, N) -> ``A \ v`` (B, N); ``eps`` a tuple of N floats or None."""
+    n = vec.shape[1]
+    if refine is None:
+        refine = 1 if n <= 4 else 0
+    e = _eps_tensor(eps, mat)
+    if n == 1:
+        a = mat[:, 0] if e is None else mat[:, 0] + e[0]
+        return vec / a[:, None]
+    if n <= 4:
+        E = _entries(mat, n)
+        if e is not None:
+            for i in range(n):
+                E[i][i] = E[i][i] + e[i]
+        v = [vec[:, j] for j in range(n)]
+        adj, det = _cofactors(E, n)
+        inv_det = 1.0 / det
+        x = [y * inv_det for y in _adjugate_apply(adj, v)]
+        for _ in range(refine):
+            r = []
+            for i in range(n):
+                acc = v[i] - E[i][i] * x[i]
+                for j in range(n):
+                    if j != i:
+                        acc = acc - E[i][j] * x[j]
+                r.append(acc)
+            dx = _adjugate_apply(adj, r)
+            x = [xi + d * inv_det for xi, d in zip(x, dx)]
+        return torch.stack(x, dim=1)
+    A = _dense(mat, n, e)
+    if n <= 8:
+        LU, piv, inv_d = _plu_factor(A)
+        x = _plu_substitute(LU, piv, inv_d, vec)
+        for _ in range(refine):
+            x = x + _plu_substitute(LU, piv, inv_d, _residual(A, vec, x))
+        return x
+    rhs = vec[:, :, None]
+    if refine:
+        eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape[0], n, n)
+        rhs = torch.cat([rhs, eye], dim=2)
+    X = _rolled_solve(A, rhs)
+    x = X[:, :, 0]
+    for _ in range(refine):
+        x = x + _matvec_rows(X[:, :, 1:], _residual(A, vec, x))
+    return x
+
+
+def chain_plain(mat, vec, add, eps, iters):
+    r"""Plain version of the chain kernel: ``x <- A \ x + add``, ``iters``
+    times from ``x = vec``, factoring once (``add`` may be None)."""
+    n = vec.shape[1]
+    e = _eps_tensor(eps, mat)
+    c = torch.zeros_like(vec) if add is None else add
+    x = vec
+    if n == 1:
+        a = mat[:, 0] if e is None else mat[:, 0] + e[0]
+        inv = (1.0 / a)[:, None]
+        for _ in range(iters):
+            x = x * inv + c
+        return x.clone()
+    if n <= 4:
+        E = _entries(mat, n)
+        if e is not None:
+            for i in range(n):
+                E[i][i] = E[i][i] + e[i]
+        adj, det = _cofactors(E, n)
+        inv_det = 1.0 / det
+        xs = [x[:, j] for j in range(n)]
+        for _ in range(iters):
+            xs = [y * inv_det + c[:, i]
+                  for i, y in enumerate(_adjugate_apply(adj, xs))]
+        return torch.stack(xs, dim=1)
+    A = _dense(mat, n, e)
+    if n <= 8:
+        LU, piv, inv_d = _plu_factor(A)
+        for _ in range(iters):
+            x = _plu_substitute(LU, piv, inv_d, x) + c
+        return x.clone()
+    eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape[0], n, n)
+    inv = _rolled_solve(A, eye)
+    for _ in range(iters):
+        x = _matvec_rows(inv, x) + c
+    return x.clone()
+
+
+# ---------------------------------------------------------------------------
+# kernel launches
+# ---------------------------------------------------------------------------
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from . import _build
+
+        lib = _build.load(_LIB)
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        operand = [p, ll, ll]
+        lib.fm_sym_solve.argtypes = [i, i, ll, *(operand * 3), p, i, p]
+        lib.fm_sym_solve.restype = i
+        lib.fm_sym_solve_chain.argtypes = [i, i, ll, *(operand * 4), p, i, p]
+        lib.fm_sym_solve_chain.restype = i
+        lib.fm_error_string.argtypes = [i]
+        lib.fm_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check_operand(t, name, b, width, like):
+    if t.device != like.device:
+        raise ValueError(f"{name} is on {t.device}, mat on {like.device}")
+    if t.dtype != like.dtype:
+        raise ValueError(f"{name} is {t.dtype}, mat is {like.dtype}")
+    if tuple(t.shape) != (b, width):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(b, width)}")
+    if not (t.is_contiguous() or t.t().is_contiguous()):
+        raise ValueError(
+            f"{name} must be batch-major (B, {width}) contiguous or the "
+            f"transpose of a contiguous ({width}, B) tensor")
+
+
+def _check(mat, vec, *others):
+    if not mat.is_cuda:
+        raise ValueError(f"the CUDA kernel needs CUDA tensors (got {mat.device})")
+    if mat.dtype not in _DTYPES:
+        raise ValueError(f"the CUDA kernel takes float32/float64, got {mat.dtype}")
+    b, n = vec.shape
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"the CUDA kernel serves 1 <= N <= {MAX_N}, got {n}")
+    _check_operand(mat, "mat", b, compact_size(n), mat)
+    _check_operand(vec, "vec", b, n, mat)
+    for name, t in others:
+        if t is not None:
+            _check_operand(t, name, b, n, mat)
+    return b, n
+
+
+def _operand(t):
+    if t is None:
+        return [None, 0, 0]
+    return [t.data_ptr(), *t.stride()]
+
+
+def _raise_on(err, fn):
+    if err:
+        msg = _library().fm_error_string(err).decode()
+        raise RuntimeError(f"{fn} failed to launch: CUDA error {err} ({msg})")
+
+
+def _empty_out(vec, cf_out):
+    b, n = vec.shape
+    if cf_out:
+        return torch.empty(n, b, dtype=vec.dtype, device=vec.device).t()
+    return torch.empty(b, n, dtype=vec.dtype, device=vec.device)
+
+
+def launch_solve(mat, vec, eps=None, refine=0, cf_out=False):
+    """Launch the solve kernel on CUDA tensors ``mat`` (B, NN), ``vec``
+    (B, N); returns (B, N), a transposed view of (N, B) if ``cf_out``."""
+    b, n = _check(mat, vec)
+    out = _empty_out(vec, cf_out)
+    e = _eps_tensor(eps, mat)
+    lib = _library()
+    with torch.cuda.device(mat.device):
+        err = lib.fm_sym_solve(
+            _DTYPES[mat.dtype], n, b, *_operand(mat), *_operand(vec),
+            *_operand(out), None if e is None else e.data_ptr(), int(refine),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "fm_sym_solve")
+    sym_solve_cf.launches += 1
+    return out
+
+
+def launch_chain(mat, vec, add, eps, iters, cf_out=False):
+    """Launch the chain kernel on CUDA tensors (``add`` may be None)."""
+    b, n = _check(mat, vec, ("add", add))
+    out = _empty_out(vec, cf_out)
+    e = _eps_tensor(eps, mat)
+    lib = _library()
+    with torch.cuda.device(mat.device):
+        err = lib.fm_sym_solve_chain(
+            _DTYPES[mat.dtype], n, b, *_operand(mat), *_operand(vec),
+            *_operand(add), *_operand(out),
+            None if e is None else e.data_ptr(), int(iters),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "fm_sym_solve_chain")
+    sym_solve_chain_cf.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+
+def _compact_outer_grad(dv, x):
+    """dA of x = A^-1 v in compact order: diag -dv_i x_i, upper
+    -(dv_i x_j + dv_j x_i)."""
+    n = x.shape[1]
+    rows, cols = np.triu_indices(n, k=1)
+    rows = torch.as_tensor(rows, device=x.device)
+    cols = torch.as_tensor(cols, device=x.device)
+    off = dv[:, rows] * x[:, cols] + dv[:, cols] * x[:, rows]
+    return torch.cat([-dv * x, -off], dim=1)
+
+
+class _SolveFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mat, vec, eps, refine, kernel, cf_out):
+        if kernel:
+            x = launch_solve(mat, vec, eps, refine, cf_out)
+        else:
+            x = solve_plain(mat, vec, eps, refine)
+        ctx.save_for_backward(mat, x)
+        ctx.opts = (eps, refine, kernel)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        # x = A^-1 v, A symmetric: dv = A^-1 g, dA = -dv x^T (compacted)
+        mat, x = ctx.saved_tensors
+        eps, refine, kernel = ctx.opts
+        dv = _SolveFn.apply(mat, g.contiguous(), eps, refine, kernel, False)
+        return _compact_outer_grad(dv, x), dv, None, None, None, None
+
+
+class _ChainFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mat, vec, add, eps, iters, kernel, cf_out):
+        if kernel:
+            x = launch_chain(mat, vec, add, eps, iters, cf_out)
+        else:
+            x = chain_plain(mat, vec, add, eps, iters)
+        ctx.save_for_backward(mat, vec, add)
+        ctx.opts = (eps, iters, kernel)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        # replay the chain as `iters` differentiable solves (refine=0)
+        mat, vec, add = ctx.saved_tensors
+        eps, iters, kernel = ctx.opts
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in (mat, vec, add)
+                   if t is not None]
+            m, x = ins[0], ins[1]
+            for _ in range(iters):
+                x = _SolveFn.apply(m, x, eps, 0, kernel, False)
+                if add is not None:
+                    x = x + ins[2]
+            grads = torch.autograd.grad(x, ins, g, allow_unused=True)
+        grads = [torch.zeros_like(t) if gr is None else gr
+                 for t, gr in zip(ins, grads)]
+        da = grads[2] if add is not None else None
+        return grads[0], grads[1], da, None, None, None, None
+
+
+def solve_function(mat, vec, eps, refine, kernel, cf_out=False):
+    """Differentiable solve of 2-D operands (see module docstring)."""
+    return _SolveFn.apply(mat, vec, eps, refine, kernel, cf_out)
+
+
+def chain_function(mat, vec, add, eps, iters, kernel, cf_out=False):
+    """Differentiable fused chain of 2-D operands (``add`` may be None)."""
+    return _ChainFn.apply(mat, vec, add, eps, iters, kernel, cf_out)
+
+
+# ---------------------------------------------------------------------------
+# channel-first wrappers (the counterparts of sym_pallas.sym_solve_cf /
+# sym_solve_chain_cf)
+# ---------------------------------------------------------------------------
+
+
+def _cf_flat(t, rows, batch):
+    """``t`` broadcast to ``(rows, B)``: a view where it is ``(rows, B)``
+    or ``(B, rows)`` contiguous already (the layouts the kernels read),
+    else a contiguous copy (a strided slice, a broadcast batch dim)."""
+    f = t.expand(rows, *batch).reshape(rows, -1)
+    return f if f.is_contiguous() or f.t().is_contiguous() else f.contiguous()
+
+
+def _cf_prepare(mat, vec, *extra):
+    n = vec.shape[0]
+    if mat.shape[0] != compact_size(n):
+        raise ValueError(
+            f"channel-first solve expects mat ({compact_size(n)}, ...) for "
+            f"vec ({n}, ...); got {mat.shape[0]}")
+    if n > MAX_N:
+        raise ValueError(f"sym_solve_cf implements N <= {MAX_N}")
+    if mat.dtype not in _DTYPES:
+        raise ValueError(f"sym_solve_cf takes real floats, got {mat.dtype}")
+    batch = torch.broadcast_shapes(*(t.shape[1:] for t in (mat, vec, *extra)))
+    flat = [_cf_flat(mat, mat.shape[0], batch).t(), _cf_flat(vec, n, batch).t()]
+    flat += [_cf_flat(t, n, batch).t() for t in extra]
+    return n, batch, flat
+
+
+def sym_solve_cf(
+    mat: torch.Tensor,
+    vec: torch.Tensor,
+    eps=None,
+    refine: Optional[int] = None,
+) -> torch.Tensor:
+    r"""Channel-first compact-symmetric solve ``A \ v``: ``mat (NN, ...)``,
+    ``vec (N, ...)`` -> ``(N, ...)``; batch dims broadcast.
+
+    ``eps`` is added to the diagonal; ``refine`` adds iterative
+    refinement steps (default 1 for N <= 4, 0 above). Launches the CUDA
+    kernel on CUDA tensors, and runs the plain version on CPU tensors.
+    """
+    mat, vec, half = upcast_half(mat, vec)
+    n, batch, (m2, v2) = _cf_prepare(mat, vec)
+    if refine is None:
+        refine = 1 if n <= 4 else 0
+    x = _SolveFn.apply(m2, v2, _prep_eps(eps, n), int(refine), m2.is_cuda, True)
+    return downcast(x.t().reshape(n, *batch), half)
+
+
+sym_solve_cf.launches = 0
+
+
+def sym_solve_chain_cf(
+    mat: torch.Tensor,
+    vec: torch.Tensor,
+    iters: int = 1,
+    add: Optional[torch.Tensor] = None,
+    eps=None,
+) -> torch.Tensor:
+    r"""Channel-first fused iterated solve: ``x_0 = vec``,
+    ``x_{t+1} = A \ x_t + add``, returning ``x_iters`` ``(N, ...)``.
+
+    One launch runs the whole chain, reading A once and factoring it
+    once. Launches the CUDA kernel on CUDA tensors, and runs the plain
+    version on CPU tensors.
+    """
+    if iters < 0:
+        raise ValueError("iters must be >= 0")
+    arrays = (mat, vec) if add is None else (mat, vec, add)
+    *arrays, half = upcast_half(*arrays)
+    n, batch, flat = _cf_prepare(*arrays)
+    a2 = flat[2] if add is not None else None
+    x = _ChainFn.apply(flat[0], flat[1], a2, _prep_eps(eps, n), int(iters),
+                       flat[0].is_cuda, True)
+    return downcast(x.t().reshape(n, *batch), half)
+
+
+sym_solve_chain_cf.launches = 0
