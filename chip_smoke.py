@@ -10,16 +10,26 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    kernel's registers and spills (``-Xptxas -v``; the full log goes to
    ``chiprun_out/chip_smoke/``);
 2. every kernel against its plain PyTorch version on the card, at every
-   tier (N = 1 .. 32), float32 and float64, with and without ``eps``,
-   ``refine`` 0..2, on a ragged batch, in the batch-major and the
-   channel-first layout, and against a float64 numpy oracle;
-3. gradients of ``sym_solve`` and ``sym_solve_chain`` through the kernels
-   against the same through the plain versions;
-4. the main path at full size: the public ``sym_solve`` on a 1M batch of
-   4x4 float32 compact SPD matrices made as ``bench.py`` makes them, and
-   ``sym_solve_chain`` with k = 128 on the same batch; launch counts,
-   normwise error against float64 numpy, solves/s; then N = 8 and 16;
-5. one JSON line of per-kernel times beside their bounds.
+   tier (N = 1 .. 32; JᵀHJ at K, D up to 32), float32 and float64, with
+   and without ``eps``, ``refine`` 0..2, on a ragged batch, in the
+   batch-major and the channel-first layout, and against a float64 numpy
+   oracle;
+3. gradients of ``sym_solve``, ``sym_solve_chain`` and the products
+   through the kernels against the same through the plain versions (the
+   matvec kernel must launch in the backward);
+4. the solve's main path at full size: the public ``sym_solve`` on a 1M
+   batch of 4x4 float32 compact SPD matrices made as ``bench.py`` makes
+   them, and ``sym_solve_chain`` with k = 128 on the same batch; launch
+   counts, normwise error against float64 numpy, solves/s; then N = 8
+   and 16;
+5. the products' path at full size (``bench/suite.py``'s shapes): the
+   public ``sym_matvec``, ``sym_addmatvec``, ``sym_submatvec`` and
+   ``sym_outer`` on that batch, ``sym_matmul`` JᵀHJ at K = D = 16 on
+   200,000 problems, and one Gauss-Newton step on the 1M batch
+   (H = JᵀWJ + g gᵀ, δ = H \\ g, r = g - H δ); launch counts, normwise
+   error against float64 numpy, kernel, plain and library times, and the
+   step's device time beside each of its launches alone;
+6. one JSON line of per-kernel times beside their bounds.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository beside it, the script exits non-zero
@@ -40,6 +50,7 @@ SEED = 0
 B_MAIN, N_MAIN, CHAIN_K = 1_000_000, 4, 128
 B_CHECK = 4099  # a 4096 batch with a ragged tail
 B_WIDE = 262_144
+B_JHJ, K_JHJ = 200_000, 16  # bench/suite.py's sym_matmul JhJ 16x16 batch
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor-core FP32
 # and FP64 operations/s
 PEAK_BYTES = 3.35e12
@@ -75,10 +86,10 @@ def compact(full):
 
 
 def normwise(got, want, add=None):
-    """Per-problem ||got - want|| / ||want||. For a chain pass its ``add``:
-    the recurrence x <- A \\ x + add can cancel (||x_k|| far below the
-    per-step terms), and rounding scales with the terms, so the error is
-    taken relative to ||want|| + ||add||."""
+    """Per-problem ||got - want|| / ||want||. For a chain pass its ``add``
+    (for acc +/- A v, its acc): the recurrence x <- A \\ x + add can cancel
+    (||x_k|| far below the per-step terms), and rounding scales with the
+    terms, so the error is taken relative to ||want|| + ||add||."""
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     scale = np.linalg.norm(want, axis=-1)
     if add is not None:
@@ -170,8 +181,10 @@ def ptxas_summary(text):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
-            k = re.search(r"fm\d+(\w+?)I([fd])(?:Li(\d+)E)?", name)
-            name = f"{k.group(1)}<{k.group(2)}{',' + k.group(3) if k.group(3) else ''}>" if k else name
+            k = re.search(r"fm\d+(\w+?)I([fd])((?:L[ib]\d+E)*)E", name)
+            if k:  # fm::kernel<dtype, int and bool template arguments...>
+                args = [k.group(2), *re.findall(r"L[ib](\d+)E", k.group(3))]
+                name = f"{k.group(1)}<{','.join(args)}>"
             stack = spills = None
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
@@ -266,6 +279,77 @@ def phase_kernels_vs_plain(torch, rng):
                 f"(tol {TOL_ORACLE[dt_name]:.0e})")
 
 
+JHJ_CHECK = ((1, 1), (3, 2), (4, 4), (6, 6), (7, 3), (3, 7), (16, 16), (32, 32))
+
+
+def full64(cm, n):
+    """float64 numpy full matrices of a compact tensor (the values the
+    card holds, so float32 inputs are not rounded twice)."""
+    from fastmath_tpu_torch.layouts import compact_index_grid
+
+    return cm.double().cpu().numpy()[:, compact_index_grid(n)]
+
+
+def oracle_jhj(J, H):
+    return compact(np.einsum("bai,bac,bcj->bij", J, H, J))
+
+
+def phase_products_vs_plain(torch, rng):
+    """The product kernels (matvec, acc +/- matvec, outer, JtHJ) against
+    their plain versions and a float64 numpy oracle."""
+    from fastmath_tpu_torch.kernels import sym_products as P
+
+    worst = {}
+
+    def check(key, got, plain, want64, dt_name, acc=None):
+        # acc +/- A v can cancel: its error is taken over norm + norm(acc)
+        torch.cuda.synchronize()
+        got = got.cpu().numpy()
+        d = normwise(got, plain.cpu().numpy(), acc).max()
+        o = normwise(got, want64, acc).max()
+        worst[key] = (d, o)
+        if not (d <= TOL_PLAIN[dt_name] and o <= TOL_ORACLE[dt_name]):
+            fail(f"{key}: kernel vs plain {d:.3e}, vs f64 oracle {o:.3e}")
+
+    layouts = (("bm", lambda t: t), ("cf", lambda t: t.t().contiguous().t()))
+    for dt_name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        for n in (1, 2, 3, 4, 5, 8, 16, 32):
+            mat, vec, acc = (torch.tensor(a, dtype=dtype, device=DEV) for a in (
+                compact(spd(rng, B_CHECK, n, np.float64)), rng.standard_normal((B_CHECK, n)),
+                rng.standard_normal((B_CHECK, n))))
+            v64, c64 = vec.double().cpu().numpy(), acc.double().cpu().numpy()
+            mv64 = np.einsum("bij,bj->bi", full64(mat, n), v64)
+            outer64 = compact(v64[:, :, None] * v64[:, None, :])
+            for layout, lay in layouts:
+                cf = layout == "cf"
+                m, x, a = lay(mat), lay(vec), lay(acc)
+                check(f"matvec {dt_name} n={n} {layout}", P.launch_matvec(m, x, cf),
+                      P.matvec_plain(mat, vec), mv64, dt_name)
+                for sign, op in ((1.0, "addmatvec"), (-1.0, "submatvec")):
+                    check(f"{op} {dt_name} n={n} {layout}",
+                          P.launch_accmatvec(a, m, x, sign, cf),
+                          P.accmatvec_plain(acc, mat, vec, sign), c64 + sign * mv64, dt_name,
+                          c64)
+                check(f"outer {dt_name} n={n} {layout}", P.launch_outer(x, cf),
+                      P.outer_plain(vec), outer64, dt_name)
+        for k, d in JHJ_CHECK:
+            j = torch.tensor(rng.standard_normal((B_CHECK, k * d)), dtype=dtype, device=DEV)
+            h = torch.tensor(compact(spd(rng, B_CHECK, k, np.float64)), dtype=dtype, device=DEV)
+            want64 = oracle_jhj(j.double().cpu().numpy().reshape(B_CHECK, k, d), full64(h, k))
+            plain = P.jhj_plain(j, h, d)
+            for layout, lay in layouts:
+                check(f"jhj {dt_name} k={k} d={d} {layout}",
+                      P.launch_jhj(lay(j), lay(h), d, layout == "cf"), plain, want64, dt_name)
+    for dt_name in ("float32", "float64"):
+        for op in ("matvec", "addmatvec", "submatvec", "outer", "jhj"):
+            ks = [k for k in worst if k.startswith(f"{op} {dt_name}")]
+            over = " (error over norm(y) + norm(acc))" if op in ("addmatvec", "submatvec") else ""
+            log(f"  {op} {dt_name}: {len(ks)} cases{over}, worst normwise kernel-vs-plain "
+                f"{max(worst[k][0] for k in ks):.3e} (tol {TOL_PLAIN[dt_name]:.0e}), "
+                f"vs f64 numpy {max(worst[k][1] for k in ks):.3e} "
+                f"(tol {TOL_ORACLE[dt_name]:.0e})")
+
+
 # --- phase 3 -----------------------------------------------------------------
 
 
@@ -291,6 +375,36 @@ def phase_gradients(torch, rng):
         log(f"  grad n={n}: kernel vs plain relative {worst:.3e} (tol 1e-10)")
         if not worst <= 1e-10:
             fail(f"gradient n={n} differs: {worst:.3e}")
+
+    from fastmath_tpu_torch.kernels import sym_matvec_cf
+
+    for n in (3, 12):
+        ins0 = [torch.tensor(a, device=DEV) for a in (
+            compact(spd(rng, 515, n, np.float64)), rng.standard_normal((515, n)),
+            rng.standard_normal((515, n)), rng.standard_normal((515, n, 2)))]
+
+        def product_grads(backend):
+            ins = [t.clone().requires_grad_() for t in ins0]
+            m, v, a, j = ins
+            out = (T.sym_matvec(m, v, backend=backend).square().sum()
+                   + T.sym_addmatvec(a, m, v, backend=backend).square().sum()
+                   + T.sym_submatvec(a, m, v, backend=backend).square().sum()
+                   + T.sym_outer(v, backend=backend).square().sum()
+                   + T.sym_matmul(j, m, backend=backend).square().sum())
+            before = sym_matvec_cf.launches
+            g = torch.autograd.grad(out, ins)
+            return g, sym_matvec_cf.launches - before
+
+        kernel, bwd = product_grads("cuda")
+        plain, _ = product_grads("torch")
+        worst = max(((k - p).norm() / p.norm()).item() for k, p in zip(kernel, plain))
+        torch.cuda.synchronize()
+        log(f"  product grads n={n}: kernel vs plain relative {worst:.3e} (tol 1e-10); "
+            f"matvec kernel launches in backward: {bwd}")
+        if not worst <= 1e-10:
+            fail(f"product gradient n={n} differs: {worst:.3e}")
+        if bwd < 1:
+            fail(f"product gradient n={n}: the backward did not launch the matvec kernel")
 
 
 # --- phase 4 -----------------------------------------------------------------
@@ -434,7 +548,7 @@ def phase_main_path(torch, rng):
     if not (err_solve <= 1e-4 and err_chain <= 1e-3):
         fail(f"main-path kernels disagree with their plain versions: "
              f"{err_solve:.3e}, {err_chain:.3e}")
-    return kernels
+    return kernels, (full, vec_np, mat, vec)
 
 
 def phase_wide(torch, rng):
@@ -464,6 +578,206 @@ def phase_wide(torch, rng):
             f"chain k={CHAIN_K} {t_c:.4f} ms ({B_WIDE * CHAIN_K / t_c * 1e3:.4e} solves/s)")
 
 
+# --- phase 5 -----------------------------------------------------------------
+
+
+def ops_matvec(n, acc):
+    """Arithmetic operations of one compact A v: n diagonal products and
+    two multiply-adds per off-diagonal slot; the accumulate adds a
+    multiply-add per row (acc + sign * y)."""
+    return n + 4 * (n * (n - 1) // 2) + (2 * n if acc else 0)
+
+
+def ops_jhj(k, d):
+    """Arithmetic operations of one JtHJ as the kernel does them: H J
+    (k d sums of k products), then G = Jt (H J), its upper triangle up to
+    K, D = 6 and the whole of it above, with 0.5 (G_ij + G_ji) there."""
+    dot = 2 * k - 1
+    if max(k, d) <= 6:
+        return k * d * dot + d * (d + 1) // 2 * dot
+    return k * d * dot + d * d * dot + d * (d - 1)
+
+
+def yardstick_ms(torch, fn, name):
+    """Device time of one PyTorch library call (never called by the port),
+    per call where it waits for the card."""
+    t = device_ms(torch, fn, reps=5, tries=4)
+    if t is None:
+        log(f"  {name} waits for the card: timed per call")
+        t = call_ms(torch, fn, reps=5)
+    return t
+
+
+def phase_products(torch, rng, full, vec_np, mat, vec):
+    """The products at bench/suite.py's shapes, through the public ops,
+    and one Gauss-Newton step, on phase 4's 1M x 4 x 4 batch."""
+    import fastmath_tpu_torch as T
+    from fastmath_tpu_torch.kernels import sym_cuda
+    from fastmath_tpu_torch.kernels import sym_products as P
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    acc_np = rng.standard_normal((B_MAIN, N_MAIN)).astype(np.float32)
+    j16_np = rng.standard_normal((B_JHJ, K_JHJ, K_JHJ)).astype(np.float32)
+    h16_np = spd(rng, B_JHJ, K_JHJ)  # bench/suite.py's spd_batch
+    # Gauss-Newton Jacobians Q diag(s): Q orthogonal, s in [0.8, 1.25], so
+    # cond(J) <= 1.5625 and the check measures the kernels, not the
+    # conditioning of random 4x4 Jacobians
+    q, _ = np.linalg.qr(rng.standard_normal((B_MAIN, N_MAIN, N_MAIN)))
+    j4_np = (q * rng.uniform(0.8, 1.25, (B_MAIN, 1, N_MAIN))).astype(np.float32)
+    acc, j16, j4 = (torch.from_numpy(a).to(DEV) for a in (acc_np, j16_np, j4_np))
+    h16 = torch.from_numpy(compact(h16_np)).to(DEV)
+    torch.cuda.synchronize()
+
+    counters = {"matvec": P.sym_matvec_cf, "addmatvec": P.sym_addmatvec_cf,
+                "submatvec": P.sym_submatvec_cf, "outer": P.sym_outer_cf,
+                "jhj": P.sym_matmul_cf, "solve": sym_cuda.sym_solve_cf,
+                "chain": sym_cuda.sym_solve_chain_cf}
+    for c in counters.values():
+        c.launches = 0
+    y_mv = T.sym_matvec(mat, vec)
+    y_add = T.sym_addmatvec(acc, mat, vec)
+    y_sub = T.sym_submatvec(acc, mat, vec)
+    y_out = T.sym_outer(vec)
+    y_jhj = T.sym_matmul(j16, h16)
+    # one Gauss-Newton step: H = Jt W J + g gt, delta = H \ g, r = g - H delta
+    gn_h = T.sym_matmul(j4, mat) + T.sym_outer(vec)
+    delta = T.sym_solve(gn_h, vec)
+    resid = T.sym_submatvec(vec, gn_h, delta)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    log("  products-path launches: " + " ".join(f"{k}={v}" for k, v in launches.items()))
+    if not all(launches[k] >= 1 for k in ("matvec", "addmatvec", "submatvec", "outer",
+                                          "jhj", "solve")):
+        fail(f"the products' path did not go through every kernel: {launches}")
+    for name, y, shape in (("sym_matvec", y_mv, (B_MAIN, N_MAIN)),
+                           ("sym_addmatvec", y_add, (B_MAIN, N_MAIN)),
+                           ("sym_submatvec", y_sub, (B_MAIN, N_MAIN)),
+                           ("sym_outer", y_out, (B_MAIN, 10)),
+                           ("sym_matmul", y_jhj, (B_JHJ, K_JHJ * (K_JHJ + 1) // 2)),
+                           ("gauss-newton delta", delta, (B_MAIN, N_MAIN)),
+                           ("gauss-newton r", resid, (B_MAIN, N_MAIN))):
+        if tuple(y.shape) != shape or not torch.isfinite(y).all():
+            fail(f"{name} output has the wrong shape or is not finite")
+
+    # normwise error against float64 numpy on a slice of each batch
+    ns, nj = 65_536, 8192
+    a64, v64, c64 = (x[:ns].astype(np.float64) for x in (full, vec_np, acc_np))
+    mv64 = np.einsum("bij,bj->bi", a64, v64)
+    gg64 = v64[:, :, None] * v64[:, None, :]
+    gnh64 = np.einsum("bai,bac,bcj->bij", j4_np[:ns].astype(np.float64), a64,
+                      j4_np[:ns].astype(np.float64)) + gg64
+    cpu = lambda t, k=ns: t[:k].cpu().numpy()  # noqa: E731
+    errs = {
+        "sym_matvec 1Mx4 normwise vs f64": normwise(cpu(y_mv), mv64),
+        # acc +/- A v can cancel: over norm(y) + norm(acc), as the chain
+        "sym_addmatvec 1Mx4 normwise vs f64": normwise(cpu(y_add), c64 + mv64, c64),
+        "sym_submatvec 1Mx4 normwise vs f64": normwise(cpu(y_sub), c64 - mv64, c64),
+        "sym_outer 1Mx4 normwise vs f64": normwise(cpu(y_out), compact(gg64)),
+        f"sym_matmul {K_JHJ}x{K_JHJ} 200k normwise vs f64": normwise(
+            cpu(y_jhj, nj), oracle_jhj(j16_np[:nj].astype(np.float64),
+                                       h16_np[:nj].astype(np.float64))),
+        "gauss-newton H normwise vs f64": normwise(cpu(gn_h), compact(gnh64)),
+        "gauss-newton delta normwise vs f64": normwise(cpu(delta), np.linalg.solve(gnh64, v64[..., None])[..., 0]),
+        "gauss-newton |r|/|g|": np.linalg.norm(cpu(resid), axis=-1) / np.linalg.norm(v64, axis=-1),
+    }
+    for name, e in errs.items():
+        log(f"  {name} ({len(e)} problems): median={np.median(e):.3e} "
+            f"p99={np.quantile(e, 0.99):.3e} max={e.max():.3e} (gate {GATE:.0e})")
+        if not e.max() <= GATE:
+            fail(f"{name}: normwise error {e.max():.3e} > {GATE}")
+
+    def gauss_newton_step():
+        h = T.sym_matmul(j4, mat) + T.sym_outer(vec)
+        return T.sym_submatvec(vec, h, T.sym_solve(h, vec))
+
+    # the public ops per call (host launch included) and their host share
+    public = {
+        "sym_matvec": lambda: T.sym_matvec(mat, vec),
+        "sym_addmatvec": lambda: T.sym_addmatvec(acc, mat, vec),
+        "sym_submatvec": lambda: T.sym_submatvec(acc, mat, vec),
+        "sym_outer": lambda: T.sym_outer(vec),
+        "sym_matmul 16x16 200k": lambda: T.sym_matmul(j16, h16),
+        "gauss-newton step": gauss_newton_step,
+    }
+    for name, fn in public.items():
+        log(f"  public {name}: {call_ms(torch, fn, reps=20):.4f} ms per call, "
+            f"host {host_ms(torch, fn, reps=20):.4f} ms per call")
+
+    # the step's device time, then each of its launches alone on the same
+    # operands: the 4x4 JtHJ, the outer product, the elementwise add, the
+    # solve (refine 1, the public default at N = 4) and the residual
+    j4f = j4.reshape(B_MAIN, N_MAIN * N_MAIN)
+    jhj4, gg = T.sym_matmul(j4, mat), T.sym_outer(vec)
+    parts = {
+        "jhj 4x4": lambda: P.launch_jhj(j4f, mat, N_MAIN),
+        "outer": lambda: P.launch_outer(vec),
+        "H + g gt": lambda: jhj4 + gg,
+        "solve": lambda: sym_cuda.launch_solve(gn_h, vec, None, 1),
+        "submatvec": lambda: P.launch_accmatvec(vec, gn_h, delta, -1.0),
+    }
+    gn_ms = device_ms(torch, gauss_newton_step)
+    part_ms = {k: device_ms(torch, fn) for k, fn in parts.items()}
+    if gn_ms is None or None in part_ms.values():
+        fail("the Gauss-Newton step could not be queued ahead of the card")
+    log(f"  gauss-newton step device time: {gn_ms:.4f} ms; its launches alone: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in part_ms.items())
+        + f" ms (sum {sum(part_ms.values()):.4f} ms)")
+
+    # the kernels line: each kernel alone at its path's shape, its plain
+    # version and one PyTorch call on full storage as the yardstick
+    j16f = j16.reshape(B_JHJ, K_JHJ * K_JHJ)
+    full_t = torch.from_numpy(full).to(DEV)
+    h16_full = torch.from_numpy(h16_np).to(DEV)
+    item = 4
+    nn = N_MAIN * (N_MAIN + 1) // 2
+    rows = [
+        ("sym_matvec_cf", 483, "matvec", lambda: P.launch_matvec(mat, vec),
+         lambda: P.matvec_plain(mat, vec), lambda: torch.matmul(full_t, vec[..., None]),
+         bound(B_MAIN * (nn + 2 * N_MAIN) * item, B_MAIN * ops_matvec(N_MAIN, False),
+               "float32")),
+        ("sym_addmatvec_cf/sym_submatvec_cf", 1441, ("addmatvec", "submatvec"),
+         lambda: P.launch_accmatvec(acc, mat, vec, -1.0),
+         lambda: P.accmatvec_plain(acc, mat, vec, -1.0),
+         lambda: torch.baddbmm(acc[..., None], full_t, vec[..., None], alpha=-1.0),
+         bound(B_MAIN * (nn + 3 * N_MAIN) * item, B_MAIN * ops_matvec(N_MAIN, True),
+               "float32")),
+        ("sym_outer_cf", 1538, "outer", lambda: P.launch_outer(vec),
+         lambda: P.outer_plain(vec), lambda: torch.einsum("bi,bj->bij", vec, vec),
+         bound(B_MAIN * (N_MAIN + nn) * item, B_MAIN * nn, "float32")),
+        ("sym_matmul_cf", 1713, "jhj", lambda: P.launch_jhj(j16f, h16, K_JHJ),
+         lambda: P.jhj_plain(j16f, h16, K_JHJ),
+         lambda: torch.einsum("bki,bkl,blj->bij", j16, h16_full, j16),
+         bound(B_JHJ * (K_JHJ * K_JHJ + 2 * K_JHJ * (K_JHJ + 1) // 2) * item,
+               B_JHJ * ops_jhj(K_JHJ, K_JHJ), "float32")),
+    ]
+    kernels = []
+    for name, line, counted, kern, plain, lib, (b_ms, b_by) in rows:
+        diff, want = kern() - plain(), plain()
+        err = diff.abs().max().item()
+        rel = (diff.norm(dim=-1) / want.norm(dim=-1)).max().item()
+        log(f"  {name} at full size: kernel vs plain max abs {err:.3e}, normwise {rel:.3e} "
+            f"(tol {TOL_PLAIN['float32']:.0e})")
+        if not rel <= TOL_PLAIN["float32"]:
+            fail(f"{name} disagrees with its plain version: normwise {rel:.3e}")
+        del diff, want
+        ms = device_ms(torch, kern)
+        if ms is None:
+            fail(f"{name}: the kernel could not be queued ahead of the card")
+        counted = (counted,) if isinstance(counted, str) else counted
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "fastmath_tpu_torch/kernels/csrc/sym_products.cu",
+            "replaces": f"fastmath_tpu/kernels/sym_pallas.py:{line}",
+            "launches": sum(launches[c] for c in counted), "max_abs_err": err,
+            "ms": ms, "plain_ms": call_ms(torch, plain, reps=5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": yardstick_ms(torch, lib, name)})
+    for k in kernels:
+        log(f"  {k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms by "
+            f"{k['bound_by']}, {k['bound_ms'] / k['ms'] * 100:.1f}% of it), plain "
+            f"{k['plain_ms']:.4f} ms, library {k['library_ms']:.4f} ms")
+    return kernels
+
+
 def main():
     import torch
 
@@ -480,11 +794,14 @@ def main():
     smi = phase_device(torch)
     log("== phase 2: kernels against their plain versions")
     phase_kernels_vs_plain(torch, rng)
+    phase_products_vs_plain(torch, rng)
     log("== phase 3: gradients")
     phase_gradients(torch, rng)
     log("== phase 4: main path at full size")
-    kernels = phase_main_path(torch, rng)
+    kernels, batch = phase_main_path(torch, rng)
     phase_wide(torch, rng)
+    log("== phase 5: the products' path at full size")
+    kernels += phase_products(torch, rng, *batch)
     torch.cuda.synchronize()
     log(f"total_seconds={time.perf_counter() - t0:.1f}")
     log(smi)

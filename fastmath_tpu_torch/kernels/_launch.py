@@ -1,0 +1,117 @@
+"""What the kernel modules share: the kernels' domain, the checks of a
+launch, its output, the ``ctypes`` call with its launch count, and the
+channel-first operands of the ``*_cf`` wrappers.
+
+Operands of a launch are 2-D ``(B, K)`` views, either batch-major
+contiguous (the public ops) or transposes of channel-first contiguous
+``(K, B)`` tensors (the ``*_cf`` wrappers); the kernels take a batch and
+a channel stride per operand, so neither layout is transposed.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..layouts.sym import compact_size
+
+__all__ = ["MAX_N", "KERNEL_DTYPES", "in_domain", "require_domain", "check", "operand",
+           "empty", "launch", "cf_flat", "cf_prepare"]
+
+#: largest N (for the congruence product, max(K, D)) the kernels serve
+MAX_N = 32
+_CODES = {torch.float32: 0, torch.float64: 1}
+#: dtypes the kernels take
+KERNEL_DTYPES = tuple(_CODES)
+
+
+def in_domain(n: int, dtype: torch.dtype) -> bool:
+    """Whether the kernels take size ``n`` (1 <= n <= MAX_N) in ``dtype``."""
+    return 1 <= n <= MAX_N and dtype in _CODES
+
+
+def require_domain(op: str, n: int, dtype: torch.dtype, what: str = "N"):
+    """Raise the ``ValueError`` of wrapper ``op`` called outside the
+    kernels' domain (``what`` names the size ``n``)."""
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"{op} implements 1 <= {what} <= {MAX_N}, got {n}")
+    if dtype not in _CODES:
+        raise ValueError(f"{op} takes real floats, got {dtype}")
+
+
+def _check_operand(t, name, b, width, like):
+    if t.device != like.device:
+        raise ValueError(f"{name} is on {t.device}, mat on {like.device}")
+    if t.dtype != like.dtype:
+        raise ValueError(f"{name} is {t.dtype}, mat is {like.dtype}")
+    if tuple(t.shape) != (b, width):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(b, width)}")
+    if not (t.is_contiguous() or t.t().is_contiguous()):
+        raise ValueError(
+            f"{name} must be batch-major (B, {width}) contiguous or the "
+            f"transpose of a contiguous ({width}, B) tensor")
+
+
+def check(first, n, *operands):
+    """Device, dtype and size checks of a launch; each operand is (name,
+    tensor, width) and must be (B, width) in a layout the kernels read, B
+    the first operand's batch. Returns B."""
+    if not first.is_cuda:
+        raise ValueError(f"the CUDA kernel needs CUDA tensors (got {first.device})")
+    if first.dtype not in _CODES:
+        raise ValueError(f"the CUDA kernel takes float32/float64, got {first.dtype}")
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"the CUDA kernel serves 1 <= N <= {MAX_N}, got {n}")
+    b = first.shape[0]
+    for name, t, width in operands:
+        if t is not None:
+            _check_operand(t, name, b, width, first)
+    return b
+
+
+def operand(t):
+    """A launch's (pointer, batch stride, channel stride) of ``t``."""
+    if t is None:
+        return [None, 0, 0]
+    return [t.data_ptr(), *t.stride()]
+
+
+def empty(like, b, width, cf_out):
+    """A (B, width) output; a transposed view of (width, B) if ``cf_out``."""
+    if cf_out:
+        return torch.empty(width, b, dtype=like.dtype, device=like.device).t()
+    return torch.empty(b, width, dtype=like.dtype, device=like.device)
+
+
+def launch(lib, wrapper, name, like, *args):
+    """Call entry point ``name`` of ``lib`` with the dtype code first and
+    the current stream last, raise on a launch error, and count the
+    launch on ``wrapper``."""
+    with torch.cuda.device(like.device):
+        err = getattr(lib, name)(_CODES[like.dtype], *args,
+                                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        msg = lib.fm_error_string(err).decode()
+        raise RuntimeError(f"{name} failed to launch: CUDA error {err} ({msg})")
+    wrapper.launches += 1
+
+
+def cf_flat(t, rows, batch):
+    """``t`` broadcast to ``(rows, B)``: a view where it is ``(rows, B)``
+    or ``(B, rows)`` contiguous already (the layouts the kernels read),
+    else a contiguous copy (a strided slice, a broadcast batch dim)."""
+    f = t.expand(rows, *batch).reshape(rows, -1)
+    return f if f.is_contiguous() or f.t().is_contiguous() else f.contiguous()
+
+
+def cf_prepare(mat, vec, *extra, op):
+    """Checks of a channel-first ``mat (NN, ...)``, ``vec (N, ...)`` call
+    and its operands, ``mat`` and ``vec`` first, as (B, rows) views."""
+    n = vec.shape[0]
+    if mat.shape[0] != compact_size(n):
+        raise ValueError(
+            f"channel-first {op} expects mat ({compact_size(n)}, ...) for "
+            f"vec ({n}, ...); got {mat.shape[0]}")
+    require_domain(op, n, mat.dtype)
+    batch = torch.broadcast_shapes(*(t.shape[1:] for t in (mat, vec, *extra)))
+    flat = [cf_flat(mat, mat.shape[0], batch).t(), cf_flat(vec, n, batch).t()]
+    flat += [cf_flat(t, n, batch).t() for t in extra]
+    return n, batch, flat

@@ -1,7 +1,8 @@
-// Device code shared by the compact-symmetric solve kernels: the
-// compact index map, entry loads, residuals, and the partial-pivoting
-// LU in two forms (unrolled in registers for N <= 8, rolled over a
-// per-thread local array for 9 <= N <= 32).
+// Code shared by the compact-symmetric kernels (sym_solve.cu,
+// sym_products.cu): strided operands and launch helpers, the compact
+// index map, entry loads, residuals, and the partial-pivoting LU in two
+// forms (unrolled in registers for N <= 8, rolled over a per-thread
+// local array for 9 <= N <= 32).
 //
 // Pivoting is first-max partial pivoting: the pivot of column k is the
 // lowest row i >= k whose |A[i][k]| is the column maximum, as in the
@@ -16,6 +17,30 @@ namespace fm {
 // array: [A | v | I] when a refined solve needs the explicit inverse.
 constexpr int kMaxN = 32;
 constexpr int kRolledWidth = 2 * kMaxN + 1;
+
+constexpr int kThreads = 128;
+
+// Strided operand: element (b, k) lives at p[b * sb + k * sc]. The
+// batch-major (B, K) layout of the public ops has strides (K, 1), the
+// channel-first (K, B) layout of the *_cf wrappers (1, B).
+template <typename T>
+struct View {
+  T* p;
+  long long sb, sc;
+};
+
+template <typename T>
+View<T> view(void* p, long long sb, long long sc) {
+  return View<T>{static_cast<T*>(p), sb, sc};
+}
+
+template <typename T>
+View<const T> cview(const void* p, long long sb, long long sc) {
+  return View<const T>{static_cast<const T*>(p), sb, sc};
+}
+
+// One thread per problem: blocks of kThreads over nb problems.
+inline unsigned grid_for(long long nb) { return (unsigned)((nb + kThreads - 1) / kThreads); }
 
 // Flat compact index of entry (i, j): the diagonal first, then the
 // strict upper triangle row by row.
@@ -235,3 +260,9 @@ __device__ __forceinline__ void rolled_identity(T* a, int n, int w, int c0) {
 }
 
 }  // namespace fm
+
+// Each library built from a source that includes this header exports
+// its own copy (bound with ctypes beside the entry points).
+extern "C" const char* fm_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

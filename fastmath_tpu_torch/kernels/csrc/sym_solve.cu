@@ -40,15 +40,6 @@
 
 namespace fm {
 
-constexpr int kThreads = 128;
-
-// Strided operand: element (b, k) lives at p[b * sb + k * sc].
-template <typename T>
-struct View {
-  T* p;
-  long long sb, sc;
-};
-
 // ---------------------------------------------------------------------------
 // single solve
 // ---------------------------------------------------------------------------
@@ -220,8 +211,6 @@ chain_rolled(long long nb, int n, View<const T> mat, View<const T> vec, View<con
 // launchers
 // ---------------------------------------------------------------------------
 
-inline unsigned grid_for(long long nb) { return (unsigned)((nb + kThreads - 1) / kThreads); }
-
 template <typename T>
 cudaError_t launch_solve(int n, long long nb, View<const T> mat, View<const T> vec,
                          View<T> out, const T* eps, int refine, cudaStream_t s) {
@@ -257,21 +246,7 @@ cudaError_t launch_chain(int n, long long nb, View<const T> mat, View<const T> v
   return cudaGetLastError();
 }
 
-template <typename T>
-View<T> view(void* p, long long sb, long long sc) {
-  return View<T>{static_cast<T*>(p), sb, sc};
-}
-
-template <typename T>
-View<const T> cview(const void* p, long long sb, long long sc) {
-  return View<const T>{static_cast<const T*>(p), sb, sc};
-}
-
 }  // namespace fm
-
-extern "C" const char* fm_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
 
 // Plain C entry points (bound with ctypes). dtype: 0 = float, 1 = double.
 // Each operand is (pointer, batch stride, channel stride) in elements;

@@ -14,34 +14,26 @@ registers. See the source's header for the tiers.
 Each wrapper launches its kernel on a CUDA tensor and runs its plain
 version, which repeats the kernel's arithmetic in PyTorch, on a CPU
 tensor. ``sym_solve_cf.launches`` and ``sym_solve_chain_cf.launches``
-count kernel launches, and nothing else.
-
-Operands are 2-D ``(B, NN)`` / ``(B, N)`` views, either batch-major
-contiguous (the public ops) or transposes of channel-first contiguous
-``(NN, B)`` tensors (the ``*_cf`` wrappers); the kernels take a batch
-and a channel stride per operand, so neither layout is transposed.
+count kernel launches, and nothing else. Operands are 2-D views, as
+:mod:`._launch` describes.
 """
 from __future__ import annotations
 
 import ctypes
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ..core.dtypes import downcast, upcast_half
-from ..layouts.sym import compact_index_grid, compact_size
+from ..layouts.sym import compact_size, sym_to_full
 from ..ops.sym import _adjugate_apply, _cofactors, _entries, _prep_eps
+from ._launch import cf_prepare, check, empty, launch, operand
+from .sym_products import sym_outer_sum
 
 __all__ = ["sym_solve_cf", "sym_solve_chain_cf", "solve_plain", "chain_plain",
-           "solve_function", "chain_function", "MAX_N", "KERNEL_DTYPES"]
+           "SolveFunction", "ChainFunction"]
 
-#: largest N the kernels serve (rolled tier 9..32)
-MAX_N = 32
 _LIB = "sym_solve"
-_DTYPES = {torch.float32: 0, torch.float64: 1}
-#: dtypes the kernels take
-KERNEL_DTYPES = tuple(_DTYPES)
 
 
 # ---------------------------------------------------------------------------
@@ -59,9 +51,7 @@ def _eps_tensor(eps, like):
 
 def _dense(mat, n, eps):
     """(B, n, n) entry grid of compact ``mat`` (B, NN), eps on the diagonal."""
-    idx = torch.as_tensor(compact_index_grid(n), dtype=torch.long,
-                          device=mat.device)
-    A = mat[:, idx]
+    A = sym_to_full(mat, n)  # a gathered copy
     if eps is not None:
         A.diagonal(dim1=1, dim2=2).add_(eps)
     return A
@@ -258,10 +248,10 @@ def _library():
 
         lib = _build.load(_LIB)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        operand = [p, ll, ll]
-        lib.fm_sym_solve.argtypes = [i, i, ll, *(operand * 3), p, i, p]
+        strided = [p, ll, ll]  # pointer, batch stride, channel stride
+        lib.fm_sym_solve.argtypes = [i, i, ll, *(strided * 3), p, i, p]
         lib.fm_sym_solve.restype = i
-        lib.fm_sym_solve_chain.argtypes = [i, i, ll, *(operand * 4), p, i, p]
+        lib.fm_sym_solve_chain.argtypes = [i, i, ll, *(strided * 4), p, i, p]
         lib.fm_sym_solve_chain.restype = i
         lib.fm_error_string.argtypes = [i]
         lib.fm_error_string.restype = ctypes.c_char_p
@@ -269,85 +259,28 @@ def _library():
     return _lib
 
 
-def _check_operand(t, name, b, width, like):
-    if t.device != like.device:
-        raise ValueError(f"{name} is on {t.device}, mat on {like.device}")
-    if t.dtype != like.dtype:
-        raise ValueError(f"{name} is {t.dtype}, mat is {like.dtype}")
-    if tuple(t.shape) != (b, width):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(b, width)}")
-    if not (t.is_contiguous() or t.t().is_contiguous()):
-        raise ValueError(
-            f"{name} must be batch-major (B, {width}) contiguous or the "
-            f"transpose of a contiguous ({width}, B) tensor")
-
-
-def _check(mat, vec, *others):
-    if not mat.is_cuda:
-        raise ValueError(f"the CUDA kernel needs CUDA tensors (got {mat.device})")
-    if mat.dtype not in _DTYPES:
-        raise ValueError(f"the CUDA kernel takes float32/float64, got {mat.dtype}")
-    b, n = vec.shape
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"the CUDA kernel serves 1 <= N <= {MAX_N}, got {n}")
-    _check_operand(mat, "mat", b, compact_size(n), mat)
-    _check_operand(vec, "vec", b, n, mat)
-    for name, t in others:
-        if t is not None:
-            _check_operand(t, name, b, n, mat)
-    return b, n
-
-
-def _operand(t):
-    if t is None:
-        return [None, 0, 0]
-    return [t.data_ptr(), *t.stride()]
-
-
-def _raise_on(err, fn):
-    if err:
-        msg = _library().fm_error_string(err).decode()
-        raise RuntimeError(f"{fn} failed to launch: CUDA error {err} ({msg})")
-
-
-def _empty_out(vec, cf_out):
-    b, n = vec.shape
-    if cf_out:
-        return torch.empty(n, b, dtype=vec.dtype, device=vec.device).t()
-    return torch.empty(b, n, dtype=vec.dtype, device=vec.device)
-
-
 def launch_solve(mat, vec, eps=None, refine=0, cf_out=False):
     """Launch the solve kernel on CUDA tensors ``mat`` (B, NN), ``vec``
     (B, N); returns (B, N), a transposed view of (N, B) if ``cf_out``."""
-    b, n = _check(mat, vec)
-    out = _empty_out(vec, cf_out)
+    n = vec.shape[-1]
+    b = check(mat, n, ("mat", mat, compact_size(n)), ("vec", vec, n))
+    out = empty(vec, b, n, cf_out)
     e = _eps_tensor(eps, mat)
-    lib = _library()
-    with torch.cuda.device(mat.device):
-        err = lib.fm_sym_solve(
-            _DTYPES[mat.dtype], n, b, *_operand(mat), *_operand(vec),
-            *_operand(out), None if e is None else e.data_ptr(), int(refine),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "fm_sym_solve")
-    sym_solve_cf.launches += 1
+    launch(_library(), sym_solve_cf, "fm_sym_solve", mat, n, b, *operand(mat),
+           *operand(vec), *operand(out), None if e is None else e.data_ptr(),
+           int(refine))
     return out
 
 
 def launch_chain(mat, vec, add, eps, iters, cf_out=False):
     """Launch the chain kernel on CUDA tensors (``add`` may be None)."""
-    b, n = _check(mat, vec, ("add", add))
-    out = _empty_out(vec, cf_out)
+    n = vec.shape[-1]
+    b = check(mat, n, ("mat", mat, compact_size(n)), ("vec", vec, n), ("add", add, n))
+    out = empty(vec, b, n, cf_out)
     e = _eps_tensor(eps, mat)
-    lib = _library()
-    with torch.cuda.device(mat.device):
-        err = lib.fm_sym_solve_chain(
-            _DTYPES[mat.dtype], n, b, *_operand(mat), *_operand(vec),
-            *_operand(add), *_operand(out),
-            None if e is None else e.data_ptr(), int(iters),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "fm_sym_solve_chain")
-    sym_solve_chain_cf.launches += 1
+    launch(_library(), sym_solve_chain_cf, "fm_sym_solve_chain", mat, n, b,
+           *operand(mat), *operand(vec), *operand(add), *operand(out),
+           None if e is None else e.data_ptr(), int(iters))
     return out
 
 
@@ -356,18 +289,11 @@ def launch_chain(mat, vec, add, eps, iters, cf_out=False):
 # ---------------------------------------------------------------------------
 
 
-def _compact_outer_grad(dv, x):
-    """dA of x = A^-1 v in compact order: diag -dv_i x_i, upper
-    -(dv_i x_j + dv_j x_i)."""
-    n = x.shape[1]
-    rows, cols = np.triu_indices(n, k=1)
-    rows = torch.as_tensor(rows, device=x.device)
-    cols = torch.as_tensor(cols, device=x.device)
-    off = dv[:, rows] * x[:, cols] + dv[:, cols] * x[:, rows]
-    return torch.cat([-dv * x, -off], dim=1)
+class SolveFunction(torch.autograd.Function):
+    """Differentiable solve of 2-D operands: ``apply(mat, vec, eps,
+    refine, kernel, cf_out)``; the kernel if ``kernel``, else the plain
+    version."""
 
-
-class _SolveFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mat, vec, eps, refine, kernel, cf_out):
         if kernel:
@@ -383,11 +309,14 @@ class _SolveFn(torch.autograd.Function):
         # x = A^-1 v, A symmetric: dv = A^-1 g, dA = -dv x^T (compacted)
         mat, x = ctx.saved_tensors
         eps, refine, kernel = ctx.opts
-        dv = _SolveFn.apply(mat, g.contiguous(), eps, refine, kernel, False)
-        return _compact_outer_grad(dv, x), dv, None, None, None, None
+        dv = SolveFunction.apply(mat, g.contiguous(), eps, refine, kernel, False)
+        return -sym_outer_sum(dv, x), dv, None, None, None, None
 
 
-class _ChainFn(torch.autograd.Function):
+class ChainFunction(torch.autograd.Function):
+    """Differentiable fused chain of 2-D operands: ``apply(mat, vec, add,
+    eps, iters, kernel, cf_out)`` (``add`` may be None)."""
+
     @staticmethod
     def forward(ctx, mat, vec, add, eps, iters, kernel, cf_out):
         if kernel:
@@ -408,7 +337,7 @@ class _ChainFn(torch.autograd.Function):
                    if t is not None]
             m, x = ins[0], ins[1]
             for _ in range(iters):
-                x = _SolveFn.apply(m, x, eps, 0, kernel, False)
+                x = SolveFunction.apply(m, x, eps, 0, kernel, False)
                 if add is not None:
                     x = x + ins[2]
             grads = torch.autograd.grad(x, ins, g, allow_unused=True)
@@ -418,44 +347,10 @@ class _ChainFn(torch.autograd.Function):
         return grads[0], grads[1], da, None, None, None, None
 
 
-def solve_function(mat, vec, eps, refine, kernel, cf_out=False):
-    """Differentiable solve of 2-D operands (see module docstring)."""
-    return _SolveFn.apply(mat, vec, eps, refine, kernel, cf_out)
-
-
-def chain_function(mat, vec, add, eps, iters, kernel, cf_out=False):
-    """Differentiable fused chain of 2-D operands (``add`` may be None)."""
-    return _ChainFn.apply(mat, vec, add, eps, iters, kernel, cf_out)
-
-
 # ---------------------------------------------------------------------------
 # channel-first wrappers (the counterparts of sym_pallas.sym_solve_cf /
 # sym_solve_chain_cf)
 # ---------------------------------------------------------------------------
-
-
-def _cf_flat(t, rows, batch):
-    """``t`` broadcast to ``(rows, B)``: a view where it is ``(rows, B)``
-    or ``(B, rows)`` contiguous already (the layouts the kernels read),
-    else a contiguous copy (a strided slice, a broadcast batch dim)."""
-    f = t.expand(rows, *batch).reshape(rows, -1)
-    return f if f.is_contiguous() or f.t().is_contiguous() else f.contiguous()
-
-
-def _cf_prepare(mat, vec, *extra):
-    n = vec.shape[0]
-    if mat.shape[0] != compact_size(n):
-        raise ValueError(
-            f"channel-first solve expects mat ({compact_size(n)}, ...) for "
-            f"vec ({n}, ...); got {mat.shape[0]}")
-    if n > MAX_N:
-        raise ValueError(f"sym_solve_cf implements N <= {MAX_N}")
-    if mat.dtype not in _DTYPES:
-        raise ValueError(f"sym_solve_cf takes real floats, got {mat.dtype}")
-    batch = torch.broadcast_shapes(*(t.shape[1:] for t in (mat, vec, *extra)))
-    flat = [_cf_flat(mat, mat.shape[0], batch).t(), _cf_flat(vec, n, batch).t()]
-    flat += [_cf_flat(t, n, batch).t() for t in extra]
-    return n, batch, flat
 
 
 def sym_solve_cf(
@@ -472,10 +367,10 @@ def sym_solve_cf(
     kernel on CUDA tensors, and runs the plain version on CPU tensors.
     """
     mat, vec, half = upcast_half(mat, vec)
-    n, batch, (m2, v2) = _cf_prepare(mat, vec)
+    n, batch, (m2, v2) = cf_prepare(mat, vec, op="sym_solve_cf")
     if refine is None:
         refine = 1 if n <= 4 else 0
-    x = _SolveFn.apply(m2, v2, _prep_eps(eps, n), int(refine), m2.is_cuda, True)
+    x = SolveFunction.apply(m2, v2, _prep_eps(eps, n), int(refine), m2.is_cuda, True)
     return downcast(x.t().reshape(n, *batch), half)
 
 
@@ -500,10 +395,10 @@ def sym_solve_chain_cf(
         raise ValueError("iters must be >= 0")
     arrays = (mat, vec) if add is None else (mat, vec, add)
     *arrays, half = upcast_half(*arrays)
-    n, batch, flat = _cf_prepare(*arrays)
+    n, batch, flat = cf_prepare(*arrays, op="sym_solve_chain_cf")
     a2 = flat[2] if add is not None else None
-    x = _ChainFn.apply(flat[0], flat[1], a2, _prep_eps(eps, n), int(iters),
-                       flat[0].is_cuda, True)
+    x = ChainFunction.apply(flat[0], flat[1], a2, _prep_eps(eps, n), int(iters),
+                            flat[0].is_cuda, True)
     return downcast(x.t().reshape(n, *batch), half)
 
 

@@ -1,12 +1,17 @@
-"""Compact symmetric solves: ``sym_solve`` and the fused ``sym_solve_chain``.
+"""Compact symmetric ops: the solves (``sym_solve``, the fused
+``sym_solve_chain``) and the products (``sym_matvec``,
+``sym_addmatvec`` / ``sym_submatvec``, ``sym_outer``, ``sym_matmul``).
 
-PyTorch counterpart of the solve half of ``fastmath_tpu/ops/sym.py``.
-Layout auto-detection (scaled identity / diagonal / compact / full) is
-the same. Compact input, and N == 1, goes through one
-``torch.autograd.Function`` (:mod:`fastmath_tpu_torch.kernels.sym_cuda`)
-that launches the hand-written CUDA kernel on a CUDA tensor and runs the
-kernel's plain PyTorch version otherwise. Diagonal and scaled-identity
-storage are elementwise PyTorch on any device.
+PyTorch counterpart of ``fastmath_tpu/ops/sym.py``. Layout
+auto-detection (scaled identity / diagonal / compact / full) and
+right-aligned broadcasting of the batch dims are the same. Input in a
+kernel's domain goes through one ``torch.autograd.Function`` per kernel
+(:mod:`fastmath_tpu_torch.kernels.sym_cuda`,
+:mod:`fastmath_tpu_torch.kernels.sym_products`) that launches the
+hand-written CUDA kernel on a CUDA tensor and runs the kernel's plain
+PyTorch version otherwise. Everything else is plain PyTorch on the
+tensors' device: diagonal and scaled-identity storage elementwise, full
+storage and compact N > 32 of the products through ``torch.matmul``.
 
 The port has one semantics on both devices, that of the reference's
 kernel path: ``refine=None`` means one refinement step for N <= 4 and
@@ -14,15 +19,19 @@ none above (the reference's fused-XLA path defaults to 0).
 
 ``backend``:
 
-* ``"auto"``: a CUDA tensor in the kernel's domain (compact layout or
-  N == 1, real float, N <= 32) always launches the kernel; everything
-  else runs plain PyTorch on the tensors' device.
+* ``"auto"``: a CUDA tensor in the kernel's domain always launches the
+  kernel; everything else runs plain PyTorch on the tensors' device.
+  The domain is real float32/float64 and compact storage (or N == 1)
+  with N <= 32; for ``sym_outer`` N <= 32, for ``sym_matmul``
+  max(K, D) <= 32. (The reference never auto-routes the matvec family,
+  outer or small JᵀHJ to its TPU kernels, because fused XLA beats them
+  there; eager PyTorch has no such fusion.)
 * ``"cuda"``: forces the kernel; raises outside its domain or on CPU
   tensors.
 * ``"torch"``: the plain version, on whatever device holds the tensors.
 
-Full storage (``NN == N*N``) and compact N > 32 are not ported yet and
-raise ``NotImplementedError``.
+The solves do not take full storage (``NN == N*N``) or compact N > 32
+yet: they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,9 +41,12 @@ import numpy as np
 import torch
 
 from ..core.dtypes import downcast, upcast_half
-from ..layouts.sym import MatrixLayout, classify_layout, tri_index
+from ..layouts.sym import (MatrixLayout, classify_layout, compact_size,
+                           full_to_sym, sym_to_full, tri_index)
 
-__all__ = ["sym_solve", "sym_solve_", "sym_solve_chain", "BACKENDS"]
+__all__ = ["sym_solve", "sym_solve_", "sym_solve_chain", "sym_matvec",
+           "sym_addmatvec", "sym_addmatvec_", "sym_submatvec", "sym_submatvec_",
+           "sym_outer", "sym_matmul", "BACKENDS"]
 
 BACKENDS = ("auto", "cuda", "torch")
 
@@ -139,30 +151,58 @@ def _apply_eps(diag_parts, eps, n, dtype):
     return [d + e[i] for i, d in enumerate(diag_parts)]
 
 
+def _check_backend(backend):
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+
+
+def _use_kernel(backend, storage: bool, n: int, x: torch.Tensor, op: str, serves: str,
+                got: str):
+    """``(domain, kernel)``: whether a kernel takes this call (a storage
+    class it reads, ``storage``, and the kernels' size ``n`` and dtypes),
+    and whether the call launches it (see the module docstring).
+    ``serves`` (what the kernel takes) and ``got`` word the error of a
+    forced ``backend="cuda"``."""
+    from ..kernels._launch import in_domain
+
+    _check_backend(backend)
+    domain = storage and in_domain(n, x.dtype)
+    if backend == "cuda":
+        if not domain:
+            raise ValueError(f"backend='cuda': the {op} kernel serves {serves}, "
+                             f"float32/float64 (got {got}, {x.dtype})")
+        if not x.is_cuda:
+            raise ValueError(f"backend='cuda' needs CUDA tensors (got {x.device})")
+    return domain, backend == "cuda" or (backend == "auto" and domain and x.is_cuda)
+
+
+def _is_compact(layout, n) -> bool:
+    """Compact storage; at N == 1 every storage class is compact."""
+    return layout is MatrixLayout.COMPACT_SYM or (
+        n == 1 and layout is MatrixLayout.SCALED_IDENTITY)
+
+
+def _compact_route(backend, layout, n, x, op):
+    """:func:`_use_kernel` for the kernels of compact storage (or N == 1),
+    N <= 32."""
+    from ..kernels._launch import MAX_N
+
+    return _use_kernel(backend, _is_compact(layout, n), n, x, op,
+                       f"compact-symmetric storage (or N == 1), N <= {MAX_N}",
+                       f"layout={layout.name}, N={n}")
+
+
 def _route(backend, layout, n, x: torch.Tensor, op: str):
     """``(compact, kernel)``: whether the compact solve machinery serves
     this input, and whether it runs as the CUDA kernel."""
-    from ..kernels.sym_cuda import KERNEL_DTYPES, MAX_N
+    from ..kernels._launch import MAX_N
 
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    _check_backend(backend)
     if layout is MatrixLayout.FULL:
         raise NotImplementedError(f"{op} on full storage {_NOT_PORTED}")
     if layout is MatrixLayout.COMPACT_SYM and n > MAX_N:
         raise NotImplementedError(f"{op} on compact N={n} > {MAX_N} {_NOT_PORTED}")
-    compact = layout is MatrixLayout.COMPACT_SYM or (
-        n == 1 and layout is MatrixLayout.SCALED_IDENTITY)
-    real = x.dtype in KERNEL_DTYPES
-    if backend == "cuda":
-        if not (compact and real):
-            raise ValueError(
-                f"backend='cuda': the {op} kernel serves compact-symmetric "
-                f"storage (or N == 1), N <= {MAX_N}, float32/float64 "
-                f"(got layout={layout.name}, N={n}, {x.dtype})")
-        if not x.is_cuda:
-            raise ValueError(f"backend='cuda' needs CUDA tensors (got {x.device})")
-        return True, True
-    return compact, backend == "auto" and compact and real and x.is_cuda
+    return _is_compact(layout, n), _compact_route(backend, layout, n, x, op)[1]
 
 
 def _flat(t: torch.Tensor, batch, width):
@@ -182,13 +222,13 @@ def _sym_solve_impl(mat, vec, eps, refine, backend, op="sym_solve"):
                                d.shape[-1], d.dtype)
             d = torch.stack(parts, dim=-1)
         return vec / d
-    from ..kernels.sym_cuda import solve_function
+    from ..kernels.sym_cuda import SolveFunction
 
     if refine is None:
         refine = 1 if n <= _CLOSED_FORM_MAX else 0
     batch = torch.broadcast_shapes(mat.shape[:-1], vec.shape[:-1])
-    x = solve_function(_flat(mat, batch, mat.shape[-1]), _flat(vec, batch, n),
-                       _prep_eps(eps, n), int(refine), kernel)
+    x = SolveFunction.apply(_flat(mat, batch, mat.shape[-1]), _flat(vec, batch, n),
+                            _prep_eps(eps, n), int(refine), kernel, False)
     return x.reshape(*batch, n)
 
 
@@ -245,9 +285,10 @@ def sym_solve_chain(
     add_ = arrays[2] if add is not None else None
     n = vec.shape[-1]
     layout = classify_layout(mat.shape[-1], n)
-    compact, kernel = _route(backend, layout, n, mat, "sym_solve_chain")
-    if iters == 0:
+    _check_backend(backend)
+    if iters == 0:  # before routing: any storage class returns vec, as in JAX
         return downcast(vec, half)
+    compact, kernel = _route(backend, layout, n, mat, "sym_solve_chain")
     if iters == 1:
         x = _sym_solve_impl(mat, vec, eps, None, backend, "sym_solve_chain")
         return downcast(x if add_ is None else x + add_, half)
@@ -259,14 +300,134 @@ def sym_solve_chain(
             if add_ is not None:
                 x = x + add_
         return downcast(x, half)
-    from ..kernels.sym_cuda import chain_function
+    from ..kernels.sym_cuda import ChainFunction
 
-    x = chain_function(
+    x = ChainFunction.apply(
         _flat(mat, batch, mat.shape[-1]), _flat(vec, batch, n),
         None if add_ is None else _flat(add_, batch, n),
-        _prep_eps(eps, n), int(iters), kernel)
+        _prep_eps(eps, n), int(iters), kernel, False)
     return downcast(x.reshape(*batch, n), half)
 
 
-# functional alias for the reference's in-place variant
+# ---------------------------------------------------------------------------
+# products
+# ---------------------------------------------------------------------------
+
+
+def _batch(*arrays):
+    return torch.broadcast_shapes(*(a.shape[:-1] for a in arrays))
+
+
+def _matvec_torch(mat, vec, layout, n):
+    """``A v`` outside the kernel's domain, plain PyTorch."""
+    if layout is MatrixLayout.SCALED_IDENTITY or layout is MatrixLayout.DIAGONAL:
+        return mat * vec
+    if layout is MatrixLayout.FULL:
+        full = mat.reshape(*mat.shape[:-1], n, n)
+    else:  # compact, N > 32, or a dtype the kernel does not take
+        full = sym_to_full(mat, n)
+    return torch.matmul(full, vec[..., None])[..., 0]
+
+
+def sym_matvec(mat: torch.Tensor, vec: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """Matrix-vector product ``A v`` for auto-detected storage.
+
+    ``mat`` is ``(..., NN)`` with ``NN`` in ``{1, N, N(N+1)/2, N*N}``,
+    ``vec`` is ``(..., N)``; batch dims broadcast. bf16/f16 compute in
+    float32 and round once on output. Differentiable in both. See the
+    module docstring for ``backend``.
+    """
+    mat, vec, half = upcast_half(mat, vec)
+    n = vec.shape[-1]
+    layout = classify_layout(mat.shape[-1], n)
+    domain, kernel = _compact_route(backend, layout, n, mat, "sym_matvec")
+    if not domain:
+        return downcast(_matvec_torch(mat, vec, layout, n), half)
+    from ..kernels.sym_products import MatvecFunction
+
+    batch = _batch(mat, vec)
+    y = MatvecFunction.apply(_flat(mat, batch, mat.shape[-1]), _flat(vec, batch, n), kernel,
+                             False)
+    return downcast(y.reshape(*batch, n), half)
+
+
+def _accmatvec(acc, mat, vec, sign, backend, op):
+    acc, mat, vec, half = upcast_half(acc, mat, vec)
+    n = vec.shape[-1]
+    layout = classify_layout(mat.shape[-1], n)
+    domain, kernel = _compact_route(backend, layout, n, mat, op)
+    if not domain:
+        mv = _matvec_torch(mat, vec, layout, n)
+        return downcast(acc + mv if sign > 0 else acc - mv, half)
+    from ..kernels.sym_products import AccMatvecFunction
+
+    batch = _batch(acc, mat, vec)
+    y = AccMatvecFunction.apply(_flat(acc, batch, n), _flat(mat, batch, mat.shape[-1]),
+                                _flat(vec, batch, n), sign, kernel, False)
+    return downcast(y.reshape(*batch, n), half)
+
+
+def sym_addmatvec(acc: torch.Tensor, mat: torch.Tensor, vec: torch.Tensor,
+                  backend: str = "auto") -> torch.Tensor:
+    """``acc + A v`` in one pass (the kernel reads each operand once);
+    storage, broadcasting, dtypes and ``backend`` as in :func:`sym_matvec`."""
+    return _accmatvec(acc, mat, vec, 1.0, backend, "sym_addmatvec")
+
+
+def sym_submatvec(acc: torch.Tensor, mat: torch.Tensor, vec: torch.Tensor,
+                  backend: str = "auto") -> torch.Tensor:
+    """``acc - A v`` in one pass; as :func:`sym_addmatvec`."""
+    return _accmatvec(acc, mat, vec, -1.0, backend, "sym_submatvec")
+
+
+def sym_outer(x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """Symmetric outer product ``x xᵀ`` in compact storage:
+    ``(..., N) -> (..., N(N+1)/2)``. See the module docstring for
+    ``backend``."""
+    from ..kernels._launch import MAX_N
+    from ..kernels.sym_products import OuterFunction, outer_plain
+
+    x, half = upcast_half(x)
+    n = x.shape[-1]
+    domain, kernel = _use_kernel(backend, True, n, x, "sym_outer", f"N <= {MAX_N}",
+                                 f"N={n}")
+    flat = x.reshape(-1, n)
+    y = OuterFunction.apply(flat.contiguous(), kernel, False) if domain else outer_plain(flat)
+    return downcast(y.reshape(*x.shape[:-1], compact_size(n)), half)
+
+
+def sym_matmul(j: torch.Tensor, h: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """Congruence product ``Jᵀ H J`` with compact-symmetric ``H``.
+
+    ``j`` is ``(..., K, D)`` full, ``h`` is ``(..., K(K+1)/2)`` compact;
+    returns ``(..., D(D+1)/2)`` compact; batch dims broadcast. Up to
+    max(K, D) = 6 the output takes the upper slots of ``G = Jᵀ (H J)``;
+    above, ``0.5 (G_ij + G_ji)``, as the reference's kernel tiers. See
+    the module docstring for ``backend`` (the kernel's domain is
+    max(K, D) <= 32); beyond it, ``einsum`` on full storage.
+    """
+    from ..kernels._launch import MAX_N
+
+    j, h, half = upcast_half(j, h)
+    k, d = j.shape[-2], j.shape[-1]
+    if h.shape[-1] != compact_size(k):
+        raise ValueError(
+            f"h last axis {h.shape[-1]} does not match compact size "
+            f"{compact_size(k)} for K={k}")
+    domain, kernel = _use_kernel(backend, True, max(k, d), j, "sym_matmul",
+                                 f"max(K, D) <= {MAX_N}", f"K={k}, D={d}")
+    if not domain:
+        out = torch.einsum("...ki,...kl,...lj->...ij", j, sym_to_full(h, k), j)
+        return downcast(full_to_sym(out), half)
+    from ..kernels.sym_products import JhjFunction
+
+    batch = torch.broadcast_shapes(j.shape[:-2], h.shape[:-1])
+    j2 = j.expand(*batch, k, d).contiguous().reshape(-1, k * d)
+    y = JhjFunction.apply(j2, _flat(h, batch, h.shape[-1]), d, kernel, False)
+    return downcast(y.reshape(*batch, compact_size(d)), half)
+
+
+# functional aliases for the reference's in-place variants
 sym_solve_ = sym_solve
+sym_addmatvec_ = sym_addmatvec
+sym_submatvec_ = sym_submatvec

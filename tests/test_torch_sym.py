@@ -256,6 +256,8 @@ def test_port_imports_no_jax():
         "m = torch.tensor([[4.0, 5.0, 1.0]]); v = torch.tensor([[1.0, 2.0]])\n"
         "x = T.sym_solve(m, v); T.sym_solve_chain(m, v, 3, add=v)\n"
         "assert torch.allclose(x, torch.tensor([[3/19, 7/19]]))\n"
+        "assert torch.allclose(T.sym_submatvec(v, m, x), torch.zeros(1, 2), atol=1e-6)\n"
+        "T.sym_matmul(torch.ones(1, 2, 3), m); T.sym_outer(v)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'fastmath_tpu')]\n"
         "assert not bad, bad\n"
