@@ -13,10 +13,13 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    tier (N = 1 .. 32; JᵀHJ at K, D up to 32), float32 and float64, with
    and without ``eps``, ``refine`` 0..2, on a ragged batch, in the
    batch-major and the channel-first layout, and against a float64 numpy
-   oracle;
-3. gradients of ``sym_solve``, ``sym_solve_chain`` and the products
-   through the kernels against the same through the plain versions (the
-   matvec kernel must launch in the backward);
+   oracle; the full-storage solve (k = 1, 3, 8 columns up to n = 8, 1 and
+   16 above, also reading A transposed) and inverse on general matrices
+   that pivot at most steps and on SPD matrices;
+3. gradients of ``sym_solve``, ``sym_solve_chain``, the products,
+   ``batchinv`` and ``batchlmdiv`` through the kernels against the same
+   through the plain versions (the matvec kernel and the solve kernel,
+   reading A transposed, must launch in the backward);
 4. the solve's main path at full size: the public ``sym_solve`` on a 1M
    batch of 4x4 float32 compact SPD matrices made as ``bench.py`` makes
    them, and ``sym_solve_chain`` with k = 128 on the same batch; launch
@@ -29,7 +32,14 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    (H = JᵀWJ + g gᵀ, δ = H \\ g, r = g - H δ); launch counts, normwise
    error against float64 numpy, kernel, plain and library times, and the
    step's device time beside each of its launches alone;
-6. one JSON line of per-kernel times beside their bounds.
+6. the batched path at the bench suite's shapes (float32, a a^T + n I):
+   the public ``batchinv`` at 3x3 and 8x8 on 1M, 16x16 on 500k and 24x24
+   on 200k, ``batchlmdiv`` 16x16 with a vector on 500k, ``sym_solve`` on
+   full storage at 1M x 4 x 4 and on compact N = 40 (checked, not timed);
+   launch counts, normwise error against float64 numpy, per-call, host
+   and device times, each kernel alone against its bound, its plain
+   version and ``torch.linalg.inv_ex`` / ``solve_ex``;
+7. one JSON line of per-kernel times beside their bounds.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository beside it, the script exits non-zero
@@ -279,6 +289,19 @@ def phase_kernels_vs_plain(torch, rng):
                 f"(tol {TOL_ORACLE[dt_name]:.0e})")
 
 
+def hold(torch, worst, key, got, plain, want64, dt_name, add=None):
+    """Hold a kernel's output to its plain version (``TOL_PLAIN``) and to
+    a float64 oracle (``TOL_ORACLE``), normwise (over norm + norm(add)
+    where ``add`` is given); record both errors in ``worst[key]``."""
+    torch.cuda.synchronize()
+    got = got.cpu().numpy()
+    d = normwise(got, plain.cpu().numpy(), add).max()
+    o = normwise(got, want64, add).max()
+    worst[key] = (d, o)
+    if not (d <= TOL_PLAIN[dt_name] and o <= TOL_ORACLE[dt_name]):
+        fail(f"{key}: kernel vs plain {d:.3e}, vs f64 oracle {o:.3e}")
+
+
 JHJ_CHECK = ((1, 1), (3, 2), (4, 4), (6, 6), (7, 3), (3, 7), (16, 16), (32, 32))
 
 
@@ -303,13 +326,7 @@ def phase_products_vs_plain(torch, rng):
 
     def check(key, got, plain, want64, dt_name, acc=None):
         # acc +/- A v can cancel: its error is taken over norm + norm(acc)
-        torch.cuda.synchronize()
-        got = got.cpu().numpy()
-        d = normwise(got, plain.cpu().numpy(), acc).max()
-        o = normwise(got, want64, acc).max()
-        worst[key] = (d, o)
-        if not (d <= TOL_PLAIN[dt_name] and o <= TOL_ORACLE[dt_name]):
-            fail(f"{key}: kernel vs plain {d:.3e}, vs f64 oracle {o:.3e}")
+        hold(torch, worst, key, got, plain, want64, dt_name, acc)
 
     layouts = (("bm", lambda t: t), ("cf", lambda t: t.t().contiguous().t()))
     for dt_name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
@@ -345,6 +362,63 @@ def phase_products_vs_plain(torch, rng):
             ks = [k for k in worst if k.startswith(f"{op} {dt_name}")]
             over = " (error over norm(y) + norm(acc))" if op in ("addmatvec", "submatvec") else ""
             log(f"  {op} {dt_name}: {len(ks)} cases{over}, worst normwise kernel-vs-plain "
+                f"{max(worst[k][0] for k in ks):.3e} (tol {TOL_PLAIN[dt_name]:.0e}), "
+                f"vs f64 numpy {max(worst[k][1] for k in ks):.3e} "
+                f"(tol {TOL_ORACLE[dt_name]:.0e})")
+
+
+def general(rng, b, n):
+    """General matrices n I + (sqrt(n) / 4) R, R standard normal, with
+    their rows shuffled: partial pivoting swaps rows at most steps, and
+    the singular values stay near [n/2, 3n/2] (condition number ~3), so
+    the checks measure the kernels, not the conditioning."""
+    a = n * np.eye(n) + np.sqrt(n) / 4 * rng.standard_normal((b, n, n))
+    perm = np.argsort(rng.random((b, n)), axis=-1)
+    return np.take_along_axis(a, perm[..., None], axis=1)
+
+
+def phase_batched_vs_plain(torch, rng):
+    """The full-storage solve and inverse kernels against their plain
+    versions and a float64 numpy oracle, on general (pivoting) and SPD
+    matrices; the solve also reading A transposed (its gradient's read)."""
+    from fastmath_tpu_torch.kernels import batched_cuda as BC
+
+    worst = {}
+
+    def check(key, got, plain, want64, dt_name):
+        hold(torch, worst, key, got, plain, want64, dt_name)
+
+    for dt_name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        for n in (1, 2, 3, 4, 5, 8, 9, 16, 32):
+            for kind, full in (("general", general(rng, B_CHECK, n)),
+                               ("spd", spd(rng, B_CHECK, n, np.float64))):
+                a = torch.tensor(full.reshape(B_CHECK, n * n), dtype=dtype, device=DEV)
+                a64 = a.double().cpu().numpy().reshape(B_CHECK, n, n)
+                a_cf = a.t().contiguous().t()
+                inv64 = np.linalg.inv(a64).reshape(B_CHECK, n * n)
+                plain = BC.inv_plain(a)
+                for layout, m in (("bm", a), ("cf", a_cf)):
+                    check(f"inv {dt_name} n={n} {kind} {layout}",
+                          BC.launch_inv(m, cf_out=layout == "cf"), plain, inv64, dt_name)
+                for k in ((1, 3, 8) if n <= 8 else (1, 16)):
+                    rhs = torch.tensor(rng.standard_normal((B_CHECK, n * k)), dtype=dtype,
+                                       device=DEV)
+                    r64 = rhs.double().cpu().numpy().reshape(B_CHECK, n, k)
+                    for trans in (False, True):
+                        am = np.swapaxes(a64, 1, 2) if trans else a64
+                        x64 = np.linalg.solve(am, r64).reshape(B_CHECK, n * k)
+                        plain = BC.solve_full_plain(a, rhs, k, trans)
+                        for layout, (m, r) in (("bm", (a, rhs)),
+                                               ("cf", (a_cf, rhs.t().contiguous().t()))):
+                            if trans and layout == "cf":
+                                continue
+                            check(f"solve_full {dt_name} n={n} k={k} {kind} trans={trans} "
+                                  f"{layout}", BC.launch_solve_full(m, r, k, trans, layout == "cf"),
+                                  plain, x64, dt_name)
+    for dt_name in ("float32", "float64"):
+        for op in ("inv", "solve_full"):
+            ks = [k for k in worst if k.startswith(f"{op} {dt_name}")]
+            log(f"  {op} {dt_name}: {len(ks)} cases, worst normwise kernel-vs-plain "
                 f"{max(worst[k][0] for k in ks):.3e} (tol {TOL_PLAIN[dt_name]:.0e}), "
                 f"vs f64 numpy {max(worst[k][1] for k in ks):.3e} "
                 f"(tol {TOL_ORACLE[dt_name]:.0e})")
@@ -405,6 +479,37 @@ def phase_gradients(torch, rng):
             fail(f"product gradient n={n} differs: {worst:.3e}")
         if bwd < 1:
             fail(f"product gradient n={n}: the backward did not launch the matvec kernel")
+
+
+def phase_batched_gradients(torch, rng):
+    """Gradients of batchinv and batchlmdiv through the kernels (float64,
+    on the card) against the same through the plain versions (the CPU);
+    the solves' backward must launch the solve kernel on A transposed."""
+    import fastmath_tpu_torch as T
+    from fastmath_tpu_torch.kernels import solve_full_cf
+
+    for n in (3, 6, 12):
+        ins0 = [torch.tensor(x, device=DEV) for x in (
+            general(rng, 515, n), rng.standard_normal((515, n)),
+            rng.standard_normal((515, n, 2)))]
+
+        def grads(device):
+            ins = [t.to(device).clone().requires_grad_() for t in ins0]
+            out = (T.batchinv(ins[0]).square().sum()
+                   + T.batchlmdiv(ins[0], ins[1]).square().sum()
+                   + T.batchlmdiv(ins[0], ins[2]).square().sum())
+            before = solve_full_cf.launches
+            g = torch.autograd.grad(out, ins)
+            return [t.cpu() for t in g], solve_full_cf.launches - before
+
+        (kernel, bwd), (plain, _) = grads(DEV), grads("cpu")
+        worst = max(((k - p).norm() / p.norm()).item() for k, p in zip(kernel, plain))
+        log(f"  batched grads n={n}: kernel vs plain relative {worst:.3e} (tol 1e-10); "
+            f"solve kernel launches in backward: {bwd}")
+        if not worst <= 1e-10:
+            fail(f"batched gradient n={n} differs: {worst:.3e}")
+        if n > 4 and bwd < 2:
+            fail(f"batched gradient n={n}: the backward did not launch the solve kernel")
 
 
 # --- phase 4 -----------------------------------------------------------------
@@ -778,6 +883,164 @@ def phase_products(torch, rng, full, vec_np, mat, vec):
     return kernels
 
 
+# --- phase 6 -----------------------------------------------------------------
+
+# bench/suite.py's batched shapes: batchinv 3x3 and 8x8 on 1M (:381-412),
+# 16x16 on 500k (:468-480), 24x24 on 200k (:513-530); the 16x16 solve
+# on 500k (:499-506)
+INV_SHAPES = ((3, 1_000_000), (8, 1_000_000), (16, 500_000), (24, 200_000))
+N_GATE, B_GATE = 16, 500_000
+N_DENSE, B_DENSE = 40, 4096  # compact N > 32: sym_solve's torch.linalg tier
+
+
+def ops_plu(n, k):
+    """Arithmetic operations of one pivoted-LU solve of n x n with k
+    right-hand-side columns, as the kernels do them: at step j the n-1-j
+    multipliers (a reciprocal and products, or divisions), two per entry
+    of the trailing (n-1-j) x (n-1-j) block and of the k columns, then
+    back-substitution, two per off-diagonal entry and one scale per row,
+    for each column (pivot comparisons are not counted)."""
+    elim = sum((n - 1 - j) * (1 + 2 * (n - 1 - j + k)) for j in range(n))
+    return elim + k * n * n
+
+
+def ops_inv(n):
+    """Arithmetic operations of one inverse: the cofactors, 1/det and the
+    n^2 scaled entries for n <= 4, the solve against the identity's n
+    columns above."""
+    from fastmath_tpu_torch.kernels._gen_adjugate import cofactor_ops
+
+    if n == 1:
+        return 1
+    return cofactor_ops(n) + 1 + n * n if n <= 4 else ops_plu(n, n)
+
+
+def spd_on_card(torch, gen, b, n):
+    """bench/suite.py's spd_batch recipe, a a^T + n I in float32, made on
+    the card from a seeded generator."""
+    a = torch.randn(b, n, n, generator=gen, device=DEV, dtype=torch.float32)
+    return a @ a.mT + n * torch.eye(n, device=DEV)
+
+
+def phase_batched(torch, rng):
+    """The batched path at the bench suite's shapes: the public batchinv
+    and batchlmdiv, sym_solve on full storage at bench.py's 1M x 4 x 4
+    (the inverse kernel and batchmatvec) and on compact N = 40 (the
+    torch.linalg tier, checked, not timed); launch counts, normwise error
+    against float64 numpy, per-call, host and device times, and each
+    kernel alone against its bound, its plain version and the library."""
+    import fastmath_tpu_torch as T
+    from fastmath_tpu_torch.kernels import batched_cuda as BC
+    from fastmath_tpu_torch.layouts import full_to_sym
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(int(rng.integers(2 ** 31)))
+    mats = {n: spd_on_card(torch, gen, b, n) for n, b in INV_SHAPES}
+    v16 = torch.randn(B_GATE, N_GATE, generator=gen, device=DEV)
+    m4 = spd_on_card(torch, gen, B_MAIN, N_MAIN)
+    full4 = m4.reshape(B_MAIN, N_MAIN * N_MAIN)
+    v4 = torch.randn(B_MAIN, N_MAIN, generator=gen, device=DEV)
+    c40 = full_to_sym(spd_on_card(torch, gen, B_DENSE, N_DENSE))
+    v40 = torch.randn(B_DENSE, N_DENSE, generator=gen, device=DEV)
+    torch.cuda.synchronize()
+
+    counters = {"solve_full": BC.solve_full_cf, "inv": BC.inv_cf}
+    for c in counters.values():
+        c.launches = 0
+    invs = {n: T.batchinv(a) for n, a in mats.items()}
+    x16 = T.batchlmdiv(mats[N_GATE], v16)
+    x4 = T.sym_solve(full4, v4)
+    x40 = T.sym_solve(c40, v40)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    log("  batched-path launches: " + " ".join(f"{k}={v}" for k, v in launches.items()))
+    if not all(v >= 1 for v in launches.values()):
+        fail(f"the batched path did not go through both kernels: {launches}")
+    outs = [(f"batchinv {n}x{n}", invs[n], (b, n, n)) for n, b in INV_SHAPES]
+    outs += [(f"batchlmdiv {N_GATE}x{N_GATE}", x16, (B_GATE, N_GATE)),
+             ("sym_solve full 4x4", x4, (B_MAIN, N_MAIN)),
+             (f"sym_solve compact N={N_DENSE}", x40, (B_DENSE, N_DENSE))]
+    for name, y, shape in outs:
+        if tuple(y.shape) != shape or not torch.isfinite(y).all():
+            fail(f"{name} output has the wrong shape or is not finite")
+
+    # normwise error against float64 numpy on a slice of each batch
+    ns = 4096
+    d64 = lambda t: t[:ns].double().cpu().numpy()  # noqa: E731
+    errs = {f"batchinv {n}x{n} on {b}": normwise(
+        d64(invs[n]).reshape(-1, n * n), np.linalg.inv(d64(mats[n])).reshape(-1, n * n))
+        for n, b in INV_SHAPES}
+    errs[f"batchlmdiv {N_GATE}x{N_GATE} on {B_GATE}"] = normwise(
+        d64(x16), oracle_solve(d64(mats[N_GATE]), d64(v16)))
+    errs[f"sym_solve full 4x4 on {B_MAIN}"] = normwise(d64(x4), oracle_solve(d64(m4), d64(v4)))
+    errs[f"sym_solve compact N={N_DENSE} on {B_DENSE}"] = normwise(
+        d64(x40), oracle_solve(T.layouts.sym_to_full(c40[:ns]).double().cpu().numpy(), d64(v40)))
+    for name, e in errs.items():
+        log(f"  {name} f32 normwise vs f64 ({len(e)} problems): median={np.median(e):.3e} "
+            f"p99={np.quantile(e, 0.99):.3e} max={e.max():.3e} (gate {GATE:.0e})")
+        if not e.max() <= GATE:
+            fail(f"{name}: normwise error {e.max():.3e} > {GATE}")
+
+    # the public ops per call (host launch included), the host's share,
+    # and the card's time
+    public = {f"batchinv {n}x{n} on {b}": (lambda a=mats[n]: T.batchinv(a))
+              for n, b in INV_SHAPES}
+    public[f"batchlmdiv {N_GATE}x{N_GATE} on {B_GATE}"] = lambda: T.batchlmdiv(mats[N_GATE], v16)
+    public[f"sym_solve full 4x4 on {B_MAIN}"] = lambda: T.sym_solve(full4, v4)
+    for name, fn in public.items():
+        dev = device_ms(torch, fn, reps=10)
+        log(f"  public {name}: {call_ms(torch, fn, reps=10):.4f} ms per call, "
+            f"host {host_ms(torch, fn, reps=10):.4f} ms, device "
+            + ("not measured (waits for the card)" if dev is None else f"{dev:.4f} ms"))
+
+    # each kernel alone against its bound, the library call on the same
+    # tensors (timed only), and the plain version; the inverse also at
+    # the 4x4 of sym_solve on full storage
+    alone = {**mats, N_MAIN: m4}
+    flat = {n: a.reshape(-1, n * n) for n, a in alone.items()}
+    rows = {}
+    for n, b in INV_SHAPES + ((N_MAIN, B_MAIN),):
+        kern = lambda f=flat[n]: BC.launch_inv(f)  # noqa: E731
+        rows[f"inv {n}x{n} on {b}"] = (
+            "inv", kern, lambda f=flat[n]: BC.inv_plain(f),
+            lambda a=alone[n]: torch.linalg.inv_ex(a),
+            bound(b * 2 * n * n * 4, b * ops_inv(n), "float32"))
+    g16, rhs16 = flat[N_GATE], v16
+    rows[f"solve {N_GATE}x{N_GATE} on {B_GATE}"] = (
+        "solve_full", lambda: BC.launch_solve_full(g16, rhs16, 1),
+        lambda: BC.solve_full_plain(g16, rhs16, 1),
+        lambda: torch.linalg.solve_ex(mats[N_GATE], v16[..., None]),
+        bound(B_GATE * (N_GATE * N_GATE + 2 * N_GATE) * 4, B_GATE * ops_plu(N_GATE, 1),
+              "float32"))
+    kernels = []
+    for name, (counted, kern, plain, lib, (b_ms, b_by)) in rows.items():
+        y, want = kern(), plain()
+        diff = y.reshape(want.shape) - want
+        err = diff.abs().max().item()
+        rel = (diff.norm(dim=-1) / want.norm(dim=-1)).max().item()
+        del y, diff
+        if not rel <= TOL_PLAIN["float32"]:
+            fail(f"{name}: kernel disagrees with its plain version: normwise {rel:.3e}")
+        ms = device_ms(torch, kern, reps=10)
+        if ms is None:
+            fail(f"{name}: the kernel could not be queued ahead of the card")
+        plain_ms = call_ms(torch, plain, reps=3, warmup=1)
+        lib_ms = yardstick_ms(torch, lib, name)
+        log(f"  {name} kernel: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+            f"{b_ms / ms * 100:.1f}% of it), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+            f"kernel vs plain max abs {err:.3e}, normwise {rel:.3e}")
+        if name in (f"inv {N_GATE}x{N_GATE} on {B_GATE}", f"solve {N_GATE}x{N_GATE} on {B_GATE}"):
+            line = 184 if counted == "inv" else 248
+            kernels.append({
+                "name": f"{counted}_cf", "route": "cuda",
+                "source": "fastmath_tpu_torch/kernels/csrc/batched.cu",
+                "replaces": f"fastmath_tpu/kernels/batched_pallas.py:{line}",
+                "launches": launches[counted], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+    return kernels
+
+
 def main():
     import torch
 
@@ -795,13 +1058,18 @@ def main():
     log("== phase 2: kernels against their plain versions")
     phase_kernels_vs_plain(torch, rng)
     phase_products_vs_plain(torch, rng)
+    phase_batched_vs_plain(torch, rng)
     log("== phase 3: gradients")
     phase_gradients(torch, rng)
+    phase_batched_gradients(torch, rng)
     log("== phase 4: main path at full size")
     kernels, batch = phase_main_path(torch, rng)
     phase_wide(torch, rng)
     log("== phase 5: the products' path at full size")
     kernels += phase_products(torch, rng, *batch)
+    del batch
+    log("== phase 6: the batched path at full size")
+    kernels += phase_batched(torch, rng)
     torch.cuda.synchronize()
     log(f"total_seconds={time.perf_counter() - t0:.1f}")
     log(smi)

@@ -1,6 +1,8 @@
 """What the kernel modules share: the kernels' domain, the checks of a
-launch, its output, the ``ctypes`` call with its launch count, and the
-channel-first operands of the ``*_cf`` wrappers.
+launch, its output, the ``ctypes`` call with its launch count, the
+channel-first operands of the ``*_cf`` wrappers, and the pivoted LU of
+the plain versions (``csrc/sym_common.cuh``'s ``plu_factor``,
+``plu_substitute``, ``rolled_factor`` and ``rolled_backsub`` in PyTorch).
 
 Operands of a launch are 2-D ``(B, K)`` views, either batch-major
 contiguous (the public ops) or transposes of channel-first contiguous
@@ -14,7 +16,8 @@ import torch
 from ..layouts.sym import compact_size
 
 __all__ = ["MAX_N", "KERNEL_DTYPES", "in_domain", "require_domain", "check", "operand",
-           "empty", "launch", "cf_flat", "cf_prepare"]
+           "empty", "launch", "cf_flat", "cf_prepare", "plu_factor", "plu_substitute",
+           "rolled_solve"]
 
 #: largest N (for the congruence product, max(K, D)) the kernels serve
 MAX_N = 32
@@ -115,3 +118,82 @@ def cf_prepare(mat, vec, *extra, op):
     flat = [cf_flat(mat, mat.shape[0], batch).t(), cf_flat(vec, n, batch).t()]
     flat += [cf_flat(t, n, batch).t() for t in extra]
     return n, batch, flat
+
+
+# ---------------------------------------------------------------------------
+# pivoted LU of the plain versions
+# ---------------------------------------------------------------------------
+
+
+def _swap_rows(A, k, p, c0):
+    """Swap rows k and p[b] of every A[b] in columns c0..; (B, n[, w])."""
+    rows = torch.arange(A.shape[0], device=A.device)
+    rk = A[:, k, c0:].clone()
+    A[:, k, c0:] = A[rows, p, c0:]
+    A[rows, p, c0:] = rk
+
+
+def _pivot(A, k):
+    """First-max partial pivot of column k: lowest row >= k of the
+    largest |A[:, i, k]|."""
+    return k + torch.argmax(A[:, k:, k].abs(), dim=1)
+
+
+def plu_factor(A):
+    """Unrolled-tier LU with partial pivoting, in place on a copy: U on
+    and above the diagonal, multipliers (by the reciprocal pivot) below
+    it, kept in the row they were computed for; returns (LU, piv, 1/U_ii)."""
+    A = A.clone()
+    n = A.shape[1]
+    piv = torch.empty(A.shape[0], n, dtype=torch.long, device=A.device)
+    for k in range(n):
+        p = _pivot(A, k)
+        piv[:, k] = p
+        _swap_rows(A, k, p, k)
+        inv_p = 1.0 / A[:, k, k]
+        l = A[:, k + 1:, k] * inv_p[:, None]
+        A[:, k + 1:, k] = l
+        A[:, k + 1:, k + 1:] -= l[:, :, None] * A[:, k, None, k + 1:]
+    inv_d = 1.0 / A.diagonal(dim1=1, dim2=2)
+    return A, piv, inv_d
+
+
+def plu_substitute(LU, piv, inv_d, rhs):
+    """Solve with plu_factor's output, replaying its swaps and
+    eliminations on ``rhs``: (B, n), or (B, n, c) for c columns at once."""
+    n = LU.shape[1]
+    vector = rhs.dim() == 2
+    r = (rhs[:, :, None] if vector else rhs).clone()
+    rows = torch.arange(r.shape[0], device=r.device)
+    for k in range(n - 1):
+        p = piv[:, k]
+        rk = r[:, k].clone()
+        r[:, k] = r[rows, p]
+        r[rows, p] = rk
+        r[:, k + 1:] -= LU[:, k + 1:, k, None] * r[:, k, None]
+    x = torch.empty_like(r)
+    for i in range(n - 1, -1, -1):
+        acc = r[:, i]
+        for j in range(i + 1, n):
+            acc = acc - LU[:, i, j, None] * x[:, j]
+        x[:, i] = acc * inv_d[:, i, None]
+    return x[:, :, 0] if vector else x
+
+
+def rolled_solve(A, R):
+    """Rolled-tier LU with partial pivoting of ``[A | R]`` (multipliers
+    by division, as the rolled kernel) and back-substitution; returns
+    the solutions (B, n, c) of the c right-hand-side columns."""
+    n = A.shape[1]
+    W = torch.cat([A, R], dim=2)
+    for k in range(n):
+        _swap_rows(W, k, _pivot(W, k), k)
+        l = W[:, k + 1:, k] / W[:, k, k, None]
+        W[:, k + 1:, k + 1:] -= l[:, :, None] * W[:, k, None, k + 1:]
+    X = W[:, :, n:].clone()
+    for i in range(n - 1, -1, -1):
+        s = torch.zeros_like(X[:, i])
+        for j in range(i + 1, n):
+            s = s + W[:, i, j, None] * X[:, j]
+        X[:, i] = (X[:, i] - s) / W[:, i, i, None]
+    return X

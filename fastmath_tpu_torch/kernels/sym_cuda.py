@@ -27,7 +27,8 @@ import torch
 from ..core.dtypes import downcast, upcast_half
 from ..layouts.sym import compact_size, sym_to_full
 from ..ops.sym import _adjugate_apply, _cofactors, _entries, _prep_eps
-from ._launch import cf_prepare, check, empty, launch, operand
+from ._launch import (cf_prepare, check, empty, launch, operand, plu_factor,
+                      plu_substitute, rolled_solve)
 from .sym_products import sym_outer_sum
 
 __all__ = ["sym_solve_cf", "sym_solve_chain_cf", "solve_plain", "chain_plain",
@@ -55,79 +56,6 @@ def _dense(mat, n, eps):
     if eps is not None:
         A.diagonal(dim1=1, dim2=2).add_(eps)
     return A
-
-
-def _swap_rows(A, k, p, c0):
-    """Swap rows k and p[b] of every A[b] in columns c0..; (B, n[, w])."""
-    rows = torch.arange(A.shape[0], device=A.device)
-    rk = A[:, k, c0:].clone()
-    A[:, k, c0:] = A[rows, p, c0:]
-    A[rows, p, c0:] = rk
-
-
-def _pivot(A, k):
-    """First-max partial pivot of column k: lowest row >= k of the
-    largest |A[:, i, k]|."""
-    return k + torch.argmax(A[:, k:, k].abs(), dim=1)
-
-
-def _plu_factor(A):
-    """Unrolled-tier LU with partial pivoting, in place on a copy: U on
-    and above the diagonal, multipliers (by the reciprocal pivot) below
-    it, kept in the row they were computed for; returns (LU, piv, 1/U_ii)."""
-    A = A.clone()
-    n = A.shape[1]
-    piv = torch.empty(A.shape[0], n, dtype=torch.long, device=A.device)
-    for k in range(n):
-        p = _pivot(A, k)
-        piv[:, k] = p
-        _swap_rows(A, k, p, k)
-        inv_p = 1.0 / A[:, k, k]
-        l = A[:, k + 1:, k] * inv_p[:, None]
-        A[:, k + 1:, k] = l
-        A[:, k + 1:, k + 1:] -= l[:, :, None] * A[:, k, None, k + 1:]
-    inv_d = 1.0 / A.diagonal(dim1=1, dim2=2)
-    return A, piv, inv_d
-
-
-def _plu_substitute(LU, piv, inv_d, rhs):
-    """Solve with _plu_factor's output, replaying its swaps and
-    eliminations on ``rhs`` (B, n)."""
-    n = LU.shape[1]
-    r = rhs.clone()
-    rows = torch.arange(r.shape[0], device=r.device)
-    for k in range(n - 1):
-        p = piv[:, k]
-        rk = r[:, k].clone()
-        r[:, k] = r[rows, p]
-        r[rows, p] = rk
-        r[:, k + 1:] -= LU[:, k + 1:, k] * r[:, k, None]
-    x = torch.empty_like(r)
-    for i in range(n - 1, -1, -1):
-        acc = r[:, i]
-        for j in range(i + 1, n):
-            acc = acc - LU[:, i, j] * x[:, j]
-        x[:, i] = acc * inv_d[:, i]
-    return x
-
-
-def _rolled_solve(A, R):
-    """Rolled-tier LU with partial pivoting of ``[A | R]`` (multipliers
-    by division, as the rolled kernel) and back-substitution; returns
-    the solutions (B, n, c) of the c right-hand-side columns."""
-    n = A.shape[1]
-    W = torch.cat([A, R], dim=2)
-    for k in range(n):
-        _swap_rows(W, k, _pivot(W, k), k)
-        l = W[:, k + 1:, k] / W[:, k, k, None]
-        W[:, k + 1:, k + 1:] -= l[:, :, None] * W[:, k, None, k + 1:]
-    X = W[:, :, n:].clone()
-    for i in range(n - 1, -1, -1):
-        s = torch.zeros_like(X[:, i])
-        for j in range(i + 1, n):
-            s = s + W[:, i, j, None] * X[:, j]
-        X[:, i] = (X[:, i] - s) / W[:, i, i, None]
-    return X
 
 
 def _residual(A, v, x):
@@ -180,16 +108,16 @@ def solve_plain(mat, vec, eps=None, refine=None):
         return torch.stack(x, dim=1)
     A = _dense(mat, n, e)
     if n <= 8:
-        LU, piv, inv_d = _plu_factor(A)
-        x = _plu_substitute(LU, piv, inv_d, vec)
+        LU, piv, inv_d = plu_factor(A)
+        x = plu_substitute(LU, piv, inv_d, vec)
         for _ in range(refine):
-            x = x + _plu_substitute(LU, piv, inv_d, _residual(A, vec, x))
+            x = x + plu_substitute(LU, piv, inv_d, _residual(A, vec, x))
         return x
     rhs = vec[:, :, None]
     if refine:
         eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape[0], n, n)
         rhs = torch.cat([rhs, eye], dim=2)
-    X = _rolled_solve(A, rhs)
+    X = rolled_solve(A, rhs)
     x = X[:, :, 0]
     for _ in range(refine):
         x = x + _matvec_rows(X[:, :, 1:], _residual(A, vec, x))
@@ -223,12 +151,12 @@ def chain_plain(mat, vec, add, eps, iters):
         return torch.stack(xs, dim=1)
     A = _dense(mat, n, e)
     if n <= 8:
-        LU, piv, inv_d = _plu_factor(A)
+        LU, piv, inv_d = plu_factor(A)
         for _ in range(iters):
-            x = _plu_substitute(LU, piv, inv_d, x) + c
+            x = plu_substitute(LU, piv, inv_d, x) + c
         return x.clone()
     eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape[0], n, n)
-    inv = _rolled_solve(A, eye)
+    inv = rolled_solve(A, eye)
     for _ in range(iters):
         x = _matvec_rows(inv, x) + c
     return x.clone()

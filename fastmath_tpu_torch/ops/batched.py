@@ -1,0 +1,282 @@
+"""Batched small-matrix linear algebra on full storage: ``batchinv``,
+``batchlmdiv``, ``batchrmdiv``, ``batchmatvec`` and ``batchmatmul``.
+
+PyTorch counterpart of ``fastmath_tpu/ops/batched.py``: the same names,
+tiers, constants and semantics, on matrices ``(..., n, n)`` with
+right-aligned broadcasting of the batch dims. Input in a kernel's domain
+goes through one ``torch.autograd.Function`` per kernel
+(:mod:`fastmath_tpu_torch.kernels.batched_cuda`) that launches the
+hand-written CUDA kernel on a CUDA tensor and runs the kernel's plain
+PyTorch version otherwise. The rest runs the reference's plain tiers in
+PyTorch on the tensors' device: closed forms up to n = 4, pivoted LU
+(unrolled to n = 8, rolled to 16), and ``torch.linalg`` above, where the
+reference itself calls ``jnp.linalg``.
+
+``backend``:
+
+* ``"auto"``: a CUDA tensor in the kernel's domain always launches the
+  kernel; everything else runs on the tensors' device as above. The
+  domain is real float32/float64, 1 <= n <= 32, ``regularize=False``
+  and, for the solves, at most ``k_cap`` right-hand-side columns (8 up
+  to n = 8, 16 above). ``batchlmdiv`` takes its solve kernel for n > 4
+  only; for n <= 4 it multiplies by ``batchinv``'s inverse, as the
+  reference does. (The reference's batch-size thresholds were measured
+  on a TPU and are not copied.)
+* ``"cuda"``: forces the kernel (``batchlmdiv`` the solve kernel at any
+  n); raises outside its domain or on CPU tensors.
+* ``"torch"``: the plain tiers, on whatever device holds the tensors.
+
+``batchmatvec`` and ``batchmatmul`` call no kernel (the reference never
+routes them to one by default). bf16/f16 compute in float32 and round
+once on output.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.dtypes import downcast, upcast_half
+from ..kernels._launch import MAX_N
+from .sym import _check_backend, _det_expand, _use_kernel
+
+__all__ = ["batchinv", "batchmatvec", "batchmatmul", "batchlmdiv", "batchrmdiv"]
+
+_CLOSED_FORM_MAX = 4
+#: largest n of the plain pivoted-LU tier (above: torch.linalg)
+LU_UNROLL_MAX = 16
+#: the plain LU multiplies by the reciprocal pivot up to this n and
+#: divides above (the reference's unrolled and rolled forms); the solve
+#: kernel's RHS-column cap is 8 up to it and 16 above
+_PLU_UNROLL_N = 8
+_MATMUL_UNROLL_MAX = 6
+
+_NO_REGULARIZE = ("backend='cuda' does not implement regularize=True (the "
+                  "reference's det smoothing is a closed-form-path knob)")
+
+
+# ---------------------------------------------------------------------------
+# plain tiers
+# ---------------------------------------------------------------------------
+
+
+def _plu(a: torch.Tensor):
+    """Batched LU with partial pivoting (first-max pivots, whole-row
+    swaps): ``(lu, perm, parity)`` with unit-lower L below the diagonal
+    of ``lu`` and U on and above it, ``(P A)[i] = A[perm[i]]``, and the
+    permutation's sign. Multipliers by the reciprocal pivot up to
+    n = 8, by division above, as the reference's two forms."""
+    n = a.shape[-1]
+    batch = a.shape[:-2]
+    lu = a.reshape(-1, n, n).clone()
+    nb = lu.shape[0]
+    rows = torch.arange(nb, device=a.device)
+    perm = torch.arange(n, device=a.device).repeat(nb, 1)
+    parity = torch.ones(nb, dtype=a.dtype, device=a.device)
+    for k in range(n):
+        p = k + torch.argmax(lu[:, k:, k].abs(), dim=1)
+        row_k, row_p = lu[:, k].clone(), lu[rows, p]
+        lu[:, k], lu[rows, p] = row_p, row_k
+        perm_k, perm_p = perm[:, k].clone(), perm[rows, p]
+        perm[:, k], perm[rows, p] = perm_p, perm_k
+        parity = torch.where(p == k, parity, -parity)
+        if k < n - 1:
+            # copies: autograd keeps them, and lu changes in place below
+            col, pv, row = (t.clone() for t in (lu[:, k + 1:, k], lu[:, k, k, None],
+                                                lu[:, k, None, k + 1:]))
+            l = col * (1.0 / pv) if n <= _PLU_UNROLL_N else col / pv
+            lu[:, k + 1:, k + 1:] -= l[:, :, None] * row
+            lu[:, k + 1:, k] = l
+    return lu.reshape(*batch, n, n), perm.reshape(*batch, n), parity.reshape(batch)
+
+
+def _lu_solve_unrolled(lu, perm, b):
+    """Solve ``A x = b`` from :func:`_plu`'s factors; ``b`` is ``(..., n)``
+    or ``(..., n, m)`` with the factors' batch."""
+    vector = b.dim() == lu.dim() - 1
+    if vector:
+        b = b[..., None]
+    n = lu.shape[-1]
+    y = torch.gather(b, -2, perm[..., None].expand(*perm.shape, b.shape[-1]))
+    ys = [y[..., i, :] for i in range(n)]
+    for i in range(n):  # unit-lower L
+        for j in range(i):
+            ys[i] = ys[i] - lu[..., i, j, None] * ys[j]
+    for i in range(n - 1, -1, -1):  # U
+        for j in range(i + 1, n):
+            ys[i] = ys[i] - lu[..., i, j, None] * ys[j]
+        ys[i] = ys[i] / lu[..., i, i, None]
+    x = torch.stack(ys, dim=-2)
+    return x[..., 0] if vector else x
+
+
+def _full_entries(a: torch.Tensor, n: int):
+    """n x n grid of last-axes slices of a full (..., n, n) batch."""
+    return [[a[..., i, j] for j in range(n)] for i in range(n)]
+
+
+def _range_regularizer(a: torch.Tensor):
+    """The reference's dynamic-range regularizer: ``(max|A| - min|A|) *
+    1e-12`` per matrix."""
+    aabs = a.abs().flatten(-2)
+    return (aabs.amax(dim=-1) - aabs.amin(dim=-1)) * 1e-12
+
+
+def _inv_torch(a, regularize):
+    n = a.shape[-1]
+    if n > LU_UNROLL_MAX:
+        return torch.linalg.inv(a)
+    if n > _CLOSED_FORM_MAX:
+        lu, perm, _ = _plu(a)
+        eye = torch.eye(n, dtype=a.dtype, device=a.device).expand(a.shape)
+        return _lu_solve_unrolled(lu, perm, eye)
+    E = _full_entries(a, n)
+    idx = tuple(range(n))
+    cache = {}
+    det = _det_expand(E, idx, idx, cache)
+    if regularize:
+        det = det + _range_regularizer(a)
+    inv_det = 1.0 / det
+    entries = []
+    for i in range(n):
+        for j in range(n):
+            # inv[i][j] = cofactor(j, i) / det
+            minor = _det_expand(E, tuple(r for r in idx if r != j),
+                                tuple(c for c in idx if c != i), cache)
+            entries.append((-minor if (i + j) % 2 else minor) * inv_det)
+    return torch.stack(entries, dim=-1).reshape(a.shape)
+
+
+# ---------------------------------------------------------------------------
+# public ops
+# ---------------------------------------------------------------------------
+
+
+def _kernel_route(backend, n, a, op):
+    """``(domain, kernel)`` of :func:`ops.sym._use_kernel` for the
+    full-storage kernels."""
+    return _use_kernel(backend, True, n, a, op, f"square matrices with 1 <= n <= {MAX_N}",
+                       f"n={n}")
+
+
+def batchinv(a: torch.Tensor, regularize: bool = False, backend: str = "auto") -> torch.Tensor:
+    """Batched inverse ``(..., n, n) -> (..., n, n)``.
+
+    The kernel serves 1 <= n <= 32 (cofactors for n <= 4, pivoted LU
+    against the identity above). The plain tiers: the closed form
+    (adjugate / det) for n <= 4, pivoted LU for n <= 16, ``torch.linalg.inv``
+    beyond. ``regularize=True`` adds the reference's range-scaled
+    ``1e-12`` determinant smoothing on the closed-form tier (it has no
+    effect above n = 4) and takes the plain tiers. Differentiable. See
+    the module docstring for ``backend``.
+    """
+    a, half = upcast_half(a)
+    n = a.shape[-1]
+    if a.shape[-2] != n:
+        raise ValueError("batchinv expects square matrices")
+    _check_backend(backend)
+    if regularize and backend == "cuda":
+        raise ValueError(_NO_REGULARIZE)
+    domain, kernel = _kernel_route(backend, n, a, "batchinv")
+    if domain and not regularize and backend != "torch":
+        from ..kernels.batched_cuda import InvFunction
+
+        y = InvFunction.apply(a.reshape(-1, n * n).contiguous(), kernel, False)
+        return downcast(y.reshape(a.shape), half)
+    return downcast(_inv_torch(a, regularize), half)
+
+
+def batchmatvec(mat: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
+    """Batched matrix-vector product ``(..., m, n) @ (..., n) -> (..., m)``:
+    unrolled (each row summed left to right) for m, n <= 4,
+    ``torch.matmul`` beyond. Handles non-square."""
+    mat, vec, half = upcast_half(mat, vec)
+    m, n = mat.shape[-2:]
+    if vec.shape[-1] != n:
+        raise ValueError(f"matvec shape mismatch: {tuple(mat.shape)} @ {tuple(vec.shape)}")
+    if m <= _CLOSED_FORM_MAX and n <= _CLOSED_FORM_MAX:
+        rows = []
+        for i in range(m):
+            acc = mat[..., i, 0] * vec[..., 0]
+            for j in range(1, n):
+                acc = acc + mat[..., i, j] * vec[..., j]
+            rows.append(acc)
+        return downcast(torch.stack(rows, dim=-1), half)
+    return downcast(torch.matmul(mat, vec[..., None])[..., 0], half)
+
+
+def batchmatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched matmul ``(..., m, k) @ (..., k, n) -> (..., m, n)``:
+    unrolled (each entry summed over k in order) when every dim is
+    <= 6, ``torch.matmul`` beyond."""
+    a, b, half = upcast_half(a, b)
+    m, k = a.shape[-2:]
+    k2, n = b.shape[-2:]
+    if k != k2:
+        raise ValueError(f"matmul shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
+    if max(m, k, n) > _MATMUL_UNROLL_MAX:
+        return downcast(torch.matmul(a, b), half)
+    rows = []
+    for i in range(m):
+        row = []
+        for j in range(n):
+            acc = a[..., i, 0] * b[..., 0, j]
+            for kk in range(1, k):
+                acc = acc + a[..., i, kk] * b[..., kk, j]
+            row.append(acc)
+        rows.append(torch.stack(row, dim=-1))
+    return downcast(torch.stack(rows, dim=-2), half)
+
+
+def batchlmdiv(a: torch.Tensor, b: torch.Tensor, regularize: bool = False,
+               backend: str = "auto") -> torch.Tensor:
+    r"""Batched left division ``A \ b`` for small full matrices.
+
+    ``b`` is a vector ``(..., n)`` or a matrix ``(..., n, k)``; batch
+    dims broadcast. The solve kernel (pivoted LU, all k columns on one
+    factorization) serves 1 <= n <= 32 with k <= 8 columns up to n = 8
+    and k <= 16 above; ``"auto"`` takes it for n > 4. For n <= 4 the
+    answer is :func:`batchinv` times ``b`` (the inverse kernel on a CUDA
+    tensor). The plain tiers: pivoted LU for n <= 16,
+    ``torch.linalg.solve`` beyond. ``regularize`` as in :func:`batchinv`.
+    Differentiable. See the module docstring for ``backend``.
+    """
+    _check_backend(backend)
+    a, b, half = upcast_half(a, b)
+    n = a.shape[-1]
+    vector = b.dim() == a.dim() - 1
+    k = 1 if vector else b.shape[-1]
+    k_cap = 16 if n > _PLU_UNROLL_N else 8
+    if backend == "cuda":
+        if regularize:
+            raise ValueError(_NO_REGULARIZE)
+        if k > k_cap:
+            raise ValueError(f"backend='cuda' lmdiv caps RHS columns at {k_cap} for "
+                             f"n={n}; got k={k}")
+    # the broadcast batch: one shared matrix against many right-hand sides
+    nbd = b.dim() - (1 if vector else 2)
+    bshape = torch.broadcast_shapes(a.shape[:-2], b.shape[:nbd])
+    domain, kernel = _kernel_route(backend, n, a, "batchlmdiv")
+    if (domain and not regularize and k <= k_cap
+            and (backend == "cuda" or (backend == "auto" and n > _CLOSED_FORM_MAX))):
+        from ..kernels.batched_cuda import SolveFullFunction
+
+        a2 = a.expand(*bshape, n, n).reshape(-1, n * n).contiguous()
+        rhs = (b[..., None] if vector else b).expand(*bshape, n, k)
+        x = SolveFullFunction.apply(a2, rhs.reshape(-1, n * k).contiguous(), k, False,
+                                    kernel, False).reshape(*bshape, n, k)
+        return downcast(x[..., 0] if vector else x, half)
+    if n <= _CLOSED_FORM_MAX:
+        inv = batchinv(a, regularize=regularize, backend=backend)
+        return downcast(batchmatvec(inv, b) if vector else batchmatmul(inv, b), half)
+    if n <= LU_UNROLL_MAX:
+        lu, perm, _ = _plu(a.expand(*bshape, n, n))
+        return downcast(_lu_solve_unrolled(lu, perm, b.expand(*bshape, *b.shape[nbd:])), half)
+    if vector:
+        return downcast(torch.linalg.solve(a, b[..., None])[..., 0], half)
+    return downcast(torch.linalg.solve(a, b), half)
+
+
+def batchrmdiv(a: torch.Tensor, b: torch.Tensor, regularize: bool = False,
+               backend: str = "auto") -> torch.Tensor:
+    """Batched right division ``a @ inv(b)``: the transpose of
+    :func:`batchlmdiv` (``backend`` as there)."""
+    return batchlmdiv(b.mT, a.mT, regularize=regularize, backend=backend).mT

@@ -12,10 +12,16 @@ hand-written CUDA kernel on a CUDA tensor and runs the kernel's plain
 PyTorch version otherwise. Everything else is plain PyTorch on the
 tensors' device: diagonal and scaled-identity storage elementwise, full
 storage and compact N > 32 of the products through ``torch.matmul``.
+The solves take full storage and compact N > 32 as the reference does:
+densified, ``eps`` on the diagonal, then
+:func:`fastmath_tpu_torch.ops.batched.batchlmdiv` (whose own kernels
+serve n <= 32) with ``refine`` steps through ``batchmatvec``.
 
 The port has one semantics on both devices, that of the reference's
-kernel path: ``refine=None`` means one refinement step for N <= 4 and
-none above (the reference's fused-XLA path defaults to 0).
+kernel path: ``refine=None`` means one refinement step for compact
+N <= 4 and none above (the reference's fused-XLA path defaults to 0).
+On full storage and compact N > 32 it means none: the reference has no
+compact kernel for those and solves them on that XLA path.
 
 ``backend``:
 
@@ -29,9 +35,6 @@ none above (the reference's fused-XLA path defaults to 0).
 * ``"cuda"``: forces the kernel; raises outside its domain or on CPU
   tensors.
 * ``"torch"``: the plain version, on whatever device holds the tensors.
-
-The solves do not take full storage (``NN == N*N``) or compact N > 32
-yet: they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -52,12 +55,6 @@ BACKENDS = ("auto", "cuda", "torch")
 
 # N <= this solves by the closed-form adjugate
 _CLOSED_FORM_MAX = 4
-
-_NOT_PORTED = (
-    "is not ported yet: the reference solves it through batchlmdiv / the "
-    "Pallas solve_full_cf kernel (ROADMAP 'Modules to port', item 3, and "
-    "'TPU kernels to port', #11)"
-)
 
 
 def _entries(mat: torch.Tensor, n: int):
@@ -192,16 +189,21 @@ def _compact_route(backend, layout, n, x, op):
                        f"layout={layout.name}, N={n}")
 
 
-def _route(backend, layout, n, x: torch.Tensor, op: str):
-    """``(compact, kernel)``: whether the compact solve machinery serves
-    this input, and whether it runs as the CUDA kernel."""
+def _is_dense(layout, n) -> bool:
+    """Full storage, or compact N > MAX_N: solved densified through
+    ``batchlmdiv``."""
     from ..kernels._launch import MAX_N
 
+    return layout is MatrixLayout.FULL or (layout is MatrixLayout.COMPACT_SYM and n > MAX_N)
+
+
+def _route(backend, layout, n, x: torch.Tensor, op: str):
+    """``(compact, kernel)``: whether the compact solve machinery serves
+    this input, and whether it runs as the CUDA kernel (neither for the
+    dense classes, whose ``batchlmdiv`` routes itself)."""
     _check_backend(backend)
-    if layout is MatrixLayout.FULL:
-        raise NotImplementedError(f"{op} on full storage {_NOT_PORTED}")
-    if layout is MatrixLayout.COMPACT_SYM and n > MAX_N:
-        raise NotImplementedError(f"{op} on compact N={n} > {MAX_N} {_NOT_PORTED}")
+    if _is_dense(layout, n):
+        return False, False
     return _is_compact(layout, n), _compact_route(backend, layout, n, x, op)[1]
 
 
@@ -209,10 +211,33 @@ def _flat(t: torch.Tensor, batch, width):
     return t.expand(*batch, width).contiguous().reshape(-1, width)
 
 
+def _dense_solve(mat, vec, layout, n, eps, refine, backend):
+    """Full storage or compact N > 32: densify, add eps to the diagonal,
+    broadcast, then ``batchlmdiv`` with ``refine`` steps (the
+    reference's ``_refined_lmdiv``)."""
+    from .batched import batchlmdiv, batchmatvec
+
+    if layout is MatrixLayout.FULL:
+        full = mat.reshape(*mat.shape[:-1], n, n)
+    else:
+        full = sym_to_full(mat, n)
+    if eps is not None:
+        e = torch.tensor(_prep_eps(eps, n), dtype=full.dtype, device=full.device)
+        full = full + torch.diag(e)
+    batch = torch.broadcast_shapes(full.shape[:-2], vec.shape[:-1])
+    full, v = full.expand(*batch, n, n), vec.expand(*batch, n)
+    x = batchlmdiv(full, v, backend=backend)
+    for _ in range(refine or 0):
+        x = x + batchlmdiv(full, v - batchmatvec(full, x), backend=backend)
+    return x
+
+
 def _sym_solve_impl(mat, vec, eps, refine, backend, op="sym_solve"):
     """sym_solve without the dtype handling (the caller upcasts)."""
     n = vec.shape[-1]
     layout = classify_layout(mat.shape[-1], n)
+    if _is_dense(layout, n):
+        return _dense_solve(mat, vec, layout, n, eps, refine, backend)
     compact, kernel = _route(backend, layout, n, mat, op)
     if not compact:
         # elementwise: scaled identity (N > 1) or diagonal
@@ -241,13 +266,14 @@ def sym_solve(
 ) -> torch.Tensor:
     r"""Left matrix division ``A \ v`` for auto-detected storage.
 
-    ``mat`` is ``(..., NN)`` with ``NN`` in ``{1, N, N(N+1)/2}``, ``vec``
-    is ``(..., N)``; batch dims broadcast. ``eps`` (a scalar or
+    ``mat`` is ``(..., NN)`` with ``NN`` in ``{1, N, N(N+1)/2, N*N}``,
+    ``vec`` is ``(..., N)``; batch dims broadcast. ``eps`` (a scalar or
     per-channel sequence, the last value repeated) is added to the
     diagonal before solving. ``refine`` adds iterative-refinement steps
-    ``x += A \ (v - A x)`` (default 1 for N <= 4, 0 above). bf16/f16
-    compute in float32 and round once on output. Differentiable in
-    ``mat`` and ``vec``. See the module docstring for ``backend``.
+    ``x += A \ (v - A x)`` (default 1 for compact N <= 4, 0 otherwise).
+    bf16/f16 compute in float32 and round once on output.
+    Differentiable in ``mat`` and ``vec``. See the module docstring for
+    ``backend`` and for full storage and compact N > 32.
     """
     mat, vec, half = upcast_half(mat, vec)
     return downcast(_sym_solve_impl(mat, vec, eps, refine, backend), half)
@@ -266,10 +292,11 @@ def sym_solve_chain(
 
     ``iters == 0`` returns ``vec``; ``iters == 1`` is one
     :func:`sym_solve` (default ``refine``) plus ``add``. From two
-    iterations on, compact input runs the fused chain: the matrix is
-    read and factored once (cofactors and 1/det for N <= 4, pivoted LU
-    for 5..8, explicit inverse for 9..32) and every iteration applies
-    the solve to the new right-hand side, without refinement. The
+    iterations on, compact input with N <= 32 runs the fused chain: the
+    matrix is read and factored once (cofactors and 1/det for N <= 4,
+    pivoted LU for 5..8, explicit inverse for 9..32) and every iteration
+    applies the solve to the new right-hand side, without refinement;
+    other storage runs ``iters`` solves without refinement. The
     gradient replays ``iters`` solves (memory O(iters * batch)).
 
     Error growth (float32): the normwise error against the exact

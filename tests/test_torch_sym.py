@@ -159,15 +159,18 @@ def test_sym_solve_elementwise_layouts(n, rng):
 
 @pytest.mark.parametrize("op", ["sym_solve", "sym_solve_chain"])
 def test_unported_layouts_raise(op, rng):
-    fn = getattr(T, op)
-    v = torch.from_numpy(rng.standard_normal((4, 3)))
-    full = torch.from_numpy(rng.standard_normal((4, 9)))  # FULL layout
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn(full, v)
+    """Full storage (a general, non-symmetric matrix) and compact N = 33,
+    which the compact kernels do not take, against the reference (both
+    solve them densified through batchlmdiv, with no refinement)."""
+    kw = {"iters": 2} if op == "sym_solve_chain" else {}
+    v = rng.standard_normal((4, 3))
+    full = rng.standard_normal((4, 9)) + 3 * np.eye(3).ravel()  # FULL layout
     n = 33
-    cm = torch.from_numpy(_compact(_spd(rng, (2,), n)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn(cm, torch.ones(2, n, dtype=torch.float64))
+    cm = _compact(_spd(rng, (2,), n))
+    for mat, vec in ((full, v), (cm, rng.standard_normal((2, n)))):
+        want = _jax(getattr(F, op), mat, vec, eps=0.2, **kw)
+        np.testing.assert_allclose(_port(getattr(T, op), mat, vec, eps=0.2, **kw), want,
+                                   rtol=F64_RTOL, atol=1e-12)
 
 
 def test_sym_solve_alias_and_backends(rng):
@@ -258,6 +261,10 @@ def test_port_imports_no_jax():
         "assert torch.allclose(x, torch.tensor([[3/19, 7/19]]))\n"
         "assert torch.allclose(T.sym_submatvec(v, m, x), torch.zeros(1, 2), atol=1e-6)\n"
         "T.sym_matmul(torch.ones(1, 2, 3), m); T.sym_outer(v)\n"
+        "a = torch.tensor([[[4.0, 1.0], [2.0, 3.0]]])\n"
+        "T.batchinv(a); T.batchrmdiv(a, a); T.batchlmdiv(a, v, backend='torch')\n"
+        "T.sym_solve(a.reshape(1, 4), v); T.sym_solve(torch.eye(33).reshape(1, -1), torch.ones(1, 33))\n"
+        "T.kernels.solve_full_cf(a.reshape(1, 4).t(), v.t()); T.kernels.inv_cf(a.reshape(1, 4).t())\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'fastmath_tpu')]\n"
         "assert not bad, bad\n"

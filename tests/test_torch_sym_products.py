@@ -348,5 +348,7 @@ def test_solve_chain_iters0_returns_vec_on_every_storage(rng):
     half = T.sym_solve_chain(torch.ones(4, 9, dtype=torch.bfloat16),
                              _t(v).to(torch.bfloat16), 0)
     assert half.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.sym_solve_chain(_t(rng.standard_normal((4, 9))), _t(v), 1)
+    # one step on full storage is one densified solve, as in the reference
+    full = rng.standard_normal((4, 9)) + 3 * np.eye(3).ravel()
+    np.testing.assert_allclose(_port(T.sym_solve_chain, full, v, iters=1),
+                               _jax(F.sym_solve_chain, full, v, iters=1), rtol=RTOL, atol=ATOL)
