@@ -15,11 +15,14 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    batch-major and the channel-first layout, and against a float64 numpy
    oracle; the full-storage solve (k = 1, 3, 8 columns up to n = 8, 1 and
    16 above, also reading A transposed) and inverse on general matrices
-   that pivot at most steps and on SPD matrices;
+   that pivot at most steps and on SPD matrices; the determinant,
+   log-determinant, Cholesky, compact determinant and compact inverse;
 3. gradients of ``sym_solve``, ``sym_solve_chain``, the products,
-   ``batchinv`` and ``batchlmdiv`` through the kernels against the same
-   through the plain versions (the matvec kernel and the solve kernel,
-   reading A transposed, must launch in the backward);
+   ``batchinv``, ``batchlmdiv``, ``batchdet``, ``batchlogdet``,
+   ``batchchol``, ``sym_det`` and ``sym_invert`` through the kernels
+   against the same through the plain versions (the matvec kernel, the
+   solve kernel reading A transposed, the inverse kernel and the compact
+   inverse kernel must launch in the backward);
 4. the solve's main path at full size: the public ``sym_solve`` on a 1M
    batch of 4x4 float32 compact SPD matrices made as ``bench.py`` makes
    them, and ``sym_solve_chain`` with k = 128 on the same batch; launch
@@ -39,7 +42,18 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    launch counts, normwise error against float64 numpy, per-call, host
    and device times, each kernel alone against its bound, its plain
    version and ``torch.linalg.inv_ex`` / ``solve_ex``;
-7. one JSON line of per-kernel times beside their bounds.
+7. the factor path at the bench suite's shapes (float32, a a^T + n I):
+   the public ``batchchol`` at 3x3 and 8x8 on 1M, 16x16 on 500k and 24x24
+   on 200k, ``batchlogdet`` 16x16 on 500k and 32x32 on 100k, ``batchdet``
+   3x3 and 8x8 on 1M, ``sym_det`` and ``sym_invert`` on ``bench.py``'s
+   1M x 4 compact batch and at N = 16 on 262,144; launch counts, error
+   against float64 numpy on 4,096 problems (relative for a determinant,
+   normwise for a factor or an inverse, absolute over max(1, |logdet|)
+   for log|det|), per-call, host and device times, each kernel alone
+   against its bound, its plain version and one ``torch.linalg`` call
+   (``det``, ``slogdet``, ``cholesky_ex``, ``det`` / ``inv_ex`` of the
+   densified compact matrix);
+8. one JSON line of per-kernel times beside their bounds.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository beside it, the script exits non-zero
@@ -424,6 +438,83 @@ def phase_batched_vs_plain(torch, rng):
                 f"(tol {TOL_ORACLE[dt_name]:.0e})")
 
 
+def symmetric(rng, b, n):
+    """Symmetric, indefinite matrices Q diag(w) Q^T, |w| in [0.5, 2] with
+    mixed signs: pivoting swaps rows, the condition number is <= 4 and
+    the determinant stays in float32 range at every n."""
+    q, _ = np.linalg.qr(rng.standard_normal((b, n, n)))
+    w = rng.uniform(0.5, 2.0, (b, n)) * np.where(rng.random((b, n)) < 0.5, -1, 1)
+    s = np.einsum("bik,bk,bjk->bij", q, w, q)
+    return 0.5 * (s + s.transpose(0, 2, 1))
+
+
+def compact_lower(L):
+    """Compact slots of lower factors (the Cholesky kernel's output):
+    slot (i, j), i < j, holds L[j][i]."""
+    rows, cols = np.triu_indices(L.shape[-1], k=1)
+    return np.concatenate([np.diagonal(L, axis1=-2, axis2=-1), L[..., cols, rows]], axis=-1)
+
+
+def log_err(got, want):
+    """|got - want| / max(1, |want|) per problem, for log|det|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want) / np.maximum(1.0, np.abs(want))
+
+
+def phase_factor_vs_plain(torch, rng):
+    """The determinant (and its log mode), Cholesky, compact determinant
+    and compact inverse kernels against their plain versions and a
+    float64 numpy oracle: relative error for a determinant, normwise for
+    a factor or an inverse, absolute over max(1, |logdet|) for log|det|.
+    The matrices keep their determinants in float32 range at every n."""
+    from fastmath_tpu_torch.kernels import batched_cuda as BC
+    from fastmath_tpu_torch.kernels import sym_factor as SF
+
+    worst = {}
+    for dt_name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        for n in (1, 2, 3, 4, 5, 8, 9, 16, 32):
+            a = torch.tensor((general(rng, B_CHECK, n) / n).reshape(B_CHECK, n * n), dtype=dtype,
+                             device=DEV)
+            sym = torch.tensor(compact(symmetric(rng, B_CHECK, n)), dtype=dtype, device=DEV)
+            pd = torch.tensor(compact(spd(rng, B_CHECK, n, np.float64) / n), dtype=dtype,
+                              device=DEV)
+            a64 = a.double().cpu().numpy().reshape(B_CHECK, n, n)
+            sym64, pd64 = full64(sym, n), full64(pd, n)
+            rows = [
+                ("det", BC.launch_det, a, BC.det_plain, np.linalg.det(a64)),
+                ("logdet", BC.launch_logdet, a, BC.logdet_plain, np.linalg.slogdet(a64)[1]),
+                ("chol", BC.launch_chol, pd, BC.chol_plain,
+                 compact_lower(np.linalg.cholesky(pd64))),
+                ("sym_det", SF.launch_sym_det, sym, SF.sym_det_plain, np.linalg.det(sym64)),
+                ("sym_invert", SF.launch_sym_invert, sym, SF.invert_plain,
+                 compact(np.linalg.inv(sym64))),
+            ]
+            for op, kern, x, plain, want64 in rows:
+                want = plain(x)
+                for layout, m in (("bm", x), ("cf", x.t().contiguous().t())):
+                    key = f"{op} {dt_name} n={n} {layout}"
+                    got = kern(m, cf_out=layout == "cf")
+                    torch.cuda.synchronize()
+                    if op == "logdet":
+                        g = got.cpu().numpy()
+                        d, o = log_err(g, want.cpu().numpy()).max(), log_err(g, want64).max()
+                        worst[key] = (d, o)
+                        if not (d <= TOL_PLAIN[dt_name] and o <= TOL_ORACLE[dt_name]):
+                            fail(f"{key}: kernel vs plain {d:.3e}, vs f64 oracle {o:.3e}")
+                    elif got.dim() == 1:  # a determinant: relative
+                        hold(torch, worst, key, got[:, None], want[:, None], want64[:, None],
+                             dt_name)
+                    else:
+                        hold(torch, worst, key, got, want, want64, dt_name)
+    for dt_name in ("float32", "float64"):
+        for op in ("det", "logdet", "chol", "sym_det", "sym_invert"):
+            ks = [k for k in worst if k.startswith(f"{op} {dt_name}")]
+            log(f"  {op} {dt_name}: {len(ks)} cases, worst kernel-vs-plain "
+                f"{max(worst[k][0] for k in ks):.3e} (tol {TOL_PLAIN[dt_name]:.0e}), "
+                f"vs f64 numpy {max(worst[k][1] for k in ks):.3e} "
+                f"(tol {TOL_ORACLE[dt_name]:.0e})")
+
+
 # --- phase 3 -----------------------------------------------------------------
 
 
@@ -510,6 +601,41 @@ def phase_batched_gradients(torch, rng):
             fail(f"batched gradient n={n} differs: {worst:.3e}")
         if n > 4 and bwd < 2:
             fail(f"batched gradient n={n}: the backward did not launch the solve kernel")
+
+
+def phase_factor_gradients(torch, rng):
+    """Gradients of batchdet, batchlogdet, batchchol, sym_det and
+    sym_invert through the kernels (float64, on the card) against the
+    same through the plain versions (the CPU). The backward must launch
+    the inverse kernel for det above n = 4, the solve kernel (on A
+    transposed) for log|det|, and the compact inverse kernel for sym_det
+    above N = 4."""
+    import fastmath_tpu_torch as T
+    from fastmath_tpu_torch.kernels import inv_cf, solve_full_cf, sym_invert_cf
+
+    counters = (inv_cf, solve_full_cf, sym_invert_cf)
+    for n in (3, 6, 12):
+        ins0 = [torch.tensor(x, device=DEV) for x in (
+            general(rng, 515, n) / n, spd(rng, 515, n, np.float64),
+            compact(symmetric(rng, 515, n)))]
+
+        def grads(device):
+            ins = [t.to(device).clone().requires_grad_() for t in ins0]
+            out = (T.batchdet(ins[0]).square().sum() + T.batchlogdet(ins[0]).square().sum()
+                   + T.batchchol(ins[1]).square().sum() + T.sym_det(ins[2]).square().sum()
+                   + T.sym_invert(ins[2]).square().sum())
+            before = [c.launches for c in counters]
+            g = torch.autograd.grad(out, ins)
+            return [t.cpu() for t in g], [c.launches - b for c, b in zip(counters, before)]
+
+        (kernel, bwd), (plain, _) = grads(DEV), grads("cpu")
+        worst = max(((k - p).norm() / p.norm()).item() for k, p in zip(kernel, plain))
+        log(f"  factor grads n={n}: kernel vs plain relative {worst:.3e} (tol 1e-10); "
+            f"launches in backward: inverse {bwd[0]}, solve {bwd[1]}, compact inverse {bwd[2]}")
+        if not worst <= 1e-10:
+            fail(f"factor gradient n={n} differs: {worst:.3e}")
+        if bwd[1] < 1 or (n > 4 and min(bwd[0], bwd[2]) < 1):
+            fail(f"factor gradient n={n}: the backward did not launch its kernels: {bwd}")
 
 
 # --- phase 4 -----------------------------------------------------------------
@@ -1041,6 +1167,209 @@ def phase_batched(torch, rng):
     return kernels
 
 
+# --- phase 7 -----------------------------------------------------------------
+
+# bench/suite.py's factor shapes: batchchol 3x3 and 8x8 on 1M (:412-417),
+# 16x16 on 500k (:456-467), 24x24 on 200k (:529-537); batchlogdet 16x16
+# on 500k and 32x32 on 100k (:543-552); batchdet 3x3 and 8x8 on 1M;
+# sym_det / sym_invert on bench.py's 1M x 4 batch and at N = 16
+CHOL_SHAPES = ((3, 1_000_000), (8, 1_000_000), (16, 500_000), (24, 200_000))
+LOGDET_SHAPES = ((16, 500_000), (32, 100_000))
+DET_SHAPES = ((3, 1_000_000), (8, 1_000_000))
+SYM_SHAPES = ((4, 1_000_000), (16, 262_144))
+# the shape of each kernel's row in the kernels line
+FACTOR_ROWS = {"det": 8, "logdet": 16, "chol": 16, "sym_det": 4, "sym_invert": 4}
+
+
+def ops_det(n):
+    """Arithmetic operations of one determinant as the kernels do it: the
+    expansion for n <= 4; the pivoted LU's elimination and the product of
+    the n pivots above."""
+    from fastmath_tpu_torch.kernels._gen_adjugate import det_ops
+
+    return det_ops(n) if n <= 4 else ops_plu(n, 0) + n - 1
+
+
+def ops_logdet(n):
+    """One log|det|: for n <= 4 the row scales (a reciprocal each, n^2
+    products), the expansion, n + 1 logs and n adds; above, the LU's
+    elimination, n logs and n - 1 adds (a log counts as one operation)."""
+    from fastmath_tpu_torch.kernels._gen_adjugate import det_ops
+
+    if n <= 4:
+        return n + n * n + det_ops(n) + 2 * n + 1
+    return ops_plu(n, 0) + 2 * n - 1
+
+
+def ops_chol(n):
+    """One Cholesky factor as the kernel does it: Banachiewicz up to
+    n = 8 (each entry's dot product, a square root and a reciprocal per
+    column, a scale per entry below), the outer-product form above (a
+    reciprocal square root and n - k scales per column, two operations
+    per entry of the trailing triangle)."""
+    if n <= 8:
+        return sum(2 * j + 2 + (n - 1 - j) * (2 * j + 1) for j in range(n))
+    return sum(1 + (n - k) + (n - k - 1) * (n - k) for k in range(n))
+
+
+def ops_sym_invert(n):
+    """One compact inverse: the compact cofactors, 1/det and the scaled
+    slots for n <= 4; the solve against the identity's n columns and the
+    averaged upper slots above."""
+    from fastmath_tpu_torch.kernels._gen_adjugate import compact_inverse_ops
+
+    if n == 1:
+        return 1
+    return compact_inverse_ops(n) if n <= 4 else ops_plu(n, n) + n * (n - 1)
+
+
+def phase_factor(torch, rng, mat4):
+    """The factor path at the bench suite's shapes, through the public
+    ops: launch counts, the error against float64 numpy on 4,096
+    problems, per-call, host and device times, and each kernel alone
+    against its byte bound, its plain version and one torch.linalg call.
+    ``mat4`` is phase 4's 1M x 4 compact batch (bench.py's)."""
+    import fastmath_tpu_torch as T
+    from fastmath_tpu_torch.kernels import batched_cuda as BC
+    from fastmath_tpu_torch.kernels import sym_factor as SF
+    from fastmath_tpu_torch.layouts import full_to_sym, sym_to_full
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(int(rng.integers(2 ** 31)))
+    sizes = sorted({*CHOL_SHAPES, *LOGDET_SHAPES, *DET_SHAPES})
+    full = {nb: spd_on_card(torch, gen, nb[1], nb[0]) for nb in sizes}
+    comp = {(4, B_MAIN): mat4,
+            SYM_SHAPES[1]: full_to_sym(spd_on_card(torch, gen, SYM_SHAPES[1][1],
+                                                   SYM_SHAPES[1][0])).contiguous()}
+    torch.cuda.synchronize()
+
+    counters = {"det": BC.det_cf, "logdet": BC.logdet_cf, "chol": BC.chol_cf,
+                "sym_det": SF.sym_det_cf, "sym_invert": SF.sym_invert_cf}
+    for c in counters.values():
+        c.launches = 0
+    outs = {}
+    for n, b in CHOL_SHAPES:
+        outs[("chol", n, b)] = T.batchchol(full[n, b])
+    for n, b in LOGDET_SHAPES:
+        outs[("logdet", n, b)] = T.batchlogdet(full[n, b])
+    for n, b in DET_SHAPES:
+        outs[("det", n, b)] = T.batchdet(full[n, b])
+    for n, b in SYM_SHAPES:
+        outs[("sym_det", n, b)] = T.sym_det(comp[n, b])
+        outs[("sym_invert", n, b)] = T.sym_invert(comp[n, b])
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    log("  factor-path launches: " + " ".join(f"{k}={v}" for k, v in launches.items()))
+    if not all(v >= 1 for v in launches.values()):
+        fail(f"the factor path did not go through every kernel: {launches}")
+
+    # the error against float64 numpy on 4,096 problems of each batch
+    ns = 4096
+    for (op, n, b), y in outs.items():
+        shape = {"chol": (b, n, n), "sym_invert": (b, n * (n + 1) // 2)}.get(op, (b,))
+        if tuple(y.shape) != shape or not torch.isfinite(y).all():
+            fail(f"{op} {n}x{n} on {b}: output has the wrong shape or is not finite")
+        got = y[:ns].double().cpu().numpy()
+        if op in ("sym_det", "sym_invert"):
+            a64 = sym_to_full(comp[n, b][:ns]).double().cpu().numpy()
+        else:
+            a64 = full[n, b][:ns].double().cpu().numpy()
+        if op == "chol":
+            e = normwise(got.reshape(len(got), -1), np.linalg.cholesky(a64).reshape(len(got), -1))
+        elif op == "sym_invert":
+            e = normwise(got, compact(np.linalg.inv(a64)))
+        elif op == "logdet":
+            e = log_err(got, np.linalg.slogdet(a64)[1])
+        else:
+            e = normwise(got[:, None], np.linalg.det(a64)[:, None])
+        kind = {"chol": "normwise", "sym_invert": "normwise",
+                "logdet": "abs over max(1, |logdet|)"}.get(op, "relative")
+        log(f"  {op} {n}x{n} on {b} f32 {kind} vs f64 ({len(e)} problems): median="
+            f"{np.median(e):.3e} p99={np.quantile(e, 0.99):.3e} max={e.max():.3e} "
+            f"(gate {GATE:.0e})")
+        if not e.max() <= GATE:
+            fail(f"{op} {n}x{n} on {b}: error {e.max():.3e} > {GATE}")
+    del outs
+
+    # each public op per call (host launch included), its host share and
+    # its device time; then each kernel alone against its bound, its plain
+    # version and one library call on the same inputs (timed only)
+    # op: the public op, the kernel's launch and plain version, the TPU
+    # kernel it replaces and its CUDA source
+    spec = {
+        "chol": (T.batchchol, BC.launch_chol, BC.chol_plain, "batched_pallas.py:226",
+                 "batched.cu"),
+        "logdet": (T.batchlogdet, BC.launch_logdet, BC.logdet_plain, "batched_pallas.py:123",
+                   "batched.cu"),
+        "det": (T.batchdet, BC.launch_det, BC.det_plain, "batched_pallas.py:123", "batched.cu"),
+        "sym_det": (T.sym_det, SF.launch_sym_det, SF.sym_det_plain, "sym_pallas.py:1599",
+                    "sym_factor.cu"),
+        "sym_invert": (T.sym_invert, SF.launch_sym_invert, SF.invert_plain,
+                       "sym_pallas.py:493", "sym_factor.cu"),
+    }
+    kernels = []
+    for op, shapes in (("chol", CHOL_SHAPES), ("logdet", LOGDET_SHAPES), ("det", DET_SHAPES),
+                       ("sym_det", SYM_SHAPES), ("sym_invert", SYM_SHAPES)):
+        for n, b in shapes:
+            nn = n * (n + 1) // 2
+            if op in ("sym_det", "sym_invert"):
+                inp = arg = comp[n, b]
+                dense = sym_to_full(inp)
+                lib = ((lambda d=dense: torch.linalg.det(d)) if op == "sym_det"
+                       else (lambda d=dense: torch.linalg.inv_ex(d)))
+                nbytes = (nn + 1) * 4 if op == "sym_det" else 2 * nn * 4
+                nops = ops_det(n) if op == "sym_det" else ops_sym_invert(n)
+            else:
+                inp = a = full[n, b]
+                if op == "chol":
+                    arg = full_to_sym(a).contiguous()
+                    lib = lambda a=a: torch.linalg.cholesky_ex(a)  # noqa: E731
+                    nbytes, nops = 2 * nn * 4, ops_chol(n)
+                else:
+                    arg = a.reshape(b, n * n)
+                    lib = ((lambda a=a: torch.linalg.slogdet(a)) if op == "logdet"
+                           else (lambda a=a: torch.linalg.det(a)))
+                    nbytes = (n * n + 1) * 4
+                    nops = ops_logdet(n) if op == "logdet" else ops_det(n)
+            public, launch_fn, plain_fn, replaces, source = spec[op]
+            pub = lambda f=public, t=inp: f(t)  # noqa: E731
+            dev = device_ms(torch, pub, reps=10)
+            log(f"  public {op} {n}x{n} on {b}: {call_ms(torch, pub, reps=10):.4f} ms per call, "
+                f"host {host_ms(torch, pub, reps=10):.4f} ms, device "
+                + ("not measured (waits for the card)" if dev is None else f"{dev:.4f} ms"))
+            kern = lambda f=launch_fn, t=arg: f(t)  # noqa: E731
+            plain = lambda f=plain_fn, t=arg: f(t)  # noqa: E731
+            y, want = kern(), plain()
+            diff = (y - want).reshape(b, -1)
+            err = diff.abs().max().item()
+            if op == "logdet":
+                rel = (diff[:, 0].abs() / want.abs().clamp_min(1.0)).max().item()
+            else:
+                rel = (diff.norm(dim=-1) / want.reshape(b, -1).norm(dim=-1)).max().item()
+            del y, want, diff
+            if not rel <= TOL_PLAIN["float32"]:
+                fail(f"{op} {n}x{n} on {b}: kernel disagrees with its plain version: {rel:.3e}")
+            ms = device_ms(torch, kern, reps=10)
+            if ms is None:
+                fail(f"{op} {n}x{n} on {b}: the kernel could not be queued ahead of the card")
+            plain_ms = call_ms(torch, plain, reps=3, warmup=1)
+            lib_ms = yardstick_ms(torch, lib, f"{op} library")
+            b_ms, b_by = bound(b * nbytes, b * nops, "float32")
+            log(f"  {op} {n}x{n} on {b} kernel: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+                f"{b_ms / ms * 100:.1f}% of it), plain {plain_ms:.4f} ms, library "
+                f"{lib_ms:.4f} ms, kernel vs plain max abs {err:.3e}, error {rel:.3e}")
+            if n == FACTOR_ROWS[op]:
+                kernels.append({
+                    "name": f"{op}_cf", "route": "cuda",
+                    "source": f"fastmath_tpu_torch/kernels/csrc/{source}",
+                    "replaces": f"fastmath_tpu/kernels/{replaces}",
+                    "launches": launches[op], "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": lib_ms})
+    return kernels
+
+
 def main():
     import torch
 
@@ -1059,17 +1388,23 @@ def main():
     phase_kernels_vs_plain(torch, rng)
     phase_products_vs_plain(torch, rng)
     phase_batched_vs_plain(torch, rng)
+    phase_factor_vs_plain(torch, rng)
     log("== phase 3: gradients")
     phase_gradients(torch, rng)
     phase_batched_gradients(torch, rng)
+    phase_factor_gradients(torch, rng)
     log("== phase 4: main path at full size")
     kernels, batch = phase_main_path(torch, rng)
     phase_wide(torch, rng)
     log("== phase 5: the products' path at full size")
     kernels += phase_products(torch, rng, *batch)
+    mat4 = batch[2]
     del batch
     log("== phase 6: the batched path at full size")
     kernels += phase_batched(torch, rng)
+    log("== phase 7: the factor path at full size")
+    kernels += phase_factor(torch, rng, mat4)
+    del mat4
     torch.cuda.synchronize()
     log(f"total_seconds={time.perf_counter() - t0:.1f}")
     log(smi)

@@ -1,8 +1,9 @@
 """What the kernel modules share: the kernels' domain, the checks of a
 launch, its output, the ``ctypes`` call with its launch count, the
-channel-first operands of the ``*_cf`` wrappers, and the pivoted LU of
-the plain versions (``csrc/sym_common.cuh``'s ``plu_factor``,
-``plu_substitute``, ``rolled_factor`` and ``rolled_backsub`` in PyTorch).
+channel-first operands of the ``*_cf`` wrappers, the pivoted LU of the
+plain versions (``csrc/sym_common.cuh``'s ``plu_factor``,
+``plu_substitute``, ``plu_sign``, ``rolled_factor`` and
+``rolled_backsub`` in PyTorch) and their two Cholesky forms.
 
 Operands of a launch are 2-D ``(B, K)`` views, either batch-major
 contiguous (the public ops) or transposes of channel-first contiguous
@@ -17,7 +18,8 @@ from ..layouts.sym import compact_size
 
 __all__ = ["MAX_N", "KERNEL_DTYPES", "in_domain", "require_domain", "check", "operand",
            "empty", "launch", "cf_flat", "cf_prepare", "plu_factor", "plu_substitute",
-           "rolled_solve"]
+           "plu_sign", "rolled_factor", "rolled_solve", "diag_product", "diag_log_sum",
+           "chol_rows", "chol_rolled"]
 
 #: largest N (for the congruence product, max(K, D)) the kernels serve
 MAX_N = 32
@@ -180,16 +182,59 @@ def plu_substitute(LU, piv, inv_d, rhs):
     return x[:, :, 0] if vector else x
 
 
+def plu_sign(piv):
+    """Sign of the row permutation of :func:`plu_factor`'s pivots (B, n):
+    +1 or -1 per problem."""
+    moved = piv != torch.arange(piv.shape[1], device=piv.device)
+    return 1 - 2 * (moved.sum(dim=1) % 2)
+
+
+def _rolled_eliminate(W, n):
+    """The rolled tier's elimination of the local array ``W`` (B, n, w),
+    in place: swaps of columns k.. and multipliers by division, as the
+    rolled kernel; returns the sign of the row permutation."""
+    sign = torch.ones(W.shape[0], dtype=torch.long, device=W.device)
+    for k in range(n):
+        p = _pivot(W, k)
+        sign = torch.where(p == k, sign, -sign)
+        _swap_rows(W, k, p, k)
+        l = W[:, k + 1:, k] / W[:, k, k, None]
+        W[:, k + 1:, k + 1:] -= l[:, :, None] * W[:, k, None, k + 1:]
+    return sign
+
+
+def rolled_factor(A):
+    """Rolled-tier LU with partial pivoting of ``A`` alone (no
+    right-hand side): ``(U, sign)``, U on and above the diagonal."""
+    U = A.clone()
+    return U, _rolled_eliminate(U, A.shape[1])
+
+
+def diag_product(U, sign):
+    """``sign * U_00 * U_11 * ...`` of (..., n, n) factors, multiplied in
+    order, as the kernels form a determinant."""
+    det = U[..., 0, 0]
+    for i in range(1, U.shape[-1]):
+        det = det * U[..., i, i]
+    return torch.where(sign < 0, -det, det)
+
+
+def diag_log_sum(U):
+    """``log|U_00| + log|U_11| + ...`` of (..., n, n) factors, summed in
+    order: log|det| without forming the determinant, which can overflow."""
+    acc = torch.log(torch.abs(U[..., 0, 0]))
+    for i in range(1, U.shape[-1]):
+        acc = acc + torch.log(torch.abs(U[..., i, i]))
+    return acc
+
+
 def rolled_solve(A, R):
     """Rolled-tier LU with partial pivoting of ``[A | R]`` (multipliers
     by division, as the rolled kernel) and back-substitution; returns
     the solutions (B, n, c) of the c right-hand-side columns."""
     n = A.shape[1]
     W = torch.cat([A, R], dim=2)
-    for k in range(n):
-        _swap_rows(W, k, _pivot(W, k), k)
-        l = W[:, k + 1:, k] / W[:, k, k, None]
-        W[:, k + 1:, k + 1:] -= l[:, :, None] * W[:, k, None, k + 1:]
+    _rolled_eliminate(W, n)
     X = W[:, :, n:].clone()
     for i in range(n - 1, -1, -1):
         s = torch.zeros_like(X[:, i])
@@ -197,3 +242,46 @@ def rolled_solve(A, R):
             s = s + W[:, i, j, None] * X[:, j]
         X[:, i] = (X[:, i] - s) / W[:, i, i, None]
     return X
+
+
+# ---------------------------------------------------------------------------
+# Cholesky of the plain versions (no pivoting: input that is not SPD
+# gives NaN, as in the reference)
+# ---------------------------------------------------------------------------
+
+
+def chol_rows(E, n):
+    """Unrolled Cholesky-Banachiewicz on an entry grid ``E`` (lists of
+    batch tensors), the reference's ``_chol_rows``: ``L_jj = sqrt(s)``,
+    then ``L_ij = s * (1 / L_jj)``, each ``s`` summed from the first
+    term. Returns the lower grid (``L[i][j]`` for j <= i, None above)."""
+    L = [[None] * n for _ in range(n)]
+    for j in range(n):
+        s = E[j][j]
+        for k in range(j):
+            s = s - L[j][k] * L[j][k]
+        L[j][j] = torch.sqrt(s)
+        inv_ljj = 1.0 / L[j][j]
+        for i in range(j + 1, n):
+            s = E[i][j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            L[i][j] = s * inv_ljj
+    return L
+
+
+def chol_rolled(A):
+    """The rolled tier's right-looking outer-product Cholesky of full
+    symmetric ``A`` (B, n, n), the reference's ``_chol_rolled``: step k
+    scales column k (rows >= k) by ``rsqrt(W_kk)`` and subtracts the
+    rank-1 update from the trailing block. Returns L (B, n, n), zeros
+    above the diagonal."""
+    n = A.shape[1]
+    W = A.clone()
+    L = torch.zeros_like(A)
+    for k in range(n):
+        lk = W[:, k:, k] * torch.rsqrt(W[:, k, k, None])
+        L[:, k:, k] = lk
+        below = lk[:, 1:]
+        W[:, k + 1:, k + 1:] -= below[:, :, None] * below[:, None, :]
+    return L

@@ -1,18 +1,24 @@
-"""CUDA full-storage batched solve and inverse, with their plain PyTorch
-versions and autograd.
+"""CUDA full-storage batched solve, inverse, determinant and
+log-determinant, and the batched Cholesky factor, with their plain
+PyTorch versions and autograd.
 
-``solve_full_cf`` replaces the Pallas ``_solve_full_kernel`` and
-``inv_cf`` replaces ``_inv_kernel``
-(``fastmath_tpu/kernels/batched_pallas.py``). Both kernels live in
+``solve_full_cf`` replaces the Pallas ``_solve_full_kernel``, ``inv_cf``
+``_inv_kernel``, ``det_cf`` and ``logdet_cf`` the two modes of
+``_det_kernel`` and ``chol_cf`` ``_chol_kernel``
+(``fastmath_tpu/kernels/batched_pallas.py``). The kernels live in
 ``csrc/batched.cu``; one thread owns one problem, and the source's
 header gives the tiers and what bounds them.
 
 A matrix is full n x n storage, row-major in n*n channels (entry (i, j)
 is channel ``i * n + j``); right-hand sides and solutions are n x k,
-row-major in n*k channels. Each wrapper launches its kernel on a CUDA
-tensor and runs its plain version, which repeats the kernel's
-arithmetic in PyTorch, on a CPU tensor. ``solve_full_cf.launches`` and
-``inv_cf.launches`` count kernel launches, and nothing else. Operands
+row-major in n*k channels. The Cholesky factor takes and gives compact
+storage (the diagonal first, then the upper rows; slot (i, j) of the
+factor holds ``L[max(i,j)][min(i,j)]``). Each wrapper launches its
+kernel on a CUDA tensor and runs its plain version, which repeats the
+kernel's arithmetic in PyTorch, on a CPU tensor.
+``solve_full_cf.launches``, ``inv_cf.launches``, ``det_cf.launches``,
+``logdet_cf.launches`` (the one determinant kernel, counted by mode) and
+``chol_cf.launches`` count kernel launches, and nothing else. Operands
 are 2-D views, as :mod:`._launch` describes.
 """
 from __future__ import annotations
@@ -20,20 +26,27 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from ..core.dtypes import downcast, upcast_half
-from ..ops.sym import _cofactors
-from ._launch import (MAX_N, cf_flat, check, empty, launch, operand, plu_factor,
-                      plu_substitute, require_domain, rolled_solve)
+from ..layouts.sym import compact_size, sym_dim, sym_to_full
+from ..ops.sym import _cofactors, _det_expand, _entries
+from ._launch import (MAX_N, cf_flat, check, chol_rolled, chol_rows, diag_log_sum,
+                      diag_product, empty, launch, operand, plu_factor, plu_sign,
+                      plu_substitute, require_domain, rolled_factor, rolled_solve)
 
-__all__ = ["solve_full_cf", "inv_cf", "solve_full_plain", "inv_plain",
-           "SolveFullFunction", "InvFunction"]
+__all__ = ["solve_full_cf", "inv_cf", "det_cf", "logdet_cf", "chol_cf", "solve_full_plain",
+           "inv_plain", "det_plain", "logdet_plain", "chol_plain", "SolveFullFunction",
+           "InvFunction", "DetFunction", "LogdetFunction", "CholFunction"]
 
 _LIB = "batched"
 #: n up to this runs the unrolled tiers in registers; above, the rolled
 #: tier over a per-thread local array
 _PLU_UNROLL_N = 8
+#: the Cholesky factor is unrolled up to this n; above, the rolled
+#: outer-product form
+_CHOL_UNROLL_N = 8
 #: row width of the rolled tier's local array (``kRolledWidth`` of
 #: ``csrc/sym_common.cuh``): it holds [A | B] with n + k columns
 _ROLLED_WIDTH = 2 * MAX_N + 1
@@ -72,6 +85,11 @@ def solve_full_plain(mat, rhs, k, trans=False):
     return X.reshape(-1, n * k)
 
 
+def _full_grid(mat, n):
+    """Entry grid E[i][j] of the row-major ``mat`` (B, n*n)."""
+    return [[mat[:, i * n + j] for j in range(n)] for i in range(n)]
+
+
 def inv_plain(mat):
     """Plain version of the inverse kernel: ``mat`` (B, n*n) -> A⁻¹
     (B, n*n). Cofactors times 1/det for n <= 4, ``inv[i][j] =
@@ -79,8 +97,7 @@ def inv_plain(mat):
     (unrolled to 8, rolled beyond)."""
     n = _order(mat.shape[1])
     if n <= 4:
-        E = [[mat[:, i * n + j] for j in range(n)] for i in range(n)]
-        adj, det = _cofactors(E, n)
+        adj, det = _cofactors(_full_grid(mat, n), n)
         inv_det = 1.0 / det
         return torch.stack([adj[i][j] * inv_det for i in range(n) for j in range(n)], dim=1)
     A = mat.reshape(-1, n, n)
@@ -90,6 +107,65 @@ def inv_plain(mat):
     else:
         X = rolled_solve(A, eye)
     return X.reshape(-1, n * n)
+
+
+def det_plain(mat):
+    """Plain version of the determinant kernel: ``mat`` (B, n*n) -> det
+    (B,). The expansion for n <= 4; ``sign * U_00 * U_11 * ...`` of the
+    unrolled PLU to 8 and of the rolled PLU above."""
+    n = _order(mat.shape[1])
+    if n <= 4:
+        idx = tuple(range(n))
+        det = _det_expand(_full_grid(mat, n), idx, idx, {})
+        return det if n > 1 else det.clone()
+    A = mat.reshape(-1, n, n)
+    if n <= _PLU_UNROLL_N:
+        LU, piv, _ = plu_factor(A)
+        return diag_product(LU, plu_sign(piv))
+    return diag_product(*rolled_factor(A))
+
+
+def logdet_plain(mat):
+    """Plain version of the log-determinant kernel: ``mat`` (B, n*n) ->
+    log|det| (B,). For n <= 4 each row is scaled by its largest
+    magnitude r_i first: ``sum_i log r_i + log|det(S A)|`` (a zero row
+    gives -inf); above, ``sum_i log|U_ii|`` of the PLU, never the log of
+    the product."""
+    n = _order(mat.shape[1])
+    if n <= 4:
+        E = _full_grid(mat, n)
+        logs, scaled = None, []
+        for row in E:
+            r = torch.abs(row[0])
+            for e in row[1:]:
+                r = torch.maximum(r, torch.abs(e))
+            q = torch.where(r > 0, 1.0 / r, torch.zeros_like(r))
+            scaled.append([e * q for e in row])
+            li = torch.log(torch.where(r > 0, r, torch.ones_like(r)))
+            logs = li if logs is None else logs + li
+        idx = tuple(range(n))
+        return logs + torch.log(torch.abs(_det_expand(scaled, idx, idx, {})))
+    A = mat.reshape(-1, n, n)
+    return diag_log_sum(plu_factor(A)[0] if n <= _PLU_UNROLL_N else rolled_factor(A)[0])
+
+
+def _lower_to_compact(L):
+    """Compact slots of a lower factor (B, n, n): the diagonal, then slot
+    (i, j), i < j, holding ``L[j][i]``."""
+    rows, cols = np.triu_indices(L.shape[1], k=1)
+    return torch.cat([L.diagonal(dim1=1, dim2=2), L[:, cols, rows]], dim=1)
+
+
+def chol_plain(mat):
+    """Plain version of the Cholesky kernel: compact ``mat`` (B, NN) ->
+    compact lower factor (B, NN). Cholesky-Banachiewicz for n <= 8, the
+    rolled outer-product form with ``rsqrt`` above."""
+    n = sym_dim(mat.shape[1])
+    if n > _CHOL_UNROLL_N:
+        return _lower_to_compact(chol_rolled(sym_to_full(mat, n)))
+    L = chol_rows(_entries(mat, n), n)
+    return torch.stack([L[i][i] for i in range(n)]
+                       + [L[j][i] for i in range(n) for j in range(i + 1, n)], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -111,6 +187,10 @@ def _library():
         lib.fm_solve_full.restype = i
         lib.fm_inv.argtypes = [i, i, ll, *strided, *strided, p]
         lib.fm_inv.restype = i
+        lib.fm_det.argtypes = [i, i, ll, *strided, i, *strided, p]
+        lib.fm_det.restype = i
+        lib.fm_chol.argtypes = [i, i, ll, *strided, *strided, p]
+        lib.fm_chol.restype = i
         lib.fm_error_string.argtypes = [i]
         lib.fm_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -138,6 +218,33 @@ def launch_inv(mat, cf_out=False):
     b = check(mat, n, ("mat", mat, n * n))
     out = empty(mat, b, n * n, cf_out)
     launch(_library(), inv_cf, "fm_inv", mat, n, b, *operand(mat), *operand(out))
+    return out
+
+
+def launch_det(mat, cf_out=False, log=False):
+    """Launch the determinant kernel on a CUDA tensor ``mat`` (B, n*n):
+    det (B,), or log|det| if ``log``; ``cf_out`` writes it as a view of
+    a (1, B) tensor."""
+    n = _order(mat.shape[-1])
+    b = check(mat, n, ("mat", mat, n * n))
+    out = empty(mat, b, 1, cf_out)
+    launch(_library(), logdet_cf if log else det_cf, "fm_det", mat, n, b, *operand(mat),
+           int(log), *operand(out))
+    return out[:, 0]
+
+
+def launch_logdet(mat, cf_out=False):
+    """Launch the determinant kernel in its log|det| mode."""
+    return launch_det(mat, cf_out, log=True)
+
+
+def launch_chol(mat, cf_out=False):
+    """Launch the Cholesky kernel on a CUDA tensor ``mat`` (B, NN)
+    compact; returns the compact lower factor (B, NN)."""
+    n = sym_dim(mat.shape[-1])
+    b = check(mat, n, ("mat", mat, compact_size(n)))
+    out = empty(mat, b, compact_size(n), cf_out)
+    launch(_library(), chol_cf, "fm_chol", mat, n, b, *operand(mat), *operand(out))
     return out
 
 
@@ -193,9 +300,86 @@ class InvFunction(torch.autograd.Function):
         return da.reshape(-1, n * n), None, None
 
 
+class DetFunction(torch.autograd.Function):
+    """Differentiable det of a 2-D operand (B, n*n): ``apply(mat, kernel,
+    cf_out)``."""
+
+    @staticmethod
+    def forward(ctx, mat, kernel, cf_out):
+        det = launch_det(mat, cf_out) if kernel else det_plain(mat)
+        ctx.save_for_backward(mat, det)
+        ctx.kernel = kernel
+        return det
+
+    @staticmethod
+    def backward(ctx, g):
+        # d det / dA_ij = cofactor(i, j): the cofactor grid for n <= 4;
+        # det * (A^-1)^T above, A^-1 from the inverse kernel (NaN at an
+        # exactly singular A, as in the reference)
+        mat, det = ctx.saved_tensors
+        n = _order(mat.shape[1])
+        if n <= 4:
+            adj, _ = _cofactors(_full_grid(mat, n), n)  # adj[j][i] = cofactor(i, j)
+            return torch.stack([g * adj[j][i] for i in range(n) for j in range(n)],
+                               dim=1), None, None
+        inv = InvFunction.apply(mat, ctx.kernel, False)
+        inv_t = inv.reshape(-1, n, n).mT.reshape(-1, n * n)
+        return g[:, None] * (det[:, None] * inv_t), None, None
+
+
+class LogdetFunction(torch.autograd.Function):
+    """Differentiable log|det| of a 2-D operand (B, n*n): ``apply(mat,
+    kernel, cf_out)``."""
+
+    @staticmethod
+    def forward(ctx, mat, kernel, cf_out):
+        y = launch_logdet(mat, cf_out) if kernel else logdet_plain(mat)
+        ctx.save_for_backward(mat)
+        ctx.kernel = kernel
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        # d log|det A| / dA = A^-T: the solve kernel reading A transposed
+        # against the identity's n columns
+        (mat,) = ctx.saved_tensors
+        n = _order(mat.shape[1])
+        eye = torch.eye(n, dtype=mat.dtype, device=mat.device).reshape(1, n * n)
+        inv_t = SolveFullFunction.apply(mat, eye.expand(mat.shape[0], -1).contiguous(), n,
+                                        True, ctx.kernel, False)
+        return g[:, None] * inv_t, None, None
+
+
+class CholFunction(torch.autograd.Function):
+    """Differentiable compact Cholesky factor of a 2-D operand (B, NN):
+    ``apply(mat, kernel, cf_out)``."""
+
+    @staticmethod
+    def forward(ctx, mat, kernel, cf_out):
+        y = launch_chol(mat, cf_out) if kernel else chol_plain(mat)
+        ctx.save_for_backward(mat)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        # the reference's VJP: autograd through the unrolled form for
+        # n <= 8, through torch.linalg.cholesky of the densified matrix
+        # above (its jnp.linalg.cholesky)
+        (mat,) = ctx.saved_tensors
+        n = sym_dim(mat.shape[1])
+        with torch.enable_grad():
+            m = mat.detach().requires_grad_()
+            if n <= _CHOL_UNROLL_N:
+                y = chol_plain(m)
+            else:
+                y = _lower_to_compact(torch.linalg.cholesky(sym_to_full(m, n)))
+            (dm,) = torch.autograd.grad(y, m, g)
+        return dm, None, None
+
+
 # ---------------------------------------------------------------------------
-# channel-first wrappers (the counterparts of batched_pallas.solve_full_cf
-# and inv_cf)
+# channel-first wrappers (the counterparts of batched_pallas.solve_full_cf,
+# inv_cf, det_cf, logdet_cf and chol_cf)
 # ---------------------------------------------------------------------------
 
 
@@ -238,5 +422,43 @@ def inv_cf(mat: torch.Tensor) -> torch.Tensor:
     return downcast(y.t().reshape(n * n, *batch), half)
 
 
-solve_full_cf.launches = 0
-inv_cf.launches = 0
+def _det_cf(mat, function, op):
+    mat, half = upcast_half(mat)
+    n = _check_order(op, mat.shape[0])
+    require_domain(op, n, mat.dtype)
+    batch = mat.shape[1:]
+    m2 = cf_flat(mat, n * n, batch).t()
+    y = function.apply(m2, m2.is_cuda, True)
+    return downcast(y.reshape(batch), half)
+
+
+def det_cf(mat: torch.Tensor) -> torch.Tensor:
+    """Channel-first batched determinant ``(n*n, ...) -> (...)``,
+    row-major channels, n <= 32. Launches the CUDA kernel on CUDA
+    tensors, and runs the plain version on CPU tensors."""
+    return _det_cf(mat, DetFunction, "det_cf")
+
+
+def logdet_cf(mat: torch.Tensor) -> torch.Tensor:
+    """Channel-first batched ``log |det A|`` ``(n*n, ...) -> (...)``:
+    per-pivot logs summed, so it stays finite where det overflows."""
+    return _det_cf(mat, LogdetFunction, "logdet_cf")
+
+
+def chol_cf(mat: torch.Tensor) -> torch.Tensor:
+    """Channel-first batched Cholesky ``(NN, ...) -> (NN, ...)``: compact
+    SPD in, compact lower factor out (slot (i, j) holds
+    ``L[max(i,j)][min(i,j)]``), N <= 32, no pivoting (input that is not
+    SPD gives NaN). Launches the CUDA kernel on CUDA tensors, and runs
+    the plain version on CPU tensors."""
+    mat, half = upcast_half(mat)
+    nn = mat.shape[0]
+    require_domain("chol_cf", sym_dim(nn), mat.dtype)
+    batch = mat.shape[1:]
+    m2 = cf_flat(mat, nn, batch).t()
+    y = CholFunction.apply(m2, m2.is_cuda, True)
+    return downcast(y.t().reshape(nn, *batch), half)
+
+
+for _fn in (solve_full_cf, inv_cf, det_cf, logdet_cf, chol_cf):
+    _fn.launches = 0

@@ -1,8 +1,12 @@
-// Full-storage batched solve and inverse for Hopper (sm_90a).
+// Full-storage batched solve, inverse, determinant and log-determinant,
+// and the batched Cholesky factor, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of fastmath_tpu/kernels/batched_pallas.py:
-//   fm_solve_full  <- _solve_full_kernel  (solve_full_cf)
-//   fm_inv         <- _inv_kernel         (inv_cf)
+//   fm_solve_full  <- _solve_full_kernel      (solve_full_cf)
+//   fm_inv         <- _inv_kernel             (inv_cf)
+//   fm_det         <- _det_kernel, log=False  (det_cf)
+//                     _det_kernel, log=True   (logdet_cf; one template, a flag)
+//   fm_chol        <- _chol_kernel            (chol_cf)
 //
 // A matrix is full n x n storage in n*n row-major channels; right-hand
 // sides and solutions are n x k in n*k row-major channels. One thread owns
@@ -26,11 +30,28 @@
 //                   columns) or [A | I] (2n columns), multipliers by
 //                   division, then back-substitution (fm::rolled_factor,
 //                   fm::rolled_backsub).
+//   det, n <= 4     the generated expansion (batched_adjugate.cuh); for
+//                   log|det| each row is first scaled by its largest
+//                   magnitude and the logs of the scales are added, so the
+//                   expansion stays in range at any scale;
+//   det, 5..8       the unrolled LU, sign * prod U_ii, or sum log|U_ii|;
+//   det, 9..32      the rolled LU on an n x n local array (no right-hand
+//                   side), as above. log|det| sums the per-pivot logs and
+//                   never takes the log of the product, which saturates
+//                   float32 (an 8 x 8 with pivots ~7e4).
+//   chol            compact SPD in, compact lower factor out (slot (i, j)
+//                   holds L[max(i,j)][min(i,j)]), no pivoting: n <= 8 the
+//                   unrolled Cholesky-Banachiewicz in registers (L_jj =
+//                   sqrt(s), then L_ij = s * (1 / L_jj)); 9..32 the
+//                   right-looking outer-product form on the packed lower
+//                   triangle in local memory (column k scaled by
+//                   rsqrt(W_kk), then the rank-1 update of the trailing
+//                   block). A matrix that is not SPD gives NaN.
 //
 // What bounds them on the card: per problem the solve moves n^2 + 2nk
-// values and the inverse 2n^2, for O(n^3) flops, so at n <= 4 device
-// memory bounds them: each operand is read once and the work stays in
-// registers. From n = 8 on the arithmetic grows past the bytes: the
+// values, the inverse 2n^2, the determinant n^2 + 1 and the Cholesky
+// factor n(n + 1), for O(n^3) flops, so at n <= 4 device memory bounds
+// them: each operand is read once and the work stays in registers. From n = 8 on the arithmetic grows past the bytes: the
 // unrolled tiers keep A in registers (the double-precision n = 8 tiers
 // spill), and the rolled tier's array lives in local memory (cached,
 // spilled to device memory), which is measured and recorded, not tuned
@@ -157,6 +178,126 @@ full_rolled(long long nb, int n, int k, MatView<T> mat, View<const T> rhs, View<
 }
 
 // ---------------------------------------------------------------------------
+// determinant and log-determinant
+// ---------------------------------------------------------------------------
+
+template <typename T, int N, bool kLog>
+__global__ void __launch_bounds__(kThreads)
+det_unrolled(long long nb, MatView<T> mat, View<T> out) {
+  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  const T* m = mat.p + b * mat.sb;
+  T r;
+  if constexpr (N <= 4) {
+    T a[N * N];
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) a[i * N + j] = m[i * mat.rs + j * mat.cs];
+    if constexpr (kLog) r = full_logdet(a);
+    else r = full_det(a);
+  } else {
+    T LU[N][N];
+    int piv[N];
+    load_full<T, N>(m, mat, LU);
+    plu_factor<T, N>(LU, piv);
+    if constexpr (kLog) {
+      r = fm_log(fm_abs(LU[0][0]));
+#pragma unroll
+      for (int i = 1; i < N; ++i) r = r + fm_log(fm_abs(LU[i][i]));
+    } else {
+      r = LU[0][0];
+#pragma unroll
+      for (int i = 1; i < N; ++i) r = r * LU[i][i];
+      if (plu_sign<N>(piv) < 0) r = -r;
+    }
+  }
+  out.p[b * out.sb] = r;
+}
+
+template <typename T, bool kLog>
+__global__ void __launch_bounds__(kThreads)
+det_rolled(long long nb, int n, MatView<T> mat, View<T> out) {
+  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  T a[kMaxN * kMaxN];
+  const T* m = mat.p + b * mat.sb;
+  for (int i = 0; i < n; ++i)
+    for (int j = 0; j < n; ++j) a[i * n + j] = m[i * mat.rs + j * mat.cs];
+  const int sign = rolled_factor(a, n, n);
+  T r;
+  if constexpr (kLog) {
+    r = fm_log(fm_abs(a[0]));
+    for (int i = 1; i < n; ++i) r = r + fm_log(fm_abs(a[i * n + i]));
+  } else {
+    r = a[0];
+    for (int i = 1; i < n; ++i) r = r * a[i * n + i];
+    if (sign < 0) r = -r;
+  }
+  out.p[b * out.sb] = r;
+}
+
+// ---------------------------------------------------------------------------
+// Cholesky (compact in, compact lower factor out)
+// ---------------------------------------------------------------------------
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+chol_unrolled(long long nb, View<const T> mat, View<T> out) {
+  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  // Banachiewicz in place: L[i][j] overwrites E[i][j], i >= j, which
+  // nothing reads after it
+  T E[N][N];
+  load_sym<T, N>(mat.p + b * mat.sb, mat.sc, nullptr, E);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    T s = E[j][j];
+#pragma unroll
+    for (int k = 0; k < j; ++k) s = s - E[j][k] * E[j][k];
+    E[j][j] = fm_sqrt(s);
+    const T inv_ljj = T(1) / E[j][j];
+#pragma unroll
+    for (int i = j + 1; i < N; ++i) {
+      T t = E[i][j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) t = t - E[i][k] * E[j][k];
+      E[i][j] = t * inv_ljj;
+    }
+  }
+  T* o = out.p + b * out.sb;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j <= i; ++j) o[tri_index(i, j, N) * out.sc] = E[i][j];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+chol_rolled(long long nb, int n, View<const T> mat, View<T> out) {
+  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  // the lower triangle packed by rows: entry (i, j), j <= i, at
+  // i (i + 1) / 2 + j; the factor overwrites it column by column
+  T w[kMaxN * (kMaxN + 1) / 2];
+  const T* m = mat.p + b * mat.sb;
+  for (int i = 0; i < n; ++i)
+    for (int j = 0; j <= i; ++j) w[i * (i + 1) / 2 + j] = m[tri_index(i, j, n) * mat.sc];
+  for (int k = 0; k < n; ++k) {
+    const T r = fm_rsqrt(w[k * (k + 1) / 2 + k]);
+    for (int i = k; i < n; ++i) w[i * (i + 1) / 2 + k] = w[i * (i + 1) / 2 + k] * r;
+    for (int i = k + 1; i < n; ++i) {
+      const T li = w[i * (i + 1) / 2 + k];
+      for (int j = k + 1; j <= i; ++j)
+        w[i * (i + 1) / 2 + j] = w[i * (i + 1) / 2 + j] - li * w[j * (j + 1) / 2 + k];
+    }
+  }
+  T* o = out.p + b * out.sb;
+  for (int i = 0; i < n; ++i)
+    for (int j = 0; j <= i; ++j) o[tri_index(i, j, n) * out.sc] = w[i * (i + 1) / 2 + j];
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -201,6 +342,38 @@ cudaError_t launch_inv(int n, long long nb, MatView<T> mat, View<T> out, cudaStr
   return cudaGetLastError();
 }
 
+template <typename T, bool kLog>
+cudaError_t launch_det(int n, long long nb, MatView<T> mat, View<T> out, cudaStream_t s) {
+  const unsigned g = grid_for(nb);
+  switch (n) {
+#define FM_DET_CASE(K) \
+  case K: det_unrolled<T, K, kLog><<<g, kThreads, 0, s>>>(nb, mat, out); break;
+    FM_DET_CASE(1) FM_DET_CASE(2) FM_DET_CASE(3) FM_DET_CASE(4)
+    FM_DET_CASE(5) FM_DET_CASE(6) FM_DET_CASE(7) FM_DET_CASE(8)
+#undef FM_DET_CASE
+    default:
+      if (n < 1 || n > kMaxN) return cudaErrorInvalidValue;
+      det_rolled<T, kLog><<<g, kThreads, 0, s>>>(nb, n, mat, out);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_chol(int n, long long nb, View<const T> mat, View<T> out, cudaStream_t s) {
+  const unsigned g = grid_for(nb);
+  switch (n) {
+#define FM_CHOL_CASE(K) \
+  case K: chol_unrolled<T, K><<<g, kThreads, 0, s>>>(nb, mat, out); break;
+    FM_CHOL_CASE(1) FM_CHOL_CASE(2) FM_CHOL_CASE(3) FM_CHOL_CASE(4)
+    FM_CHOL_CASE(5) FM_CHOL_CASE(6) FM_CHOL_CASE(7) FM_CHOL_CASE(8)
+#undef FM_CHOL_CASE
+    default:
+      if (n < 1 || n > kMaxN) return cudaErrorInvalidValue;
+      chol_rolled<T><<<g, kThreads, 0, s>>>(nb, n, mat, out);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace fm
 
 // Plain C entry points (bound with ctypes). dtype: 0 = float, 1 = double.
@@ -234,5 +407,41 @@ extern "C" int fm_inv(int dtype, int n, long long nb,
   if (dtype == 1)
     return fm::launch_inv<double>(n, nb, fm::mat_view<double>(mat, msb, msc, n, 0),
                                   fm::view<double>(out, osb, osc), s);
+  return cudaErrorInvalidValue;
+}
+
+// log_abs != 0: log|det| instead of det. out is one value per problem.
+extern "C" int fm_det(int dtype, int n, long long nb,
+                      const void* mat, long long msb, long long msc, int log_abs,
+                      void* out, long long osb, long long osc, void* stream) {
+  if (nb <= 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    const auto m = fm::mat_view<float>(mat, msb, msc, n, 0);
+    const auto o = fm::view<float>(out, osb, osc);
+    return log_abs ? fm::launch_det<float, true>(n, nb, m, o, s)
+               : fm::launch_det<float, false>(n, nb, m, o, s);
+  }
+  if (dtype == 1) {
+    const auto m = fm::mat_view<double>(mat, msb, msc, n, 0);
+    const auto o = fm::view<double>(out, osb, osc);
+    return log_abs ? fm::launch_det<double, true>(n, nb, m, o, s)
+               : fm::launch_det<double, false>(n, nb, m, o, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// mat and out are compact: n (n + 1) / 2 channels each.
+extern "C" int fm_chol(int dtype, int n, long long nb,
+                       const void* mat, long long msb, long long msc,
+                       void* out, long long osb, long long osc, void* stream) {
+  if (nb <= 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return fm::launch_chol<float>(n, nb, fm::cview<float>(mat, msb, msc),
+                                  fm::view<float>(out, osb, osc), s);
+  if (dtype == 1)
+    return fm::launch_chol<double>(n, nb, fm::cview<double>(mat, msb, msc),
+                                   fm::view<double>(out, osb, osc), s);
   return cudaErrorInvalidValue;
 }

@@ -1,7 +1,11 @@
 // Generated by fastmath_tpu_torch/kernels/_gen_adjugate.py; do not edit.
 // Inverse of a small full matrix from its row-major entries a[i * n + j]:
-// inv[i * n + j] = cofactor(j, i) * (1 / det), by memoized Laplace expansion.
+// inv[i * n + j] = cofactor(j, i) * (1 / det); its determinant; and
+// log|det| with each row scaled by its largest magnitude first; by memoized
+// Laplace expansion.
 #pragma once
+
+#include "sym_common.cuh"  // fm_abs, fm_max, fm_log
 
 namespace fm {
 
@@ -96,6 +100,102 @@ __host__ __device__ __forceinline__ void full_inverse(const T (&a)[16],
   inv[14] = -m33 * inv_det;
   const T m34 = a[0] * m18 - a[1] * m25 + a[2] * m30;
   inv[15] = m34 * inv_det;
+}
+
+template <typename T>
+__host__ __device__ __forceinline__ T full_det(const T (&a)[1]) {
+  return a[0];
+}
+
+template <typename T>
+__host__ __device__ __forceinline__ T full_det(const T (&a)[4]) {
+  const T m0 = a[0] * a[3] - a[1] * a[2];
+  return m0;
+}
+
+template <typename T>
+__host__ __device__ __forceinline__ T full_det(const T (&a)[9]) {
+  const T m0 = a[4] * a[8] - a[5] * a[7];
+  const T m1 = a[3] * a[8] - a[5] * a[6];
+  const T m2 = a[3] * a[7] - a[4] * a[6];
+  const T m3 = a[0] * m0 - a[1] * m1 + a[2] * m2;
+  return m3;
+}
+
+template <typename T>
+__host__ __device__ __forceinline__ T full_det(const T (&a)[16]) {
+  const T m0 = a[10] * a[15] - a[11] * a[14];
+  const T m1 = a[9] * a[15] - a[11] * a[13];
+  const T m2 = a[9] * a[14] - a[10] * a[13];
+  const T m3 = a[5] * m0 - a[6] * m1 + a[7] * m2;
+  const T m4 = a[8] * a[15] - a[11] * a[12];
+  const T m5 = a[8] * a[14] - a[10] * a[12];
+  const T m6 = a[4] * m0 - a[6] * m4 + a[7] * m5;
+  const T m7 = a[8] * a[13] - a[9] * a[12];
+  const T m8 = a[4] * m1 - a[5] * m4 + a[7] * m7;
+  const T m9 = a[4] * m2 - a[5] * m5 + a[6] * m7;
+  const T m10 = a[0] * m3 - a[1] * m6 + a[2] * m8 - a[3] * m9;
+  return m10;
+}
+
+template <typename T>
+__device__ __forceinline__ T full_logdet(const T (&a)[1]) {
+  const T r0 = fm_abs(a[0]);
+  const T q0 = r0 > T(0) ? T(1) / r0 : T(0);
+  const T s[1] = {a[0] * q0};
+  return fm_log(r0 > T(0) ? r0 : T(1)) + fm_log(fm_abs(s[0]));
+}
+
+template <typename T>
+__device__ __forceinline__ T full_logdet(const T (&a)[4]) {
+  const T r0 = fm_max(fm_abs(a[0]), fm_abs(a[1]));
+  const T q0 = r0 > T(0) ? T(1) / r0 : T(0);
+  const T r1 = fm_max(fm_abs(a[2]), fm_abs(a[3]));
+  const T q1 = r1 > T(0) ? T(1) / r1 : T(0);
+  const T s[4] = {a[0] * q0, a[1] * q0, a[2] * q1, a[3] * q1};
+  const T m0 = s[0] * s[3] - s[1] * s[2];
+  return fm_log(r0 > T(0) ? r0 : T(1)) + fm_log(r1 > T(0) ? r1 : T(1)) + fm_log(fm_abs(m0));
+}
+
+template <typename T>
+__device__ __forceinline__ T full_logdet(const T (&a)[9]) {
+  const T r0 = fm_max(fm_max(fm_abs(a[0]), fm_abs(a[1])), fm_abs(a[2]));
+  const T q0 = r0 > T(0) ? T(1) / r0 : T(0);
+  const T r1 = fm_max(fm_max(fm_abs(a[3]), fm_abs(a[4])), fm_abs(a[5]));
+  const T q1 = r1 > T(0) ? T(1) / r1 : T(0);
+  const T r2 = fm_max(fm_max(fm_abs(a[6]), fm_abs(a[7])), fm_abs(a[8]));
+  const T q2 = r2 > T(0) ? T(1) / r2 : T(0);
+  const T s[9] = {a[0] * q0, a[1] * q0, a[2] * q0, a[3] * q1, a[4] * q1, a[5] * q1, a[6] * q2, a[7] * q2, a[8] * q2};
+  const T m0 = s[4] * s[8] - s[5] * s[7];
+  const T m1 = s[3] * s[8] - s[5] * s[6];
+  const T m2 = s[3] * s[7] - s[4] * s[6];
+  const T m3 = s[0] * m0 - s[1] * m1 + s[2] * m2;
+  return fm_log(r0 > T(0) ? r0 : T(1)) + fm_log(r1 > T(0) ? r1 : T(1)) + fm_log(r2 > T(0) ? r2 : T(1)) + fm_log(fm_abs(m3));
+}
+
+template <typename T>
+__device__ __forceinline__ T full_logdet(const T (&a)[16]) {
+  const T r0 = fm_max(fm_max(fm_max(fm_abs(a[0]), fm_abs(a[1])), fm_abs(a[2])), fm_abs(a[3]));
+  const T q0 = r0 > T(0) ? T(1) / r0 : T(0);
+  const T r1 = fm_max(fm_max(fm_max(fm_abs(a[4]), fm_abs(a[5])), fm_abs(a[6])), fm_abs(a[7]));
+  const T q1 = r1 > T(0) ? T(1) / r1 : T(0);
+  const T r2 = fm_max(fm_max(fm_max(fm_abs(a[8]), fm_abs(a[9])), fm_abs(a[10])), fm_abs(a[11]));
+  const T q2 = r2 > T(0) ? T(1) / r2 : T(0);
+  const T r3 = fm_max(fm_max(fm_max(fm_abs(a[12]), fm_abs(a[13])), fm_abs(a[14])), fm_abs(a[15]));
+  const T q3 = r3 > T(0) ? T(1) / r3 : T(0);
+  const T s[16] = {a[0] * q0, a[1] * q0, a[2] * q0, a[3] * q0, a[4] * q1, a[5] * q1, a[6] * q1, a[7] * q1, a[8] * q2, a[9] * q2, a[10] * q2, a[11] * q2, a[12] * q3, a[13] * q3, a[14] * q3, a[15] * q3};
+  const T m0 = s[10] * s[15] - s[11] * s[14];
+  const T m1 = s[9] * s[15] - s[11] * s[13];
+  const T m2 = s[9] * s[14] - s[10] * s[13];
+  const T m3 = s[5] * m0 - s[6] * m1 + s[7] * m2;
+  const T m4 = s[8] * s[15] - s[11] * s[12];
+  const T m5 = s[8] * s[14] - s[10] * s[12];
+  const T m6 = s[4] * m0 - s[6] * m4 + s[7] * m5;
+  const T m7 = s[8] * s[13] - s[9] * s[12];
+  const T m8 = s[4] * m1 - s[5] * m4 + s[7] * m7;
+  const T m9 = s[4] * m2 - s[5] * m5 + s[6] * m7;
+  const T m10 = s[0] * m3 - s[1] * m6 + s[2] * m8 - s[3] * m9;
+  return fm_log(r0 > T(0) ? r0 : T(1)) + fm_log(r1 > T(0) ? r1 : T(1)) + fm_log(r2 > T(0) ? r2 : T(1)) + fm_log(r3 > T(0) ? r3 : T(1)) + fm_log(fm_abs(m10));
 }
 
 }  // namespace fm

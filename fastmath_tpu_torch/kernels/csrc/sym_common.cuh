@@ -1,8 +1,8 @@
-// Code shared by the compact-symmetric kernels (sym_solve.cu,
-// sym_products.cu): strided operands and launch helpers, the compact
-// index map, entry loads, residuals, and the partial-pivoting LU in two
-// forms (unrolled in registers for N <= 8, rolled over a per-thread
-// local array for 9 <= N <= 32).
+// Code shared by the kernels (sym_solve.cu, sym_products.cu,
+// sym_factor.cu, batched.cu): strided operands and launch helpers, the
+// compact index map, entry loads, residuals, and the partial-pivoting LU
+// in two forms (unrolled in registers for N <= 8, rolled over a
+// per-thread local array for 9 <= N <= 32).
 //
 // Pivoting is first-max partial pivoting: the pivot of column k is the
 // lowest row i >= k whose |A[i][k]| is the column maximum, as in the
@@ -53,6 +53,14 @@ __host__ __device__ constexpr int tri_index(int i, int j, int n) {
 
 __host__ __device__ __forceinline__ float fm_abs(float x) { return fabsf(x); }
 __host__ __device__ __forceinline__ double fm_abs(double x) { return fabs(x); }
+__host__ __device__ __forceinline__ float fm_max(float a, float b) { return fmaxf(a, b); }
+__host__ __device__ __forceinline__ double fm_max(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float fm_log(float x) { return logf(x); }
+__device__ __forceinline__ double fm_log(double x) { return log(x); }
+__device__ __forceinline__ float fm_sqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double fm_sqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float fm_rsqrt(float x) { return rsqrtf(x); }
+__device__ __forceinline__ double fm_rsqrt(double x) { return rsqrt(x); }
 
 // Entry grid of one compact matrix (channel stride sc), with eps (n
 // values, or null) added to the diagonal.
@@ -199,12 +207,25 @@ __device__ __forceinline__ void plu_substitute(const T (&LU)[N][N], const int (&
   }
 }
 
+// Sign of the row permutation of plu_factor's pivots: -1 for an odd
+// number of swaps.
+template <int N>
+__device__ __forceinline__ int plu_sign(const int (&piv)[N]) {
+  int sign = 1;
+#pragma unroll
+  for (int k = 0; k < N - 1; ++k)
+    if (piv[k] != k) sign = -sign;
+  return sign;
+}
+
 // Rolled LU with partial pivoting on a local array of n rows of width
 // w: A in columns [0, n), right-hand sides in [n, w). Eliminates the
 // right-hand sides with A (multipliers by division, as the reference's
-// rolled tier does), leaving U on and above the diagonal.
+// rolled tier does), leaving U on and above the diagonal. Returns the
+// sign of the row permutation.
 template <typename T>
-__device__ void rolled_factor(T* a, int n, int w) {
+__device__ int rolled_factor(T* a, int n, int w) {
+  int sign = 1;
   for (int k = 0; k < n; ++k) {
     int p = k;
     T m = fm_abs(a[k * w + k]);
@@ -216,6 +237,7 @@ __device__ void rolled_factor(T* a, int n, int w) {
       }
     }
     if (p != k) {
+      sign = -sign;
       for (int j = k; j < w; ++j) {
         const T t = a[k * w + j];
         a[k * w + j] = a[p * w + j];
@@ -228,6 +250,7 @@ __device__ void rolled_factor(T* a, int n, int w) {
       for (int j = k + 1; j < w; ++j) a[i * w + j] = a[i * w + j] - l * a[k * w + j];
     }
   }
+  return sign;
 }
 
 // Back-substitution with rolled_factor's U, overwriting each

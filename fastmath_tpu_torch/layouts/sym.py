@@ -18,6 +18,7 @@ size ``NN`` of the last axis given the vector length ``N``:
 from __future__ import annotations
 
 import enum
+import functools
 import math
 
 import numpy as np
@@ -102,6 +103,22 @@ def compact_index_grid(n: int) -> np.ndarray:
     return idx
 
 
+# The index tensors on each device, made once: a copy from host memory
+# waits for the work queued on the device, which a public op on CUDA
+# tensors must not do at every call. Read-only; a few per N and device.
+
+
+@functools.lru_cache(maxsize=256)
+def _index_grid(n: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(compact_index_grid(n), dtype=torch.long, device=device)
+
+
+@functools.lru_cache(maxsize=256)
+def _upper_rows_cols(n: int, device: torch.device):
+    rows, cols = np.triu_indices(n, k=1)
+    return torch.as_tensor(rows, device=device), torch.as_tensor(cols, device=device)
+
+
 def sym_to_full(mat: torch.Tensor, n: int | None = None) -> torch.Tensor:
     """Expand compact ``(..., N*(N+1)/2)`` storage to full ``(..., N, N)``
     (one gather)."""
@@ -110,9 +127,7 @@ def sym_to_full(mat: torch.Tensor, n: int | None = None) -> torch.Tensor:
         n = sym_dim(nn)
     elif compact_size(n) != nn:
         raise ValueError(f"last axis {nn} != {compact_size(n)} for N={n}")
-    idx = torch.as_tensor(compact_index_grid(n), dtype=torch.long,
-                          device=mat.device)
-    return mat[..., idx]
+    return mat[..., _index_grid(n, mat.device)]
 
 
 def full_to_sym(full: torch.Tensor, check: bool = False) -> torch.Tensor:
@@ -123,11 +138,9 @@ def full_to_sym(full: torch.Tensor, check: bool = False) -> torch.Tensor:
     if full.shape[-2] != n:
         raise ValueError("full_to_sym expects a square matrix")
     sym = 0.5 * (full + full.transpose(-1, -2))
-    rows, cols = np.triu_indices(n, k=1)
+    rows, cols = _upper_rows_cols(n, full.device)
     diag = torch.diagonal(sym, dim1=-2, dim2=-1)
-    upper = sym[..., torch.as_tensor(rows, device=full.device),
-                torch.as_tensor(cols, device=full.device)]
-    return torch.cat([diag, upper], dim=-1)
+    return torch.cat([diag, sym[..., rows, cols]], dim=-1)
 
 
 def sym_diag(mat: torch.Tensor) -> torch.Tensor:

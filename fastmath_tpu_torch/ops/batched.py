@@ -1,5 +1,6 @@
 """Batched small-matrix linear algebra on full storage: ``batchinv``,
-``batchlmdiv``, ``batchrmdiv``, ``batchmatvec`` and ``batchmatmul``.
+``batchlmdiv``, ``batchrmdiv``, ``batchdet``, ``batchlogdet``,
+``batchchol``, ``batchmatvec`` and ``batchmatmul``.
 
 PyTorch counterpart of ``fastmath_tpu/ops/batched.py``: the same names,
 tiers, constants and semantics, on matrices ``(..., n, n)`` with
@@ -21,7 +22,8 @@ reference itself calls ``jnp.linalg``.
   to n = 8, 16 above). ``batchlmdiv`` takes its solve kernel for n > 4
   only; for n <= 4 it multiplies by ``batchinv``'s inverse, as the
   reference does. (The reference's batch-size thresholds were measured
-  on a TPU and are not copied.)
+  on a TPU and are not copied; ``batchchol`` takes its kernel at every
+  n <= 32, where the TPU's takes it for n > 16 only.)
 * ``"cuda"``: forces the kernel (``batchlmdiv`` the solve kernel at any
   n); raises outside its domain or on CPU tensors.
 * ``"torch"``: the plain tiers, on whatever device holds the tensors.
@@ -35,10 +37,12 @@ from __future__ import annotations
 import torch
 
 from ..core.dtypes import downcast, upcast_half
-from ..kernels._launch import MAX_N
+from ..kernels._launch import MAX_N, chol_rows, diag_log_sum, diag_product
+from ..layouts.sym import full_to_sym, sym_to_full
 from .sym import _check_backend, _det_expand, _use_kernel
 
-__all__ = ["batchinv", "batchmatvec", "batchmatmul", "batchlmdiv", "batchrmdiv"]
+__all__ = ["batchdet", "batchinv", "batchmatvec", "batchmatmul", "batchlmdiv", "batchrmdiv",
+           "batchchol", "batchlogdet"]
 
 _CLOSED_FORM_MAX = 4
 #: largest n of the plain pivoted-LU tier (above: torch.linalg)
@@ -145,6 +149,39 @@ def _inv_torch(a, regularize):
     return torch.stack(entries, dim=-1).reshape(a.shape)
 
 
+def _det_torch(a):
+    n = a.shape[-1]
+    if n > LU_UNROLL_MAX:
+        return torch.linalg.det(a)
+    if n > _CLOSED_FORM_MAX:
+        lu, _, parity = _plu(a)
+        return diag_product(lu, parity)
+    idx = tuple(range(n))
+    return _det_expand(_full_entries(a, n), idx, idx, {})
+
+
+def _logdet_torch(a):
+    n = a.shape[-1]
+    if n <= _CLOSED_FORM_MAX:
+        return torch.log(torch.abs(_det_torch(a)))
+    if n > LU_UNROLL_MAX:
+        return torch.linalg.slogdet(a)[1]
+    return diag_log_sum(_plu(a)[0])
+
+
+def _chol_torch(a):
+    n = a.shape[-1]
+    if n > LU_UNROLL_MAX:
+        # NaN where the matrix is not SPD, as jnp.linalg.cholesky (and no
+        # wait for the device, as torch.linalg.cholesky's check would)
+        L, info = torch.linalg.cholesky_ex(a)
+        return torch.where(info[..., None, None] == 0, L, torch.nan)
+    L = chol_rows(_full_entries(a, n), n)
+    zero = torch.zeros_like(a[..., 0, 0])
+    return torch.stack([torch.stack([L[i][j] if j <= i else zero for j in range(n)], dim=-1)
+                        for i in range(n)], dim=-2)
+
+
 # ---------------------------------------------------------------------------
 # public ops
 # ---------------------------------------------------------------------------
@@ -155,6 +192,86 @@ def _kernel_route(backend, n, a, op):
     full-storage kernels."""
     return _use_kernel(backend, True, n, a, op, f"square matrices with 1 <= n <= {MAX_N}",
                        f"n={n}")
+
+
+def _square(a, op):
+    n = a.shape[-1]
+    if a.shape[-2] != n:
+        raise ValueError(f"{op} expects square matrices")
+    return n
+
+
+def batchdet(a: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """Batched determinant ``(..., n, n) -> (...)``.
+
+    The kernel serves 1 <= n <= 32 (the closed form for n <= 4, pivoted
+    LU above: ``sign * prod U_ii``). The plain tiers: the closed form for
+    n <= 4, pivoted LU for n <= 16, ``torch.linalg.det`` beyond. In
+    float32 the determinant of a large well-conditioned matrix can
+    overflow; :func:`batchlogdet` is for that. Differentiable (``det *
+    A^-T``, NaN at an exactly singular matrix above n = 4, as in the
+    reference). See the module docstring for ``backend``.
+    """
+    a, half = upcast_half(a)
+    n = _square(a, "batchdet")
+    domain, kernel = _kernel_route(backend, n, a, "batchdet")
+    if domain and backend != "torch":
+        from ..kernels.batched_cuda import DetFunction
+
+        det = DetFunction.apply(a.reshape(-1, n * n).contiguous(), kernel, False)
+        return downcast(det.reshape(a.shape[:-2]), half)
+    return downcast(_det_torch(a), half)
+
+
+def batchlogdet(a: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """Batched ``log |det A|`` ``(..., n, n) -> (...)``.
+
+    The kernel serves 1 <= n <= 32: for n <= 4 each row is scaled by its
+    largest magnitude before the closed form (any scale stays in range;
+    a zero row gives -inf), above it sums ``log |U_ii|`` of the pivoted
+    LU, never the log of the product, so it stays finite where the
+    determinant overflows. The plain tiers: ``log |det|`` of the closed
+    form for n <= 4, the sum over the LU's pivots for n <= 16,
+    ``torch.linalg.slogdet`` beyond. The logs are the device's
+    ``torch.log`` (the reference's ``accmath.log`` works around the TPU's
+    inaccurate one). Differentiable (``A^-T``). See the module docstring
+    for ``backend``.
+    """
+    a, half = upcast_half(a)
+    n = _square(a, "batchlogdet")
+    domain, kernel = _kernel_route(backend, n, a, "batchlogdet")
+    if domain and backend != "torch":
+        from ..kernels.batched_cuda import LogdetFunction
+
+        y = LogdetFunction.apply(a.reshape(-1, n * n).contiguous(), kernel, False)
+        return downcast(y.reshape(a.shape[:-2]), half)
+    return downcast(_logdet_torch(a), half)
+
+
+def batchchol(a: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """Batched lower Cholesky factor of SPD matrices ``(..., n, n) ->
+    (..., n, n)``, zeros above the diagonal.
+
+    The kernel serves 1 <= n <= 32 on compact storage: the matrix is
+    packed (its two triangles averaged), factored (Cholesky-Banachiewicz
+    for n <= 8, the outer-product form with ``rsqrt`` above) and the
+    factor unpacked. On the card ``"auto"`` takes it at every n <= 32
+    (the reference's TPU routing takes it only for n > 16). The plain
+    tiers read the lower triangle: unrolled Cholesky-Banachiewicz for
+    n <= 16, ``torch.linalg.cholesky_ex`` beyond. No pivoting: a matrix
+    that is not SPD gives NaN, with no error raised. Differentiable. See
+    the module docstring for ``backend``.
+    """
+    a, half = upcast_half(a)
+    n = _square(a, "batchchol")
+    domain, kernel = _kernel_route(backend, n, a, "batchchol")
+    if domain and backend != "torch":
+        from ..kernels.batched_cuda import CholFunction
+
+        comp = full_to_sym(a).reshape(-1, n * (n + 1) // 2).contiguous()
+        lc = CholFunction.apply(comp, kernel, False)
+        return downcast(torch.tril(sym_to_full(lc, n)).reshape(a.shape), half)
+    return downcast(_chol_torch(a), half)
 
 
 def batchinv(a: torch.Tensor, regularize: bool = False, backend: str = "auto") -> torch.Tensor:
@@ -169,9 +286,7 @@ def batchinv(a: torch.Tensor, regularize: bool = False, backend: str = "auto") -
     the module docstring for ``backend``.
     """
     a, half = upcast_half(a)
-    n = a.shape[-1]
-    if a.shape[-2] != n:
-        raise ValueError("batchinv expects square matrices")
+    n = _square(a, "batchinv")
     _check_backend(backend)
     if regularize and backend == "cuda":
         raise ValueError(_NO_REGULARIZE)
@@ -280,3 +395,29 @@ def batchrmdiv(a: torch.Tensor, b: torch.Tensor, regularize: bool = False,
     """Batched right division ``a @ inv(b)``: the transpose of
     :func:`batchlmdiv` (``backend`` as there)."""
     return batchlmdiv(b.mT, a.mT, regularize=regularize, backend=backend).mT
+
+
+def _chol_solve_unrolled(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """SPD solve through :func:`batchchol` and unrolled triangular
+    substitutions (real dtypes, n <= 8); ``b`` is ``(..., n)`` or
+    ``(..., n, k)``, batch dims broadcast. ``sugar.lmdiv``/``inv`` take it
+    for ``method="chol"``."""
+    n = a.shape[-1]
+    vector = b.dim() == a.dim() - 1
+    if vector:
+        b = b[..., None]
+    bshape = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    a = a.expand(*bshape, n, n)
+    b = b.expand(*bshape, *b.shape[-2:])
+    L = batchchol(a)
+    ys = [b[..., i, :] for i in range(n)]
+    for i in range(n):
+        for j in range(i):
+            ys[i] = ys[i] - L[..., i, j, None] * ys[j]
+        ys[i] = ys[i] / L[..., i, i, None]
+    for i in range(n - 1, -1, -1):
+        for j in range(i + 1, n):
+            ys[i] = ys[i] - L[..., j, i, None] * ys[j]
+        ys[i] = ys[i] / L[..., i, i, None]
+    x = torch.stack(ys, dim=-2)
+    return x[..., 0] if vector else x

@@ -1,13 +1,15 @@
 """Compact symmetric ops: the solves (``sym_solve``, the fused
-``sym_solve_chain``) and the products (``sym_matvec``,
-``sym_addmatvec`` / ``sym_submatvec``, ``sym_outer``, ``sym_matmul``).
+``sym_solve_chain``), the products (``sym_matvec``,
+``sym_addmatvec`` / ``sym_submatvec``, ``sym_outer``, ``sym_matmul``),
+the determinant ``sym_det`` and the inverse ``sym_invert``.
 
 PyTorch counterpart of ``fastmath_tpu/ops/sym.py``. Layout
 auto-detection (scaled identity / diagonal / compact / full) and
 right-aligned broadcasting of the batch dims are the same. Input in a
 kernel's domain goes through one ``torch.autograd.Function`` per kernel
 (:mod:`fastmath_tpu_torch.kernels.sym_cuda`,
-:mod:`fastmath_tpu_torch.kernels.sym_products`) that launches the
+:mod:`fastmath_tpu_torch.kernels.sym_products`,
+:mod:`fastmath_tpu_torch.kernels.sym_factor`) that launches the
 hand-written CUDA kernel on a CUDA tensor and runs the kernel's plain
 PyTorch version otherwise. Everything else is plain PyTorch on the
 tensors' device: diagonal and scaled-identity storage elementwise, full
@@ -45,11 +47,11 @@ import torch
 
 from ..core.dtypes import downcast, upcast_half
 from ..layouts.sym import (MatrixLayout, classify_layout, compact_size,
-                           full_to_sym, sym_to_full, tri_index)
+                           full_to_sym, sym_dim, sym_to_full, tri_index)
 
 __all__ = ["sym_solve", "sym_solve_", "sym_solve_chain", "sym_matvec",
            "sym_addmatvec", "sym_addmatvec_", "sym_submatvec", "sym_submatvec_",
-           "sym_outer", "sym_matmul", "BACKENDS"]
+           "sym_outer", "sym_matmul", "sym_det", "sym_invert", "sym_invert_", "BACKENDS"]
 
 BACKENDS = ("auto", "cuda", "torch")
 
@@ -454,7 +456,72 @@ def sym_matmul(j: torch.Tensor, h: torch.Tensor, backend: str = "auto") -> torch
     return downcast(y.reshape(*batch, compact_size(d)), half)
 
 
+# ---------------------------------------------------------------------------
+# determinant and inverse
+# ---------------------------------------------------------------------------
+
+
+def sym_det(mat: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """Determinant of compact symmetric matrices ``(..., N(N+1)/2) ->
+    (...)``.
+
+    The kernel serves N <= 32 (the closed form for N <= 4, pivoted LU
+    above: ``sign * prod U_ii``). The plain tiers: the closed form for
+    N <= 4, :func:`~fastmath_tpu_torch.ops.batched.batchdet` of the
+    densified matrix beyond (with the same ``backend``). bf16/f16 compute
+    in float32 and round once on output. Differentiable. See the module
+    docstring for ``backend``.
+    """
+    mat, half = upcast_half(mat)
+    n = sym_dim(mat.shape[-1])
+    domain, kernel = _compact_route(backend, MatrixLayout.COMPACT_SYM, n, mat, "sym_det")
+    if domain and backend != "torch":
+        from ..kernels.sym_factor import SymDetFunction
+
+        det = SymDetFunction.apply(mat.reshape(-1, mat.shape[-1]).contiguous(), kernel, False)
+        return downcast(det.reshape(mat.shape[:-1]), half)
+    if n <= _CLOSED_FORM_MAX:
+        return downcast(_det_full(_entries(mat, n), n), half)
+    from .batched import batchdet
+
+    return downcast(batchdet(sym_to_full(mat, n), backend=backend), half)
+
+
+def sym_invert(mat: torch.Tensor, diag: bool = False, backend: str = "auto") -> torch.Tensor:
+    """Inverse of compact symmetric matrices, in compact storage
+    ``(..., N(N+1)/2) -> (..., N(N+1)/2)``; ``diag=True`` returns only
+    its diagonal ``(..., N)``.
+
+    The kernel serves N <= 32 (cofactors for N <= 4, pivoted LU against
+    the identity above, with the upper slots symmetrized). The plain
+    tiers: cofactors for N <= 4,
+    :func:`~fastmath_tpu_torch.ops.batched.batchinv` of the densified
+    matrix beyond (with the same ``backend``). bf16/f16 compute in
+    float32 and round once on output. Differentiable. See the module
+    docstring for ``backend``.
+    """
+    mat, half = upcast_half(mat)
+    n = sym_dim(mat.shape[-1])
+    domain, kernel = _compact_route(backend, MatrixLayout.COMPACT_SYM, n, mat, "sym_invert")
+    if domain and backend != "torch":
+        from ..kernels.sym_factor import InvertFunction
+
+        out = InvertFunction.apply(mat.reshape(-1, mat.shape[-1]).contiguous(), kernel, False)
+        out = out.reshape(mat.shape)
+    elif n <= _CLOSED_FORM_MAX:
+        from ..kernels.sym_factor import invert_plain
+
+        out = invert_plain(mat.reshape(-1, mat.shape[-1])).reshape(mat.shape)
+    else:
+        from .batched import batchinv
+
+        full = batchinv(sym_to_full(mat, n), backend=backend)
+        out = full_to_sym(full)
+    return downcast(out[..., :n] if diag else out, half)
+
+
 # functional aliases for the reference's in-place variants
 sym_solve_ = sym_solve
+sym_invert_ = sym_invert
 sym_addmatvec_ = sym_addmatvec
 sym_submatvec_ = sym_submatvec
