@@ -17,12 +17,18 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    16 above, also reading A transposed) and inverse on general matrices
    that pivot at most steps and on SPD matrices; the determinant,
    log-determinant, Cholesky, compact determinant and compact inverse;
+   the matvec chain (iters 0, 1, 7, with and without ``add``), the power
+   iteration (iters 0, 5, 32; ``renorm_every`` 1, 8, 16), the full matvec
+   (also reading A transposed) and the product (every pair of transposed
+   reads, m, k, n up to 32);
 3. gradients of ``sym_solve``, ``sym_solve_chain``, the products,
    ``batchinv``, ``batchlmdiv``, ``batchdet``, ``batchlogdet``,
-   ``batchchol``, ``sym_det`` and ``sym_invert`` through the kernels
+   ``batchchol``, ``sym_det``, ``sym_invert``, ``sym_matvec_chain``,
+   ``sym_maxeig``, ``batchmatvec`` and ``batchmatmul`` through the kernels
    against the same through the plain versions (the matvec kernel, the
-   solve kernel reading A transposed, the inverse kernel and the compact
-   inverse kernel must launch in the backward);
+   solve kernel reading A transposed, the inverse kernel, the compact
+   inverse kernel, the chain kernel, the full matvec kernel reading A
+   transposed and the product kernel must launch in the backward);
 4. the solve's main path at full size: the public ``sym_solve`` on a 1M
    batch of 4x4 float32 compact SPD matrices made as ``bench.py`` makes
    them, and ``sym_solve_chain`` with k = 128 on the same batch; launch
@@ -53,7 +59,18 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    against its bound, its plain version and one ``torch.linalg`` call
    (``det``, ``slogdet``, ``cholesky_ex``, ``det`` / ``inv_ex`` of the
    densified compact matrix);
-8. one JSON line of per-kernel times beside their bounds.
+8. the iterations and the full-storage products at the bench suite's
+   shapes (float32): ``sym_matvec_chain`` at 1M x 4 x 4 (k = 128) and
+   16 x 16 (k = 32) on contraction-scaled a a^T + n I, gated normwise
+   against a float64 numpy recurrence; ``sym_maxeig`` at 1M x 4 x 4 and
+   8 x 8, iters = 32, on gap-boosted input, its median relative error
+   against float64 ``eigvalsh`` gated; ``batchmatmul`` at 16 x 16 on 500k
+   and 4 x 4 on 1M, ``auto`` and ``cuda``; ``sym_solve`` on full storage at
+   1M x 4 x 4 through the matvec kernel; launch counts, per-call, host and
+   device times, each kernel alone against its bound, its plain version
+   and ``torch.matmul``; then the routing sweeps: the matvec and the
+   product kernels against ``torch.matmul`` from n = 4 to 32;
+9. one JSON line of per-kernel times beside their bounds.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository beside it, the script exits non-zero
@@ -515,6 +532,133 @@ def phase_factor_vs_plain(torch, rng):
                 f"(tol {TOL_ORACLE[dt_name]:.0e})")
 
 
+def contraction(rng, b, n):
+    """Symmetric Q diag(w) Q^T, w in [-0.9, 0.9]: the chain's iterates
+    neither grow nor amplify their roundings."""
+    q, _ = np.linalg.qr(rng.standard_normal((b, n, n)))
+    s = np.einsum("bik,bk,bjk->bij", q, rng.uniform(-0.9, 0.9, (b, n)), q)
+    return 0.5 * (s + s.transpose(0, 2, 1))
+
+
+def gapped(rng, b, n):
+    """Symmetric matrices with a dominant eigenvalue 8 n apart from the
+    rest (the reference's tests/test_maxeig.py construction), and start
+    vectors u + r / 2, u the boost direction and r a random unit vector:
+    a start vector nearly orthogonal to the dominant eigenvector makes the
+    first steps amplify every rounding (the iteration's own condition, in
+    the kernel and the plain version alike), which is not what the check
+    measures."""
+    a = rng.standard_normal((b, n, n))
+    u, r = (x / np.linalg.norm(x, axis=-1, keepdims=True)
+            for x in (rng.standard_normal((b, n)), rng.standard_normal((b, n))))
+    return (a + a.transpose(0, 2, 1)) / 2 + 8.0 * n * u[:, :, None] * u[:, None, :], u + r / 2
+
+
+def dominant(full64):
+    """Largest-|lambda| eigenvalue of float64 symmetric matrices."""
+    w = np.linalg.eigvalsh(full64)
+    return w[np.arange(len(w)), np.argmax(np.abs(w), axis=-1)]
+
+
+MKN_CHECK = ((1, 1, 1), (2, 3, 4), (4, 4, 4), (6, 6, 6), (7, 3, 5), (1, 32, 1), (16, 16, 16),
+             (32, 32, 32))
+
+
+def phase_iterate_vs_plain(torch, rng):
+    """The chain, power-iteration, full-matvec and product kernels against
+    their plain versions and float64 numpy: normwise, over norm(x) +
+    norm((vec, add)) for the chain and over norm(y) + norm(|A| |B|) for the
+    products (their sums can cancel); for the power iteration the eigenvalue's error over
+    the Gershgorin bound (a Rayleigh quotient cancels before it
+    converges) and the vector normwise, and after 64 steps the eigenvalue
+    against eigvalsh, relative."""
+    from fastmath_tpu_torch.kernels import batched_cuda as BC
+    from fastmath_tpu_torch.kernels import sym_iterate as SI
+
+    worst = {}
+    layouts = (("bm", lambda t: t), ("cf", lambda t: t.t().contiguous().t()))
+    for dt_name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        tol_p, tol_o = TOL_PLAIN[dt_name], TOL_ORACLE[dt_name]
+        for n in (1, 2, 3, 4, 5, 8, 9, 16, 32):
+            mat, vec, add = (torch.tensor(a, dtype=dtype, device=DEV) for a in (
+                compact(contraction(rng, B_CHECK, n)), rng.standard_normal((B_CHECK, n)),
+                rng.standard_normal((B_CHECK, n))))
+            a64, v64, c64 = full64(mat, n), vec.double().cpu().numpy(), add.double().cpu().numpy()
+            # the steps round terms as large as vec and add: the error is
+            # taken over norm(x) + norm((vec, add)), as x_iters can be small
+            vc64 = np.concatenate([v64, c64], axis=-1)
+            for iters in (0, 1, 7):
+                for c, c_np in ((None, v64), (add, vc64)):
+                    x64 = v64
+                    for _ in range(iters):
+                        x64 = np.einsum("bij,bj->bi", a64, x64) + (0 if c is None else c64)
+                    plain = SI.matvec_chain_plain(mat, vec, c, iters)
+                    for layout, lay in layouts:
+                        got = SI.launch_matvec_chain(lay(mat), lay(vec),
+                                                     None if c is None else lay(c), iters,
+                                                     layout == "cf")
+                        hold(torch, worst, f"chain {dt_name} n={n} iters={iters} "
+                             f"add={c is not None} {layout}", got, plain, x64, dt_name, c_np)
+            gfull, v0 = gapped(rng, B_CHECK, n)
+            gm = torch.tensor(compact(gfull), dtype=dtype, device=DEV)
+            v0 = torch.tensor(v0, dtype=dtype, device=DEV)
+            g64 = full64(gm, n)
+            gersh = np.abs(g64).sum(axis=-1).max(axis=-1)
+            dom = dominant(g64)
+            for iters, r in ((0, 1), (5, 8), (32, 16), (32, 1), (64, 8)):
+                plain = SI.maxeig_plain(gm, v0, iters, r).double().cpu().numpy()
+                for layout, lay in layouts:
+                    got = SI.launch_maxeig(lay(gm), lay(v0), iters, r, layout == "cf")
+                    torch.cuda.synchronize()
+                    got = got.double().cpu().numpy()
+                    d = max((np.abs(got[:, 0] - plain[:, 0]) / gersh).max(),
+                            normwise(got[:, 1:], plain[:, 1:]).max())
+                    o = (np.abs(got[:, 0] - dom) / np.abs(dom)).max() if iters == 64 else 0.0
+                    key = f"maxeig {dt_name} n={n} iters={iters} r={r} {layout}"
+                    worst[key] = (d, o)
+                    if not (d <= tol_p and o <= tol_o):
+                        fail(f"{key}: kernel vs plain {d:.3e}, vs f64 eigvalsh {o:.3e}")
+            full = torch.tensor(rng.standard_normal((B_CHECK, n * n)), dtype=dtype, device=DEV)
+            f64 = full.double().cpu().numpy().reshape(B_CHECK, n, n)
+            for trans in (False, True):
+                eq = "bji,bj->bi" if trans else "bij,bj->bi"
+                want64 = np.einsum(eq, f64, v64)
+                terms = np.einsum(eq, np.abs(f64), np.abs(v64))  # |A| |v|: sums can cancel
+                plain = BC.matvec_full_plain(full, vec, trans)
+                for layout, lay in layouts:
+                    hold(torch, worst, f"matvec_full {dt_name} n={n} trans={trans} {layout}",
+                         BC.launch_matvec_full(lay(full), lay(vec), trans, layout == "cf"),
+                         plain, want64, dt_name, terms)
+        for m, k, n in MKN_CHECK:
+            a, b = (torch.tensor(rng.standard_normal((B_CHECK, r * c)), dtype=dtype, device=DEV)
+                    for r, c in ((m, k), (k, n)))
+            a64, b64 = a.double().cpu().numpy(), b.double().cpu().numpy()
+            for ta in (False, True):
+                for tb in (False, True):
+                    A = a64.reshape(B_CHECK, k, m).transpose(0, 2, 1) if ta else \
+                        a64.reshape(B_CHECK, m, k)
+                    Bm = b64.reshape(B_CHECK, n, k).transpose(0, 2, 1) if tb else \
+                        b64.reshape(B_CHECK, k, n)
+                    want64 = (A @ Bm).reshape(B_CHECK, m * n)
+                    terms = (np.abs(A) @ np.abs(Bm)).reshape(B_CHECK, m * n)
+                    plain = BC.matmul_plain(a, b, m, k, n, ta, tb)
+                    for layout, lay in layouts:
+                        hold(torch, worst, f"matmul {dt_name} {m}x{k}x{n} ta={ta} tb={tb} "
+                             f"{layout}", BC.launch_matmul(lay(a), lay(b), m, k, n, ta, tb,
+                                                           layout == "cf"),
+                             plain, want64, dt_name, terms)
+    for dt_name in ("float32", "float64"):
+        for op, how in (("chain", " (error over norm(x) + norm((vec, add)))"),
+                        ("maxeig", " (mu over the Gershgorin bound; vs eigvalsh after 64 "
+                                   "steps)"), ("matvec_full", " (over norm(y) + norm(|A| |v|))"),
+                        ("matmul", " (over norm(C) + norm(|A| |B|))")):
+            ks = [k for k in worst if k.startswith(f"{op} {dt_name}")]
+            log(f"  {op} {dt_name}: {len(ks)} cases{how}, worst kernel-vs-plain "
+                f"{max(worst[k][0] for k in ks):.3e} (tol {TOL_PLAIN[dt_name]:.0e}), "
+                f"vs f64 numpy {max(worst[k][1] for k in ks):.3e} "
+                f"(tol {TOL_ORACLE[dt_name]:.0e})")
+
+
 # --- phase 3 -----------------------------------------------------------------
 
 
@@ -636,6 +780,45 @@ def phase_factor_gradients(torch, rng):
             fail(f"factor gradient n={n} differs: {worst:.3e}")
         if bwd[1] < 1 or (n > 4 and min(bwd[0], bwd[2]) < 1):
             fail(f"factor gradient n={n}: the backward did not launch its kernels: {bwd}")
+
+
+def phase_iterate_gradients(torch, rng):
+    """Gradients of sym_matvec_chain, sym_maxeig, batchmatvec and
+    batchmatmul through the kernels (float64, on the card) against the
+    same through the plain versions (the CPU). The backward must launch
+    the chain kernel (iters times or more), the full matvec kernel (A
+    transposed) and the product kernel (twice)."""
+    import fastmath_tpu_torch as T
+    from fastmath_tpu_torch.kernels import matmul_cf, matvec_full_cf, sym_matvec_chain_cf
+
+    counters = (sym_matvec_chain_cf, matvec_full_cf, matmul_cf)
+    for n in (3, 6, 12):
+        ins0 = [torch.tensor(x, device=DEV) for x in (
+            compact(contraction(rng, 515, n)), rng.standard_normal((515, n)),
+            rng.standard_normal((515, n)), compact(gapped(rng, 515, n)[0]),
+            rng.standard_normal((515, min(n, 4), min(n, 4))), rng.standard_normal((515, n, n)),
+            rng.standard_normal((515, n, 3)))]
+
+        def grads(device):
+            ins = [t.to(device).clone().requires_grad_() for t in ins0]
+            m, v, c, g, f, a, b = ins
+            backend = "cuda" if device == DEV else "torch"
+            out = (T.sym_matvec_chain(m, v, 6, add=c, backend=backend).square().sum()
+                   + T.sym_maxeig(g, iters=24, v0=v, backend=backend).square().sum()
+                   + T.batchmatvec(f, v[:, :f.shape[-1]]).square().sum()
+                   + T.batchmatmul(a, b, backend=backend).square().sum())
+            before = [k.launches for k in counters]
+            gr = torch.autograd.grad(out, ins)
+            return [t.cpu() for t in gr], [k.launches - x for k, x in zip(counters, before)]
+
+        (kernel, bwd), (plain, _) = grads(DEV), grads("cpu")
+        worst = max(((k - p).norm() / p.norm()).item() for k, p in zip(kernel, plain))
+        log(f"  iterate grads n={n}: kernel vs plain relative {worst:.3e} (tol 1e-10); "
+            f"launches in backward: chain {bwd[0]}, matvec {bwd[1]}, matmul {bwd[2]}")
+        if not worst <= 1e-10:
+            fail(f"iterate gradient n={n} differs: {worst:.3e}")
+        if bwd[0] < 6 or bwd[1] < 1 or bwd[2] < 2:
+            fail(f"iterate gradient n={n}: the backward did not launch its kernels: {bwd}")
 
 
 # --- phase 4 -----------------------------------------------------------------
@@ -1370,6 +1553,266 @@ def phase_factor(torch, rng, mat4):
     return kernels
 
 
+# --- phase 8 -----------------------------------------------------------------
+
+# bench/suite.py's shapes: the matvec chain at (4, 128) and (16, 32) on
+# its 1M batch, contraction-scaled by 1/(6n) (:336-370); the power
+# iteration at 4 x 4 and 8 x 8 on 1M, iters 32, gap-boosted (:715-740);
+# batchmatmul 16 x 16 on 500k (:478-496) and 4 x 4 on 1M
+CHAIN_SHAPES = ((4, 128, 1_000_000), (16, 32, 1_000_000))
+MAXEIG_SHAPES = ((4, 1_000_000), (8, 1_000_000))
+MAXEIG_ITERS, MAXEIG_RENORM = 32, 8
+MATMUL_SHAPES = ((16, 500_000), (4, 1_000_000))
+# batch of each size in the routing sweeps: 256 MB or less per operand
+SWEEP_NS = (4, 5, 6, 8, 9, 12, 16, 24, 32)
+
+
+def kernel_ms(torch, fn, what, reps=10):
+    """device_ms of a kernel's launch; the run fails if it cannot be
+    queued ahead of the card."""
+    t = device_ms(torch, fn, reps=reps)
+    if t is None:
+        fail(f"{what}: the kernel could not be queued ahead of the card")
+    return t
+
+
+def sweep_batch(n):
+    return min(1_000_000, (64 << 20) // (n * n))
+
+
+def ops_chain_mv(n, iters):
+    """One matvec chain: per step n rows of n products summed (n(2n - 1))
+    and the n adds of c."""
+    return iters * (n * (2 * n - 1) + n)
+
+
+def ops_maxeig(n, iters, r):
+    """One power iteration as the kernel does it: the Gershgorin bound
+    (n(2n - 1) abs-adds, n - 1 maxima), the scaled matrix (n^2), iters + 1
+    matvecs (n(2n - 1) each), iters // r + 2 renormalizations (2n - 1 for
+    |v|^2, an rsqrt, n scales) and the Rayleigh quotient (2n)."""
+    mv = n * (2 * n - 1)
+    return mv + n - 1 + n * n + (iters + 1) * mv + (iters // r + 2) * (3 * n) + 2 * n
+
+
+def phase_iterate(torch, rng):
+    """The iterations and the full-storage products at the bench suite's
+    shapes, through the public ops; launch counts, gated errors, per-call,
+    host and device times, each kernel alone against its bound, its plain
+    version and torch.matmul; then the routing sweeps."""
+    import fastmath_tpu_torch as T
+    from fastmath_tpu_torch.kernels import batched_cuda as BC
+    from fastmath_tpu_torch.kernels import sym_iterate as SI
+    from fastmath_tpu_torch.layouts import full_to_sym, sym_to_full
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(int(rng.integers(2 ** 31)))
+    # bench/suite.py's 1/(6n) scale, capped so that every matrix's
+    # Gershgorin bound stays at or under 0.95: a 1M batch of a a^T + n I
+    # holds matrices whose spectral radius exceeds 1 at 1/(6n), and their
+    # recurrence overflows within 128 steps
+    chain_in = {}
+    for n, k, b in CHAIN_SHAPES:
+        a = spd_on_card(torch, gen, b, n)
+        scale = 1.0 / torch.clamp(a.abs().sum(dim=-1).amax(dim=-1) / 0.95, min=6.0 * n)
+        mat = full_to_sym(a * scale[:, None, None]).contiguous()
+        del a, scale
+        chain_in[n] = (k, mat, torch.randn(b, n, generator=gen, device=DEV),
+                       torch.randn(b, n, generator=gen, device=DEV))
+    # bench/suite.py's gap-boosted input, and start vectors u + r / 2 for
+    # the kernels alone (gapped's reason: a start vector nearly orthogonal
+    # to the dominant eigenvector, which a 1M batch of random ones holds,
+    # makes the first steps amplify every rounding)
+    eig_in, eig_start = {}, {}
+    for n, b in MAXEIG_SHAPES:
+        u, r = (x / x.norm(dim=-1, keepdim=True)
+                for x in (torch.randn(b, n, generator=gen, device=DEV) for _ in range(2)))
+        eig_in[n] = full_to_sym(spd_on_card(torch, gen, b, n)
+                                + 8.0 * n * u[:, :, None] * u[:, None, :]).contiguous()
+        eig_start[n] = u + r / 2
+        del u, r
+    mm_in = {n: (torch.randn(b, n, n, generator=gen, device=DEV),
+                 torch.randn(b, n, n, generator=gen, device=DEV)) for n, b in MATMUL_SHAPES}
+    m4 = spd_on_card(torch, gen, B_MAIN, N_MAIN)
+    full4 = m4.reshape(B_MAIN, N_MAIN * N_MAIN)
+    v4 = torch.randn(B_MAIN, N_MAIN, generator=gen, device=DEV)
+    torch.cuda.synchronize()
+
+    counters = {"chain": SI.sym_matvec_chain_cf, "maxeig": SI.sym_maxeig_cf,
+                "matvec_full": BC.matvec_full_cf, "matmul": BC.matmul_cf}
+    for c in counters.values():
+        c.launches = 0
+    outs = {}
+    for n, (k, mat, vec, add) in chain_in.items():
+        outs["chain", n] = T.sym_matvec_chain(mat, vec, k, add=add)
+    for n, mat in eig_in.items():
+        outs["maxeig", n] = T.sym_maxeig(mat, iters=MAXEIG_ITERS)
+    for n, (a, b) in mm_in.items():
+        for backend in ("auto", "cuda"):
+            outs[f"matmul {backend}", n] = T.batchmatmul(a, b, backend=backend)
+    outs["sym_solve full", N_MAIN] = T.sym_solve(full4, v4)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    log("  iterate-path launches: " + " ".join(f"{k}={v}" for k, v in launches.items()))
+    if not all(v >= 1 for v in launches.values()):
+        fail(f"the iterate path did not go through every kernel: {launches}")
+
+    # errors against float64 numpy on a slice of each batch
+    ns = 2048
+    for (op, n), y in outs.items():
+        b = y.shape[0]
+        if not torch.isfinite(y).all():
+            fail(f"{op} {n}: output is not finite")
+        if op == "chain":
+            k, mat, vec, add = chain_in[n]
+            a64 = sym_to_full(mat[:ns]).double().cpu().numpy()
+            c64 = add[:ns].double().cpu().numpy()
+            x64 = vec[:ns].double().cpu().numpy()
+            for _ in range(k):
+                x64 = np.einsum("bij,bj->bi", a64, x64) + c64
+            e = normwise(y[:ns].cpu().numpy(), x64, c64)
+            what = f"sym_matvec_chain {n}x{n} k={k} on {b} normwise (over |x| + |add|)"
+            gate = e.max()
+        elif op == "maxeig":
+            nse = 8192
+            want = dominant(sym_to_full(eig_in[n][:nse]).double().cpu().numpy())
+            e = np.abs(y[:nse].double().cpu().numpy() - want) / np.abs(want)
+            what = f"sym_maxeig {n}x{n} iters={MAXEIG_ITERS} on {b} relative vs eigvalsh"
+            gate = np.median(e)
+        elif op == "sym_solve full":
+            e = normwise(y[:ns].cpu().numpy(), oracle_solve(m4[:ns].double().cpu().numpy(),
+                                                            v4[:ns].double().cpu().numpy()))
+            what, gate = f"sym_solve full 4x4 on {B_MAIN} normwise", e.max()
+        else:
+            a, bm = mm_in[n]
+            want = a[:ns].double().cpu().numpy() @ bm[:ns].double().cpu().numpy()
+            e = normwise(y[:ns].cpu().numpy().reshape(len(want), -1), want.reshape(len(want), -1))
+            what, gate = f"batch{op} {n}x{n} on {b} normwise", e.max()
+        log(f"  {what} ({len(e)} problems): median={np.median(e):.3e} "
+            f"p99={np.quantile(e, 0.99):.3e} max={e.max():.3e} (gate {GATE:.0e} on the "
+            f"{'median' if op == 'maxeig' else 'max'})")
+        if not gate <= GATE:
+            fail(f"{what}: error {gate:.3e} > {GATE}")
+    del outs
+
+    # the public ops per call (host launch included), the host's share and
+    # the card's time
+    public = {f"sym_matvec_chain {n}x{n} k={k}": (lambda m=m, v=v, c=c, k=k:
+                                                T.sym_matvec_chain(m, v, k, add=c))
+              for n, (k, m, v, c) in chain_in.items()}
+    public.update({f"sym_maxeig {n}x{n}": (lambda m=m: T.sym_maxeig(m, iters=MAXEIG_ITERS))
+                   for n, m in eig_in.items()})
+    for n, (a, b) in mm_in.items():
+        for backend in ("auto", "cuda"):
+            public[f"batchmatmul {n}x{n} {backend}"] = (
+                lambda a=a, b=b, bk=backend: T.batchmatmul(a, b, backend=bk))
+    public[f"sym_solve full 4x4 on {B_MAIN}"] = lambda: T.sym_solve(full4, v4)
+    for name, fn in public.items():
+        dev = device_ms(torch, fn, reps=10)
+        log(f"  public {name}: {call_ms(torch, fn, reps=10):.4f} ms per call, "
+            f"host {host_ms(torch, fn, reps=10):.4f} ms, device "
+            + ("not measured (waits for the card)" if dev is None else f"{dev:.4f} ms"))
+
+    # each kernel alone at the path's shape against its bound, its plain
+    # version and one PyTorch call (timed only, never called by the port)
+    k4, mat4, vec4, add4 = chain_in[4]
+    nn4 = N_MAIN * (N_MAIN + 1) // 2
+    a16, b16 = (x.reshape(x.shape[0], -1) for x in mm_in[16])
+    rows = [
+        ("sym_matvec_chain_cf", "chain", "sym_iterate.cu", "sym_pallas.py:934",
+         lambda: SI.launch_matvec_chain(mat4, vec4, add4, k4),
+         lambda: SI.matvec_chain_plain(mat4, vec4, add4, k4), None,
+         bound(B_MAIN * (nn4 + 3 * N_MAIN) * 4, B_MAIN * ops_chain_mv(N_MAIN, k4), "float32"),
+         "1M x 4 x 4, k = 128"),
+        ("sym_maxeig_cf", "maxeig", "sym_iterate.cu", "sym_pallas.py:1059",
+         lambda: SI.launch_maxeig(eig_in[4], eig_start[4], MAXEIG_ITERS, MAXEIG_RENORM),
+         lambda: SI.maxeig_plain(eig_in[4], eig_start[4], MAXEIG_ITERS, MAXEIG_RENORM), None,
+         bound(B_MAIN * (nn4 + 2 * N_MAIN + 1) * 4,
+               B_MAIN * ops_maxeig(N_MAIN, MAXEIG_ITERS, MAXEIG_RENORM), "float32"),
+         "1M x 4 x 4, iters = 32"),
+        ("matvec_full_cf", "matvec_full", "batched_products.cu", "batched_pallas.py:270",
+         lambda: BC.launch_matvec_full(full4, v4), lambda: BC.matvec_full_plain(full4, v4),
+         lambda: torch.matmul(m4, v4[..., None]),
+         bound(B_MAIN * (N_MAIN * N_MAIN + 2 * N_MAIN) * 4,
+               B_MAIN * N_MAIN * (2 * N_MAIN - 1), "float32"), "1M x 4 x 4"),
+        ("matmul_cf", "matmul", "batched_products.cu", "batched_pallas.py:753",
+         lambda: BC.launch_matmul(a16, b16, 16, 16, 16),
+         lambda: BC.matmul_plain(a16, b16, 16, 16, 16),
+         lambda: torch.matmul(*mm_in[16]),
+         bound(MATMUL_SHAPES[0][1] * 3 * 256 * 4, MATMUL_SHAPES[0][1] * 256 * 31, "float32"),
+         "16 x 16 on 500k"),
+    ]
+    kernels = []
+    for name, counted, source, replaces, kern, plain, lib, (b_ms, b_by), shape in rows:
+        y, want = kern(), plain()
+        diff = (y - want).reshape(y.shape[0], -1)
+        err = diff.abs().max().item()
+        if counted == "maxeig":  # mu over the Gershgorin bound, v normwise
+            gersh = sym_to_full(eig_in[4]).abs().sum(dim=-1).amax(dim=-1)
+            rel = max((diff[:, 0].abs() / gersh).max().item(),
+                      (diff[:, 1:].norm(dim=-1) / want[:, 1:].norm(dim=-1)).max().item())
+        elif counted == "chain":
+            rel = (diff.norm(dim=-1) / (want.norm(dim=-1) + add4.norm(dim=-1))).max().item()
+        else:
+            rel = (diff.norm(dim=-1) / want.reshape(y.shape[0], -1).norm(dim=-1)).max().item()
+        del y, want, diff
+        if not rel <= TOL_PLAIN["float32"]:
+            fail(f"{name} at {shape}: kernel disagrees with its plain version: {rel:.3e}")
+        ms = kernel_ms(torch, kern, name)
+        plain_ms = call_ms(torch, plain, reps=3, warmup=1)
+        lib_ms = None if lib is None else yardstick_ms(torch, lib, name)
+        log(f"  {name} {shape} kernel: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+            f"{b_ms / ms * 100:.1f}% of it), plain {plain_ms:.4f} ms, library "
+            + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
+            + f", kernel vs plain max abs {err:.3e}, error {rel:.3e}")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"fastmath_tpu_torch/kernels/csrc/{source}",
+            "replaces": f"fastmath_tpu/kernels/{replaces}", "launches": launches[counted],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms})
+    # the other shapes of the path, kernel alone
+    k16, mat16, vec16, add16 = chain_in[16]
+    b16c = CHAIN_SHAPES[1][2]
+    t = kernel_ms(torch, lambda: SI.launch_matvec_chain(mat16, vec16, add16, k16), "chain 16",
+                  reps=5)
+    b_ms, b_by = bound(b16c * (136 + 48) * 4, b16c * ops_chain_mv(16, k16), "float32")
+    log(f"  sym_matvec_chain_cf 16x16 k={k16} on {b16c} kernel: {t:.4f} ms (bound {b_ms:.4f} "
+        f"ms by {b_by}, {b_ms / t * 100:.1f}% of it)")
+    b8 = MAXEIG_SHAPES[1][1]
+    t = kernel_ms(torch, lambda: SI.launch_maxeig(eig_in[8], eig_start[8], MAXEIG_ITERS,
+                                                  MAXEIG_RENORM), "maxeig 8")
+    b_ms, b_by = bound(b8 * (36 + 25) * 4, b8 * ops_maxeig(8, MAXEIG_ITERS, MAXEIG_RENORM),
+                       "float32")
+    log(f"  sym_maxeig_cf 8x8 on {b8} kernel: {t:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+        f"{b_ms / t * 100:.1f}% of it)")
+    a4, b4 = (x.reshape(x.shape[0], -1) for x in mm_in[4])
+    t = kernel_ms(torch, lambda: BC.launch_matmul(a4, b4, 4, 4, 4), "matmul 4")
+    b_ms, b_by = bound(B_MAIN * 48 * 4, B_MAIN * 16 * 7, "float32")
+    log(f"  matmul_cf 4x4 on {B_MAIN} kernel: {t:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+        f"{b_ms / t * 100:.1f}% of it), torch.matmul "
+        f"{yardstick_ms(torch, lambda: torch.matmul(*mm_in[4]), 'matmul'):.4f} ms")
+    del chain_in, eig_in, eig_start, mm_in, m4, full4, v4
+
+    # the routing sweeps: each kernel against torch.matmul on the same
+    # square batches (float32)
+    for n in SWEEP_NS:
+        b = sweep_batch(n)
+        a = torch.randn(b, n, n, generator=gen, device=DEV)
+        c = torch.randn(b, n, n, generator=gen, device=DEV)
+        v = torch.randn(b, n, generator=gen, device=DEV)
+        af, cf_ = a.reshape(b, -1), c.reshape(b, -1)
+        t_mv = kernel_ms(torch, lambda: BC.launch_matvec_full(af, v), f"matvec {n}")
+        t_mv_lib = yardstick_ms(torch, lambda: torch.matmul(a, v[..., None]), "matmul")
+        t_mm = kernel_ms(torch, lambda: BC.launch_matmul(af, cf_, n, n, n), f"matmul {n}")
+        t_mm_lib = yardstick_ms(torch, lambda: torch.matmul(a, c), "matmul")
+        log(f"  routing n={n} on {b}: matvec kernel {t_mv:.4f} ms, torch.matmul "
+            f"{t_mv_lib:.4f} ms; matmul kernel {t_mm:.4f} ms, torch.matmul {t_mm_lib:.4f} ms")
+        del a, c, v, af, cf_
+    return kernels
+
+
 def main():
     import torch
 
@@ -1389,10 +1832,12 @@ def main():
     phase_products_vs_plain(torch, rng)
     phase_batched_vs_plain(torch, rng)
     phase_factor_vs_plain(torch, rng)
+    phase_iterate_vs_plain(torch, rng)
     log("== phase 3: gradients")
     phase_gradients(torch, rng)
     phase_batched_gradients(torch, rng)
     phase_factor_gradients(torch, rng)
+    phase_iterate_gradients(torch, rng)
     log("== phase 4: main path at full size")
     kernels, batch = phase_main_path(torch, rng)
     phase_wide(torch, rng)
@@ -1405,6 +1850,8 @@ def main():
     log("== phase 7: the factor path at full size")
     kernels += phase_factor(torch, rng, mat4)
     del mat4
+    log("== phase 8: the iterations and the full-storage products at full size")
+    kernels += phase_iterate(torch, rng)
     torch.cuda.synchronize()
     log(f"total_seconds={time.perf_counter() - t0:.1f}")
     log(smi)

@@ -9,12 +9,14 @@ CPU tensors. This package imports neither JAX nor ``fastmath_tpu``.
 from . import kernels, layouts
 from .ops.batched import (batchchol, batchdet, batchinv, batchlmdiv, batchlogdet,
                           batchmatmul, batchmatvec, batchrmdiv)
-from .ops.sym import (sym_addmatvec, sym_addmatvec_, sym_det, sym_invert, sym_invert_,
-                      sym_matmul, sym_matvec, sym_outer, sym_solve, sym_solve_,
-                      sym_solve_chain, sym_submatvec, sym_submatvec_)
+from .ops.sym import (full_to_sym, sym_addmatvec, sym_addmatvec_, sym_det, sym_diag,
+                      sym_invert, sym_invert_, sym_matmul, sym_matvec, sym_matvec_chain,
+                      sym_maxeig, sym_outer, sym_solve, sym_solve_, sym_solve_chain,
+                      sym_submatvec, sym_submatvec_, sym_to_full)
 
-__all__ = ["sym_solve", "sym_solve_", "sym_solve_chain", "sym_matvec",
-           "sym_addmatvec", "sym_addmatvec_", "sym_submatvec", "sym_submatvec_",
-           "sym_outer", "sym_matmul", "sym_det", "sym_invert", "sym_invert_", "batchinv",
-           "batchmatvec", "batchmatmul", "batchlmdiv", "batchrmdiv", "batchdet",
-           "batchlogdet", "batchchol", "layouts", "kernels"]
+__all__ = ["sym_to_full", "full_to_sym", "sym_diag", "sym_solve", "sym_solve_",
+           "sym_solve_chain", "sym_matvec", "sym_addmatvec", "sym_addmatvec_", "sym_submatvec",
+           "sym_submatvec_", "sym_outer", "sym_matmul", "sym_matvec_chain", "sym_maxeig",
+           "sym_det", "sym_invert", "sym_invert_", "batchinv", "batchmatvec", "batchmatmul",
+           "batchlmdiv", "batchrmdiv", "batchdet", "batchlogdet", "batchchol", "layouts",
+           "kernels"]

@@ -1,13 +1,17 @@
 """CUDA full-storage batched solve, inverse, determinant and
-log-determinant, and the batched Cholesky factor, with their plain
-PyTorch versions and autograd.
+log-determinant, the batched Cholesky factor, and the batched
+matrix-vector and matrix-matrix products, with their plain PyTorch
+versions and autograd.
 
 ``solve_full_cf`` replaces the Pallas ``_solve_full_kernel``, ``inv_cf``
 ``_inv_kernel``, ``det_cf`` and ``logdet_cf`` the two modes of
-``_det_kernel`` and ``chol_cf`` ``_chol_kernel``
-(``fastmath_tpu/kernels/batched_pallas.py``). The kernels live in
-``csrc/batched.cu``; one thread owns one problem, and the source's
-header gives the tiers and what bounds them.
+``_det_kernel``, ``chol_cf`` ``_chol_kernel``, ``matvec_full_cf``
+``_matvec_full_kernel`` and ``matmul_cf`` ``_matmul_kernel``
+(``fastmath_tpu/kernels/batched_pallas.py``). The first five kernels live
+in ``csrc/batched.cu``, where one thread owns one problem; the two
+products in ``csrc/batched_products.cu``, where one thread owns a problem
+(matvec) or one output entry (matmul). Each source's header gives the
+tiers and what bounds them.
 
 A matrix is full n x n storage, row-major in n*n channels (entry (i, j)
 is channel ``i * n + j``); right-hand sides and solutions are n x k,
@@ -18,8 +22,9 @@ kernel on a CUDA tensor and runs its plain version, which repeats the
 kernel's arithmetic in PyTorch, on a CPU tensor.
 ``solve_full_cf.launches``, ``inv_cf.launches``, ``det_cf.launches``,
 ``logdet_cf.launches`` (the one determinant kernel, counted by mode) and
-``chol_cf.launches`` count kernel launches, and nothing else. Operands
-are 2-D views, as :mod:`._launch` describes.
+``chol_cf.launches``, ``matvec_full_cf.launches`` and ``matmul_cf.launches``
+count kernel launches, and nothing else. Operands are 2-D views, as
+:mod:`._launch` describes.
 """
 from __future__ import annotations
 
@@ -35,12 +40,16 @@ from ..ops.sym import _cofactors, _det_expand, _entries
 from ._launch import (MAX_N, cf_flat, check, chol_rolled, chol_rows, diag_log_sum,
                       diag_product, empty, launch, operand, plu_factor, plu_sign,
                       plu_substitute, require_domain, rolled_factor, rolled_solve)
+from .sym_products import _mm_ordered
 
-__all__ = ["solve_full_cf", "inv_cf", "det_cf", "logdet_cf", "chol_cf", "solve_full_plain",
-           "inv_plain", "det_plain", "logdet_plain", "chol_plain", "SolveFullFunction",
-           "InvFunction", "DetFunction", "LogdetFunction", "CholFunction"]
+__all__ = ["solve_full_cf", "inv_cf", "det_cf", "logdet_cf", "chol_cf", "matvec_full_cf",
+           "matmul_cf", "solve_full_plain", "inv_plain", "det_plain", "logdet_plain",
+           "chol_plain", "matvec_full_plain", "matmul_plain", "SolveFullFunction",
+           "InvFunction", "DetFunction", "LogdetFunction", "CholFunction",
+           "MatvecFullFunction", "MatmulFunction"]
 
 _LIB = "batched"
+_PRODUCTS_LIB = "batched_products"
 #: n up to this runs the unrolled tiers in registers; above, the rolled
 #: tier over a per-thread local array
 _PLU_UNROLL_N = 8
@@ -63,11 +72,10 @@ def _order(channels: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _grid(mat, n, trans):
-    """(B, n, n) view of the row-major ``mat`` (B, n*n), or of its
-    transpose."""
-    A = mat.reshape(-1, n, n)
-    return A.transpose(1, 2) if trans else A
+def _grid(x, rows, cols, trans=False):
+    """(B, rows, cols) view of ``x``: row-major rows x cols, or the
+    transpose of a row-major cols x rows if ``trans``."""
+    return x.reshape(-1, cols, rows).transpose(1, 2) if trans else x.reshape(-1, rows, cols)
 
 
 def solve_full_plain(mat, rhs, k, trans=False):
@@ -76,7 +84,7 @@ def solve_full_plain(mat, rhs, k, trans=False):
     PLU (multipliers by the reciprocal pivot, back-substitution times
     1/U_ii) for n <= 8, rolled PLU (multipliers by division) above."""
     n = _order(mat.shape[1])
-    A = _grid(mat, n, trans)
+    A = _grid(mat, n, n, trans)
     R = rhs.reshape(-1, n, k)
     if n <= _PLU_UNROLL_N:
         X = plu_substitute(*plu_factor(A), R)
@@ -168,11 +176,33 @@ def chol_plain(mat):
                        + [L[j][i] for i in range(n) for j in range(i + 1, n)], dim=1)
 
 
+def matvec_full_plain(mat, vec, trans=False):
+    """Plain version of the matvec kernel: ``mat`` (B, n*n), ``vec``
+    (B, n) -> ``A v`` (B, n), or ``Aᵀ v`` if ``trans``; each row summed
+    left to right from the first term."""
+    n = vec.shape[1]
+    A = _grid(mat, n, n, trans)
+    y = A[:, :, 0] * vec[:, 0, None]
+    for j in range(1, n):
+        y = y + A[:, :, j] * vec[:, j, None]
+    return y
+
+
+def matmul_plain(a, b, m, k, n, trans_a=False, trans_b=False):
+    """Plain version of the product kernel: ``a`` (B, m*k) and ``b``
+    (B, k*n) row-major (stored transposed where ``trans_a`` /
+    ``trans_b``) -> ``A B`` (B, m*n), each entry summed over k in order
+    from the first term."""
+    C = _mm_ordered(_grid(a, m, k, trans_a), _grid(b, k, n, trans_b))
+    return C.reshape(-1, m * n)
+
+
 # ---------------------------------------------------------------------------
 # kernel launches
 # ---------------------------------------------------------------------------
 
 _lib = None
+_products_lib = None
 
 
 def _library():
@@ -195,6 +225,48 @@ def _library():
         lib.fm_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _products_library():
+    global _products_lib
+    if _products_lib is None:
+        from . import _build
+
+        lib = _build.load(_PRODUCTS_LIB)
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        strided = [p, ll, ll]  # pointer, batch stride, channel stride
+        lib.fm_matvec_full.argtypes = [i, i, ll, *strided, i, *strided, *strided, p]
+        lib.fm_matmul.argtypes = [i, i, i, i, ll, *strided, i, *strided, i, *strided, p]
+        for fn in (lib.fm_matvec_full, lib.fm_matmul):
+            fn.restype = i
+        lib.fm_error_string.argtypes = [i]
+        lib.fm_error_string.restype = ctypes.c_char_p
+        _products_lib = lib
+    return _products_lib
+
+
+def launch_matvec_full(mat, vec, trans=False, cf_out=False):
+    """Launch the matvec kernel on CUDA tensors ``mat`` (B, n*n), ``vec``
+    (B, n); reads A transposed if ``trans``. Returns (B, n), a transposed
+    view of (n, B) if ``cf_out``."""
+    n = vec.shape[-1]
+    nb = check(mat, n, ("mat", mat, n * n), ("vec", vec, n))
+    out = empty(vec, nb, n, cf_out)
+    launch(_products_library(), matvec_full_cf, "fm_matvec_full", mat, n, nb, *operand(mat),
+           int(trans), *operand(vec), *operand(out))
+    return out
+
+
+def launch_matmul(a, b, m, k, n, trans_a=False, trans_b=False, cf_out=False):
+    """Launch the product kernel on CUDA tensors ``a`` (B, m*k) and ``b``
+    (B, k*n), each read transposed (stored k x m, n x k) if its flag is
+    set. Returns ``A B`` (B, m*n), a transposed view of (m*n, B) if
+    ``cf_out``."""
+    nb = check(a, max(m, k, n), ("a", a, m * k), ("b", b, k * n))
+    out = empty(a, nb, m * n, cf_out)
+    launch(_products_library(), matmul_cf, "fm_matmul", a, m, k, n, nb, *operand(a),
+           int(trans_a), *operand(b), int(trans_b), *operand(out))
+    return out
 
 
 def launch_solve_full(mat, rhs, k, trans=False, cf_out=False):
@@ -377,9 +449,72 @@ class CholFunction(torch.autograd.Function):
         return dm, None, None
 
 
+class MatvecFullFunction(torch.autograd.Function):
+    """Differentiable ``A v`` (``Aᵀ v`` if ``trans``) of 2-D operands:
+    ``apply(mat, vec, trans, kernel, cf_out)``."""
+
+    @staticmethod
+    def forward(ctx, mat, vec, trans, kernel, cf_out):
+        if kernel:
+            y = launch_matvec_full(mat, vec, trans, cf_out)
+        else:
+            y = matvec_full_plain(mat, vec, trans)
+        ctx.save_for_backward(mat, vec)
+        ctx.opts = (trans, kernel)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        # y = A v: dA = g vᵀ, dv = Aᵀ g, the same kernel reading A
+        # transposed (for y = Aᵀ v: dA = v gᵀ, dv = A g)
+        mat, vec = ctx.saved_tensors
+        trans, kernel = ctx.opts
+        g = g.contiguous()
+        dv = MatvecFullFunction.apply(mat, g, not trans, kernel, False)
+        rows, cols = (vec, g) if trans else (g, vec)
+        return (rows[:, :, None] * cols[:, None, :]).reshape(mat.shape[0], -1), dv, None, \
+            None, None
+
+
+class MatmulFunction(torch.autograd.Function):
+    """Differentiable ``op(A) op(B)`` of 2-D operands, ``op`` the
+    transpose where ``trans_a`` / ``trans_b`` is set: ``apply(a, b, m, k,
+    n, trans_a, trans_b, kernel, cf_out)``, op(A) m x k, op(B) k x n."""
+
+    @staticmethod
+    def forward(ctx, a, b, m, k, n, trans_a, trans_b, kernel, cf_out):
+        if kernel:
+            y = launch_matmul(a, b, m, k, n, trans_a, trans_b, cf_out)
+        else:
+            y = matmul_plain(a, b, m, k, n, trans_a, trans_b)
+        ctx.save_for_backward(a, b)
+        ctx.opts = (m, k, n, trans_a, trans_b, kernel)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        # C = P Q, P = op(A), Q = op(B): dP = G Qᵀ, dQ = Pᵀ G, two more
+        # launches of the same kernel reading their operands transposed
+        # through strides; a transposed operand takes the transpose of its
+        # cotangent (dA = dPᵀ = Q Gᵀ, dB = dQᵀ = Gᵀ P)
+        a, b = ctx.saved_tensors
+        m, k, n, ta, tb, kernel = ctx.opts
+        g = g.contiguous()
+        mm = MatmulFunction.apply
+        if ta:
+            da = mm(b, g, k, n, m, tb, True, kernel, False)
+        else:
+            da = mm(g, b, m, n, k, False, not tb, kernel, False)
+        if tb:
+            db = mm(g, a, n, m, k, True, ta, kernel, False)
+        else:
+            db = mm(a, g, k, m, n, not ta, False, kernel, False)
+        return da, db, None, None, None, None, None, None, None
+
+
 # ---------------------------------------------------------------------------
 # channel-first wrappers (the counterparts of batched_pallas.solve_full_cf,
-# inv_cf, det_cf, logdet_cf and chol_cf)
+# inv_cf, det_cf, logdet_cf, chol_cf, matvec_full_cf and matmul_cf)
 # ---------------------------------------------------------------------------
 
 
@@ -460,5 +595,40 @@ def chol_cf(mat: torch.Tensor) -> torch.Tensor:
     return downcast(y.t().reshape(nn, *batch), half)
 
 
-for _fn in (solve_full_cf, inv_cf, det_cf, logdet_cf, chol_cf):
+def matvec_full_cf(mat: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
+    """Channel-first batched full matvec ``(n*n, ...) @ (n, ...) -> (n,
+    ...)``, row-major channels, batch dims broadcast, n <= 32. Launches
+    the CUDA kernel on CUDA tensors, and runs the plain version on CPU
+    tensors."""
+    mat, vec, half = upcast_half(mat, vec)
+    n = vec.shape[0]
+    if mat.shape[0] != n * n:
+        raise ValueError(f"matvec_full_cf expects mat ({n * n}, ...) for vec ({n}, ...); "
+                         f"got {mat.shape[0]}")
+    require_domain("matvec_full_cf", n, mat.dtype, what="n")
+    batch = torch.broadcast_shapes(mat.shape[1:], vec.shape[1:])
+    m2, v2 = cf_flat(mat, n * n, batch).t(), cf_flat(vec, n, batch).t()
+    y = MatvecFullFunction.apply(m2, v2, False, m2.is_cuda, True)
+    return downcast(y.t().reshape(n, *batch), half)
+
+
+def matmul_cf(a: torch.Tensor, b: torch.Tensor, m: int, n: int) -> torch.Tensor:
+    """Channel-first batched matmul ``(m*k, ...) @ (k*n, ...) -> (m*n,
+    ...)``, row-major channels, batch dims broadcast, every dim <= 32; k
+    is inferred from ``a``'s channel count. Launches the CUDA kernel on
+    CUDA tensors, and runs the plain version on CPU tensors."""
+    a, b, half = upcast_half(a, b)
+    if m <= 0 or n <= 0 or a.shape[0] % m:
+        raise ValueError(f"matmul_cf expects a ({m}*k, ...); got {a.shape[0]} channels")
+    k = a.shape[0] // m
+    if b.shape[0] != k * n:
+        raise ValueError(f"matmul_cf expects b ({k}*{n}, ...); got {b.shape[0]} channels")
+    require_domain("matmul_cf", max(m, k, n), a.dtype, what="every dim")
+    batch = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
+    a2, b2 = cf_flat(a, m * k, batch).t(), cf_flat(b, k * n, batch).t()
+    y = MatmulFunction.apply(a2, b2, int(m), int(k), int(n), False, False, a2.is_cuda, True)
+    return downcast(y.t().reshape(m * n, *batch), half)
+
+
+for _fn in (solve_full_cf, inv_cf, det_cf, logdet_cf, chol_cf, matvec_full_cf, matmul_cf):
     _fn.launches = 0

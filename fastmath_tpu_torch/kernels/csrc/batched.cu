@@ -67,14 +67,6 @@
 
 namespace fm {
 
-// Matrix operand: entry (i, j) of problem b at p[b * sb + i * rs + j * cs]
-// (rs = n * sc and cs = sc, or swapped to read the transpose).
-template <typename T>
-struct MatView {
-  const T* p;
-  long long sb, rs, cs;
-};
-
 template <typename T, int N>
 __device__ __forceinline__ void load_full(const T* __restrict__ m, const MatView<T>& a,
                                           T (&A)[N][N]) {
@@ -302,13 +294,6 @@ chol_rolled(long long nb, int n, View<const T> mat, View<T> out) {
 // ---------------------------------------------------------------------------
 
 template <typename T>
-MatView<T> mat_view(const void* p, long long sb, long long sc, int n, int trans) {
-  const long long row = n * sc;
-  return trans ? MatView<T>{static_cast<const T*>(p), sb, sc, row}
-               : MatView<T>{static_cast<const T*>(p), sb, row, sc};
-}
-
-template <typename T>
 cudaError_t launch_solve_full(int n, int k, long long nb, MatView<T> mat, View<const T> rhs,
                               View<T> out, cudaStream_t s) {
   if (k < 1) return cudaErrorInvalidValue;
@@ -386,11 +371,11 @@ extern "C" int fm_solve_full(int dtype, int n, int k, long long nb,
   if (nb <= 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return fm::launch_solve_full<float>(n, k, nb, fm::mat_view<float>(mat, msb, msc, n, trans),
+    return fm::launch_solve_full<float>(n, k, nb, fm::mat_view<float>(mat, msb, msc, n, n, trans),
                                         fm::cview<float>(rhs, rsb, rsc),
                                         fm::view<float>(out, osb, osc), s);
   if (dtype == 1)
-    return fm::launch_solve_full<double>(n, k, nb, fm::mat_view<double>(mat, msb, msc, n, trans),
+    return fm::launch_solve_full<double>(n, k, nb, fm::mat_view<double>(mat, msb, msc, n, n, trans),
                                          fm::cview<double>(rhs, rsb, rsc),
                                          fm::view<double>(out, osb, osc), s);
   return cudaErrorInvalidValue;
@@ -402,10 +387,10 @@ extern "C" int fm_inv(int dtype, int n, long long nb,
   if (nb <= 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return fm::launch_inv<float>(n, nb, fm::mat_view<float>(mat, msb, msc, n, 0),
+    return fm::launch_inv<float>(n, nb, fm::mat_view<float>(mat, msb, msc, n, n, 0),
                                  fm::view<float>(out, osb, osc), s);
   if (dtype == 1)
-    return fm::launch_inv<double>(n, nb, fm::mat_view<double>(mat, msb, msc, n, 0),
+    return fm::launch_inv<double>(n, nb, fm::mat_view<double>(mat, msb, msc, n, n, 0),
                                   fm::view<double>(out, osb, osc), s);
   return cudaErrorInvalidValue;
 }
@@ -417,13 +402,13 @@ extern "C" int fm_det(int dtype, int n, long long nb,
   if (nb <= 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    const auto m = fm::mat_view<float>(mat, msb, msc, n, 0);
+    const auto m = fm::mat_view<float>(mat, msb, msc, n, n, 0);
     const auto o = fm::view<float>(out, osb, osc);
     return log_abs ? fm::launch_det<float, true>(n, nb, m, o, s)
                : fm::launch_det<float, false>(n, nb, m, o, s);
   }
   if (dtype == 1) {
-    const auto m = fm::mat_view<double>(mat, msb, msc, n, 0);
+    const auto m = fm::mat_view<double>(mat, msb, msc, n, n, 0);
     const auto o = fm::view<double>(out, osb, osc);
     return log_abs ? fm::launch_det<double, true>(n, nb, m, o, s)
                : fm::launch_det<double, false>(n, nb, m, o, s);

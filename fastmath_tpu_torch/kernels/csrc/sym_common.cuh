@@ -1,5 +1,6 @@
 // Code shared by the kernels (sym_solve.cu, sym_products.cu,
-// sym_factor.cu, batched.cu): strided operands and launch helpers, the
+// sym_factor.cu, sym_iterate.cu, batched.cu, batched_products.cu):
+// strided operands (compact rows and full matrices) and launch helpers, the
 // compact index map, entry loads, residuals, and the partial-pivoting LU
 // in two forms (unrolled in registers for N <= 8, rolled over a
 // per-thread local array for 9 <= N <= 32).
@@ -37,6 +38,22 @@ View<T> view(void* p, long long sb, long long sc) {
 template <typename T>
 View<const T> cview(const void* p, long long sb, long long sc) {
   return View<const T>{static_cast<const T*>(p), sb, sc};
+}
+
+// Matrix operand: entry (i, j) of problem b at p[b * sb + i * rs + j * cs].
+template <typename T>
+struct MatView {
+  const T* p;
+  long long sb, rs, cs;
+};
+
+// A rows x cols operand stored row-major in rows * cols channels (channel
+// stride sc), or, if trans, the transpose of a cols x rows one: the same
+// storage read through swapped strides, with no transposed copy.
+template <typename T>
+MatView<T> mat_view(const void* p, long long sb, long long sc, int rows, int cols, int trans) {
+  return trans ? MatView<T>{static_cast<const T*>(p), sb, sc, rows * sc}
+               : MatView<T>{static_cast<const T*>(p), sb, cols * sc, sc};
 }
 
 // One thread per problem: blocks of kThreads over nb problems.

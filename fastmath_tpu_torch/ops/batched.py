@@ -28,9 +28,13 @@ reference itself calls ``jnp.linalg``.
   n); raises outside its domain or on CPU tensors.
 * ``"torch"``: the plain tiers, on whatever device holds the tensors.
 
-``batchmatvec`` and ``batchmatmul`` call no kernel (the reference never
-routes them to one by default). bf16/f16 compute in float32 and round
-once on output.
+The products route by their own rules (the reference never routes them
+to its kernels by default; these follow the card's measurements, see
+``ROADMAP.md``): ``batchmatvec`` (no ``backend`` argument) launches the
+matvec kernel on a CUDA tensor for square n <= ``MATVEC_KERNEL_MAX``, and
+``batchmatmul`` for every dim <= ``MATMUL_KERNEL_MAX`` under ``"auto"``,
+at every dim <= 32 under ``"cuda"``. bf16/f16 compute in float32 and
+round once on output.
 """
 from __future__ import annotations
 
@@ -38,8 +42,8 @@ import torch
 
 from ..core.dtypes import downcast, upcast_half
 from ..kernels._launch import MAX_N, chol_rows, diag_log_sum, diag_product
-from ..layouts.sym import full_to_sym, sym_to_full
-from .sym import _check_backend, _det_expand, _use_kernel
+from ..layouts.sym import _upper_rows_cols, sym_to_full
+from .sym import _check_backend, _det_expand, _flat, _use_kernel
 
 __all__ = ["batchdet", "batchinv", "batchmatvec", "batchmatmul", "batchlmdiv", "batchrmdiv",
            "batchchol", "batchlogdet"]
@@ -52,6 +56,15 @@ LU_UNROLL_MAX = 16
 #: kernel's RHS-column cap is 8 up to it and 16 above
 _PLU_UNROLL_N = 8
 _MATMUL_UNROLL_MAX = 6
+#: ``batchmatvec`` on a CUDA tensor launches the matvec kernel for square
+#: n up to this: on an H100 it ran faster than torch.matmul at n = 4..12
+#: and slower from n = 16 (chip_smoke.py's routing sweep, ROADMAP.md)
+MATVEC_KERNEL_MAX = 12
+#: ``batchmatmul(backend="auto")`` on a CUDA tensor launches the product
+#: kernel where every dim is up to this: it replaces the unrolled tier's
+#: m n (2k - 1) elementwise launches to 6, and on an H100 ran faster than
+#: torch.matmul on square n = 4..12 and slower from n = 16 (the same sweep)
+MATMUL_KERNEL_MAX = 12
 
 _NO_REGULARIZE = ("backend='cuda' does not implement regularize=True (the "
                   "reference's det smoothing is a closed-form-path knob)")
@@ -173,7 +186,8 @@ def _chol_torch(a):
     n = a.shape[-1]
     if n > LU_UNROLL_MAX:
         # NaN where the matrix is not SPD, as jnp.linalg.cholesky (and no
-        # wait for the device, as torch.linalg.cholesky's check would)
+        # wait for the device, as torch.linalg.cholesky's check would);
+        # ``a`` is symmetrized by the caller
         L, info = torch.linalg.cholesky_ex(a)
         return torch.where(info[..., None, None] == 0, L, torch.nan)
     L = chol_rows(_full_entries(a, n), n)
@@ -248,27 +262,42 @@ def batchlogdet(a: torch.Tensor, backend: str = "auto") -> torch.Tensor:
     return downcast(_logdet_torch(a), half)
 
 
+def _lower_to_sym(a):
+    """Compact storage of the lower triangle of ``a`` (..., n, n): the
+    diagonal, then slot (i, j), i < j, holding ``a[j][i]``; the upper
+    triangle is not read."""
+    rows, cols = _upper_rows_cols(a.shape[-1], a.device)
+    return torch.cat([a.diagonal(dim1=-2, dim2=-1), a[..., cols, rows]], dim=-1)
+
+
 def batchchol(a: torch.Tensor, backend: str = "auto") -> torch.Tensor:
     """Batched lower Cholesky factor of SPD matrices ``(..., n, n) ->
     (..., n, n)``, zeros above the diagonal.
 
-    The kernel serves 1 <= n <= 32 on compact storage: the matrix is
-    packed (its two triangles averaged), factored (Cholesky-Banachiewicz
-    for n <= 8, the outer-product form with ``rsqrt`` above) and the
-    factor unpacked. On the card ``"auto"`` takes it at every n <= 32
-    (the reference's TPU routing takes it only for n > 16). The plain
-    tiers read the lower triangle: unrolled Cholesky-Banachiewicz for
-    n <= 16, ``torch.linalg.cholesky_ex`` beyond. No pivoting: a matrix
-    that is not SPD gives NaN, with no error raised. Differentiable. See
-    the module docstring for ``backend``.
+    Which entries are read follows the reference on every backend: for
+    n <= 16 the lower triangle only (the upper triangle is never read,
+    and its gradient is exactly 0); above, the average ``(A + Aᵀ)/2`` of
+    the two triangles. On symmetric input the two rules agree.
+
+    The kernel serves 1 <= n <= 32 on compact storage: the lower
+    triangle is packed, factored (Cholesky-Banachiewicz for n <= 8, the
+    outer-product form with ``rsqrt`` above) and the factor unpacked. On
+    the card ``"auto"`` takes it at every n <= 32 (the reference's TPU
+    routing takes it only for n > 16). The plain tiers: unrolled
+    Cholesky-Banachiewicz for n <= 16, ``torch.linalg.cholesky_ex``
+    beyond. No pivoting: a matrix that is not SPD gives NaN, with no
+    error raised. Differentiable. See the module docstring for
+    ``backend``.
     """
     a, half = upcast_half(a)
     n = _square(a, "batchchol")
     domain, kernel = _kernel_route(backend, n, a, "batchchol")
+    if n > LU_UNROLL_MAX:
+        a = (a + a.mT) / 2
     if domain and backend != "torch":
         from ..kernels.batched_cuda import CholFunction
 
-        comp = full_to_sym(a).reshape(-1, n * (n + 1) // 2).contiguous()
+        comp = _lower_to_sym(a).reshape(-1, n * (n + 1) // 2).contiguous()
         lc = CholFunction.apply(comp, kernel, False)
         return downcast(torch.tril(sym_to_full(lc, n)).reshape(a.shape), half)
     return downcast(_chol_torch(a), half)
@@ -300,13 +329,23 @@ def batchinv(a: torch.Tensor, regularize: bool = False, backend: str = "auto") -
 
 
 def batchmatvec(mat: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
-    """Batched matrix-vector product ``(..., m, n) @ (..., n) -> (..., m)``:
-    unrolled (each row summed left to right) for m, n <= 4,
-    ``torch.matmul`` beyond. Handles non-square."""
+    """Batched matrix-vector product ``(..., m, n) @ (..., n) -> (..., m)``;
+    batch dims broadcast. On a CUDA tensor, square n <=
+    ``MATVEC_KERNEL_MAX`` launches the matvec kernel. Otherwise: unrolled
+    (each row summed left to right) for m, n <= 4, ``torch.matmul``
+    beyond. Handles non-square. Differentiable."""
     mat, vec, half = upcast_half(mat, vec)
     m, n = mat.shape[-2:]
     if vec.shape[-1] != n:
         raise ValueError(f"matvec shape mismatch: {tuple(mat.shape)} @ {tuple(vec.shape)}")
+    _, kernel = _use_kernel("auto", m == n, n, mat, "batchmatvec", "", "")
+    if kernel and n <= MATVEC_KERNEL_MAX:
+        from ..kernels.batched_cuda import MatvecFullFunction
+
+        batch = torch.broadcast_shapes(mat.shape[:-2], vec.shape[:-1])
+        y = MatvecFullFunction.apply(_flat(mat.flatten(-2), batch, n * n), _flat(vec, batch, n),
+                                     False, True, False)
+        return downcast(y.reshape(*batch, n), half)
     if m <= _CLOSED_FORM_MAX and n <= _CLOSED_FORM_MAX:
         rows = []
         for i in range(m):
@@ -318,16 +357,36 @@ def batchmatvec(mat: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
     return downcast(torch.matmul(mat, vec[..., None])[..., 0], half)
 
 
-def batchmatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched matmul ``(..., m, k) @ (..., k, n) -> (..., m, n)``:
-    unrolled (each entry summed over k in order) when every dim is
-    <= 6, ``torch.matmul`` beyond."""
+def batchmatmul(a: torch.Tensor, b: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """Batched matmul ``(..., m, k) @ (..., k, n) -> (..., m, n)``; batch
+    dims broadcast.
+
+    The kernel (one thread per output entry, each summed over k in order
+    from the first term) serves real float32/float64 with every dim
+    <= 32. ``"auto"`` launches it on a CUDA tensor where every dim is
+    <= ``MATMUL_KERNEL_MAX``; ``"cuda"`` at every dim <= 32 (and raises
+    outside that domain or on CPU tensors). Otherwise, and under
+    ``"torch"``: unrolled (each entry summed over k in order) when every
+    dim is <= 6, ``torch.matmul`` beyond. Differentiable.
+    """
     a, b, half = upcast_half(a, b)
     m, k = a.shape[-2:]
     k2, n = b.shape[-2:]
     if k != k2:
         raise ValueError(f"matmul shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
-    if max(m, k, n) > _MATMUL_UNROLL_MAX:
+    dims = max(m, k, n)
+    _, kernel = _use_kernel(backend, True, dims, a, "batchmatmul",
+                            f"real-float batches with every dim <= {MAX_N}",
+                            f"dims {(m, k, n)}")
+    if kernel and (backend == "cuda" or dims <= MATMUL_KERNEL_MAX):
+        from ..kernels.batched_cuda import MatmulFunction
+
+        batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+        y = MatmulFunction.apply(_flat(a.flatten(-2), batch, m * k),
+                                 _flat(b.flatten(-2), batch, k * n), m, k, n, False, False, True,
+                                 False)
+        return downcast(y.reshape(*batch, m, n), half)
+    if dims > _MATMUL_UNROLL_MAX:
         return downcast(torch.matmul(a, b), half)
     rows = []
     for i in range(m):
@@ -401,7 +460,8 @@ def _chol_solve_unrolled(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """SPD solve through :func:`batchchol` and unrolled triangular
     substitutions (real dtypes, n <= 8); ``b`` is ``(..., n)`` or
     ``(..., n, k)``, batch dims broadcast. ``sugar.lmdiv``/``inv`` take it
-    for ``method="chol"``."""
+    for ``method="chol"``. It reads ``a`` as :func:`batchchol` does: the
+    lower triangle only."""
     n = a.shape[-1]
     vector = b.dim() == a.dim() - 1
     if vector:

@@ -1,7 +1,11 @@
 """Compact symmetric ops: the solves (``sym_solve``, the fused
 ``sym_solve_chain``), the products (``sym_matvec``,
 ``sym_addmatvec`` / ``sym_submatvec``, ``sym_outer``, ``sym_matmul``),
-the determinant ``sym_det`` and the inverse ``sym_invert``.
+the iterations (the fused ``sym_matvec_chain`` and the power iteration
+``sym_maxeig``), the determinant ``sym_det`` and the inverse
+``sym_invert``; and the layout conversions ``sym_to_full``,
+``full_to_sym`` and ``sym_diag``, re-exported from
+:mod:`fastmath_tpu_torch.layouts`.
 
 PyTorch counterpart of ``fastmath_tpu/ops/sym.py``. Layout
 auto-detection (scaled identity / diagonal / compact / full) and
@@ -9,7 +13,8 @@ right-aligned broadcasting of the batch dims are the same. Input in a
 kernel's domain goes through one ``torch.autograd.Function`` per kernel
 (:mod:`fastmath_tpu_torch.kernels.sym_cuda`,
 :mod:`fastmath_tpu_torch.kernels.sym_products`,
-:mod:`fastmath_tpu_torch.kernels.sym_factor`) that launches the
+:mod:`fastmath_tpu_torch.kernels.sym_factor`,
+:mod:`fastmath_tpu_torch.kernels.sym_iterate`) that launches the
 hand-written CUDA kernel on a CUDA tensor and runs the kernel's plain
 PyTorch version otherwise. Everything else is plain PyTorch on the
 tensors' device: diagonal and scaled-identity storage elementwise, full
@@ -33,25 +38,29 @@ compact kernel for those and solves them on that XLA path.
   with N <= 32; for ``sym_outer`` N <= 32, for ``sym_matmul``
   max(K, D) <= 32. (The reference never auto-routes the matvec family,
   outer or small JᵀHJ to its TPU kernels, because fused XLA beats them
-  there; eager PyTorch has no such fusion.)
-* ``"cuda"``: forces the kernel; raises outside its domain or on CPU
-  tensors.
+  there; eager PyTorch has no such fusion.) The iterations keep the
+  reference's gates: ``sym_matvec_chain`` takes its kernel for
+  ``iters > 1`` only, ``sym_maxeig`` for ``iters >= 1``.
+* ``"cuda"``: forces the kernel (at any ``iters``); raises outside its
+  domain or on CPU tensors.
 * ``"torch"``: the plain version, on whatever device holds the tensors.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..core.dtypes import downcast, upcast_half
-from ..layouts.sym import (MatrixLayout, classify_layout, compact_size,
-                           full_to_sym, sym_dim, sym_to_full, tri_index)
+from ..layouts.sym import (MatrixLayout, classify_layout, compact_size, full_to_sym,
+                           sym_diag, sym_dim, sym_to_full, tri_index)
 
-__all__ = ["sym_solve", "sym_solve_", "sym_solve_chain", "sym_matvec",
-           "sym_addmatvec", "sym_addmatvec_", "sym_submatvec", "sym_submatvec_",
-           "sym_outer", "sym_matmul", "sym_det", "sym_invert", "sym_invert_", "BACKENDS"]
+__all__ = ["sym_to_full", "full_to_sym", "sym_diag", "sym_solve", "sym_solve_",
+           "sym_solve_chain", "sym_matvec", "sym_addmatvec", "sym_addmatvec_",
+           "sym_submatvec", "sym_submatvec_", "sym_outer", "sym_matmul", "sym_matvec_chain",
+           "sym_maxeig", "sym_det", "sym_invert", "sym_invert_", "BACKENDS"]
 
 BACKENDS = ("auto", "cuda", "torch")
 
@@ -454,6 +463,149 @@ def sym_matmul(j: torch.Tensor, h: torch.Tensor, backend: str = "auto") -> torch
     j2 = j.expand(*batch, k, d).contiguous().reshape(-1, k * d)
     y = JhjFunction.apply(j2, _flat(h, batch, h.shape[-1]), d, kernel, False)
     return downcast(y.reshape(*batch, compact_size(d)), half)
+
+
+# ---------------------------------------------------------------------------
+# iterations
+# ---------------------------------------------------------------------------
+
+
+def sym_matvec_chain(
+    mat: torch.Tensor,
+    vec: torch.Tensor,
+    iters: int = 1,
+    add: Optional[torch.Tensor] = None,
+    backend: str = "auto",
+) -> torch.Tensor:
+    r"""Iterated matvec: ``x_0 = vec``, ``x_{t+1} = A x_t`` (``+ add``
+    when given); returns ``x_iters``.
+
+    Richardson iteration: with ``add`` given and the spectral radius of
+    A below 1 it sums the Neumann series for ``(I - A) \ add``; above 1
+    the recurrence diverges (the caller scales). Storage and
+    broadcasting as in :func:`sym_matvec`. ``iters == 0`` returns
+    ``vec`` (after ``backend`` is validated). From two iterations on,
+    compact input with N <= 32 runs the fused chain kernel (the matrix
+    read once and held on chip for every step; ``backend="cuda"`` at any
+    ``iters``); other storage, N > 32 and single steps run ``iters``
+    :func:`sym_matvec` calls plus ``add``. Differentiable; the chain's
+    backward recomputes the iterates from ``ceil(sqrt(iters))``
+    checkpoints.
+
+    Error growth (float32): the normwise error against the exact
+    recurrence is a random walk of per-step roundings, median
+    ~``sqrt(iters) * eps`` and p99 ~``iters * eps``, as in the reference
+    (``fastmath_tpu/ops/sym.py``, ``sym_matvec_chain``).
+    """
+    if iters < 0:
+        raise ValueError("iters must be >= 0")
+    arrays = (mat, vec) if add is None else (mat, vec, add)
+    *arrays, half = upcast_half(*arrays)
+    mat, vec = arrays[0], arrays[1]
+    add_ = arrays[2] if add is not None else None
+    n = vec.shape[-1]
+    layout = classify_layout(mat.shape[-1], n)
+    domain, kernel = _compact_route(backend, layout, n, mat, "sym_matvec_chain")
+    if iters == 0:
+        return downcast(vec, half)
+    batch = torch.broadcast_shapes(*(a.shape[:-1] for a in arrays))
+    if domain and (iters > 1 or backend == "cuda"):
+        from ..kernels.sym_iterate import MatvecChainFunction
+
+        x = MatvecChainFunction.apply(
+            _flat(mat, batch, mat.shape[-1]), _flat(vec, batch, n),
+            None if add_ is None else _flat(add_, batch, n), int(iters), kernel, False)
+        return downcast(x.reshape(*batch, n), half)
+    x = vec.expand(*batch, n)
+    for _ in range(iters):
+        x = sym_matvec(mat, x, backend=backend)
+        if add_ is not None:
+            x = x + add_
+    return downcast(x, half)
+
+
+@functools.lru_cache(maxsize=256)
+def _default_start(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The default start vector of :func:`sym_maxeig`: N standard normal
+    values from a ``torch.Generator`` seeded 0, made once per device (a
+    copy from host memory would wait for the device at every call)."""
+    gen = torch.Generator().manual_seed(0)
+    return torch.randn(n, generator=gen, dtype=torch.float64).to(device=device, dtype=dtype)
+
+
+def sym_maxeig(
+    mat: torch.Tensor,
+    iters: int = 32,
+    v0: Optional[torch.Tensor] = None,
+    return_vector: bool = False,
+    backend: str = "auto",
+    renorm_every: int = 8,
+):
+    r"""Dominant (largest-``|λ|``) eigenvalue of every matrix in a batch by
+    fused power iteration; optionally also the unit eigenvector.
+
+    ``mat`` is compact-symmetric storage ``(..., N(N+1)/2)`` (N derived
+    from the flat size); returns the Rayleigh-quotient estimate ``mu``
+    ``(...)``, and ``(mu, v)`` with ``v`` ``(..., N)`` when
+    ``return_vector``. Convergence is ``O((λ2/λ1)^iters)``: ``iters`` is
+    a fixed count, not a tolerance. Differentiable (the backward replays
+    the iteration renormalized at every step; at convergence the
+    eigenvalue's pullback is ``v vᵀ``).
+
+    ``v0``: start vectors ``(..., N)``. The default is one fixed
+    direction for every problem: N standard normal values drawn from a
+    ``torch.Generator`` seeded 0 (not the reference's ``random.key(0)``
+    draw, which PyTorch cannot reproduce; results agree, start vectors
+    do not). A ``v0`` orthogonal to the dominant eigenvector converges to
+    a subdominant pair. ``v0`` also pins N, and with it the storage:
+    without it an ambiguous flat size (3, 6, 10, ... are diagonal and
+    compact sizes) reads as compact; pass ``v0`` for diagonal,
+    scaled-identity or full storage.
+
+    Compact N <= 32 runs the fused kernel (for ``iters >= 1``;
+    ``backend="cuda"`` also at ``iters = 0``): A is pre-scaled once by
+    its Gershgorin bound and renormalized every ``renorm_every`` (1..16)
+    matvecs, identical to per-step normalization in exact arithmetic.
+    Other storage, N > 32 and ``iters = 0`` under ``"auto"`` or
+    ``"torch"`` run the reference's other path: A pre-scaled by its
+    largest |entry|, renormalized at every step (``renorm_every`` is
+    validated and not used). bf16/f16 compute in float32 and round once
+    on output. See the module docstring for ``backend``.
+    """
+    from ..kernels.sym_iterate import RENORM_MAX, MaxeigFunction, inv_scale, unit
+
+    if iters < 0:
+        raise ValueError("iters must be >= 0")
+    if not 1 <= int(renorm_every) <= RENORM_MAX:
+        raise ValueError(f"renorm_every must be in 1..{RENORM_MAX}")
+    mat, half = upcast_half(mat)
+    nn = mat.shape[-1]
+    if v0 is not None:
+        v0 = torch.as_tensor(v0).to(device=mat.device, dtype=mat.dtype)
+        n = v0.shape[-1]
+        layout = classify_layout(nn, n)  # raises if inconsistent
+    else:
+        n = sym_dim(nn)
+        layout = classify_layout(nn, n)
+        v0 = _default_start(n, mat.dtype, mat.device)
+    domain, kernel = _compact_route(backend, layout, n, mat, "sym_maxeig")
+    batch = torch.broadcast_shapes(mat.shape[:-1], v0.shape[:-1])
+    if domain and (iters > 0 or backend == "cuda"):
+        out = MaxeigFunction.apply(_flat(mat, batch, nn), _flat(v0, batch, n), int(iters),
+                                   int(renorm_every), kernel, False)
+        mu, v = out[:, 0].reshape(batch), out[:, 1:].reshape(*batch, n)
+    else:
+        # pre-scale by the largest |entry| (any storage), so one matvec's
+        # norm^2 stays in range; the scale's own derivative terms cancel
+        # (the dominant eigenvalue is 1-homogeneous), hence detached
+        g = mat.abs().amax(dim=-1).detach()
+        ms = mat * inv_scale(g)[..., None]
+        v = unit(v0.expand(*batch, n))
+        for _ in range(iters):
+            v = unit(sym_matvec(ms, v, backend="torch"))
+        mu = (v * sym_matvec(ms, v, backend="torch")).sum(dim=-1) * g
+    mu, v = downcast(mu, half), downcast(v, half)
+    return (mu, v) if return_vector else mu
 
 
 # ---------------------------------------------------------------------------

@@ -265,6 +265,12 @@ def test_port_imports_no_jax():
         "T.batchinv(a); T.batchrmdiv(a, a); T.batchlmdiv(a, v, backend='torch')\n"
         "T.sym_solve(a.reshape(1, 4), v); T.sym_solve(torch.eye(33).reshape(1, -1), torch.ones(1, 33))\n"
         "T.kernels.solve_full_cf(a.reshape(1, 4).t(), v.t()); T.kernels.inv_cf(a.reshape(1, 4).t())\n"
+        "T.sym_matvec_chain(0.1 * m, v, 3, add=v); mu, e = T.sym_maxeig(m, return_vector=True)\n"
+        "assert torch.allclose(T.sym_to_full(T.full_to_sym(a @ a.mT)), a @ a.mT)\n"
+        "T.sym_diag(m); T.batchmatmul(a, a, backend='torch'); T.batchmatvec(a, v)\n"
+        "T.kernels.matmul_cf(a.reshape(1, 4).t(), a.reshape(1, 4).t(), 2, 2)\n"
+        "T.kernels.matvec_full_cf(a.reshape(1, 4).t(), v.t())\n"
+        "T.kernels.sym_matvec_chain_cf(m.t(), v.t(), 2); T.kernels.sym_maxeig_cf(m.t(), v.t())\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'fastmath_tpu')]\n"
         "assert not bad, bad\n"
