@@ -20,12 +20,15 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    the matvec chain (iters 0, 1, 7, with and without ``add``), the power
    iteration (iters 0, 5, 32; ``renorm_every`` 1, 8, 16), the full matvec
    (also reading A transposed) and the product (every pair of transposed
-   reads, m, k, n up to 32);
+   reads, m, k, n up to 32); the Jacobi eigendecomposition (both tiers,
+   n = 4..32, values and vectors: sorted eigenvalues, U diag(w) Uᵀ and
+   UᵀU - I) and a mixed-scale block against float64 numpy;
 3. gradients of ``sym_solve``, ``sym_solve_chain``, the products,
    ``batchinv``, ``batchlmdiv``, ``batchdet``, ``batchlogdet``,
    ``batchchol``, ``sym_det``, ``sym_invert``, ``sym_matvec_chain``,
-   ``sym_maxeig``, ``batchmatvec`` and ``batchmatmul`` through the kernels
-   against the same through the plain versions (the matvec kernel, the
+   ``sym_maxeig``, ``batchmatvec``, ``batchmatmul`` and ``eig_sym`` through
+   the kernels against the same through the plain versions (``eig_sym``
+   also against central differences on gapped spectra) (the matvec kernel, the
    solve kernel reading A transposed, the inverse kernel, the compact
    inverse kernel, the chain kernel, the full matvec kernel reading A
    transposed and the product kernel must launch in the backward);
@@ -70,7 +73,16 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    device times, each kernel alone against its bound, its plain version
    and ``torch.matmul``; then the routing sweeps: the matvec and the
    product kernels against ``torch.matmul`` from n = 4 to 32;
-9. one JSON line of per-kernel times beside their bounds.
+9. ``eig_sym`` and ``sugar.lmdiv`` at the bench suite's shapes (float32,
+   a a^T + n I): ``eig_sym`` 2x2 and 3x3 (closed forms) and 4x4 on 1M,
+   12x12 and 16x16 on 200k, 24x24 and 32x32 on 100k, with vectors and the
+   default polish at 4x4 and 16x16, ``lmdiv`` lu and chol 16x16 on 500k;
+   launch counts, sorted eigenvalues against float64 ``eigvalsh`` (over
+   ||A||_2), the reconstruction and U^T U - I, lmdiv normwise, all gated
+   at 1e-5; per-call, host and device times, each eig kernel alone
+   against its bound, its plain version and ``eigvalsh`` / ``eigh`` (on
+   the whole batch, in the chunks cuSOLVER takes);
+10. one JSON line of per-kernel times beside their bounds.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository beside it, the script exits non-zero
@@ -1812,6 +1824,308 @@ def phase_iterate(torch, rng):
         del a, c, v, af, cf_
     return kernels
 
+# --- eig (phases 2, 3 and 9) --------------------------------------------------
+
+# kernel vs plain version and against float64, over ||A||_F of each problem:
+# float32 Jacobi sits at 4e-6..9e-6 ||A||_F at n = 32 before any polish (in
+# the kernel and the plain version alike); float64 at round-off
+TOL_EIG = {"float32": 2e-5, "float64": 1e-12}
+EIG_CHECK_NS = (4, 5, 8, 9, 16, 17, 32)
+
+
+def eig_errors(torch, w, u, sym, w_ref):
+    """(sorted w against sorted w_ref, U diag(w) U^T against sym, U^T U
+    against I), each the worst over problems, the first two over
+    ||sym||_F; u may be None (then 0 for the last two)."""
+    sym = sym.double()
+    fro = torch.linalg.matrix_norm(sym)
+    dw = (w.double().sort(-1).values - w_ref.double().sort(-1).values).abs().amax(-1)
+    out = [(dw / fro).max().item(), 0.0, 0.0]
+    if u is not None:
+        u = u.double().reshape(sym.shape)
+        rec = torch.einsum("bij,bj,bkj->bik", u, w.double(), u)
+        out[1] = (torch.linalg.matrix_norm(rec - sym) / fro).max().item()
+        eye = torch.eye(sym.shape[-1], dtype=sym.dtype, device=sym.device)
+        out[2] = (u.mT @ u - eye).abs().max().item()
+    return out
+
+
+def phase_eig_vs_plain(torch, rng):
+    """Both tiers of the eig kernel against their plain versions (n = 4..32,
+    float32 and float64, values and values with vectors, reading the upper
+    triangle of non-symmetric input on a ragged batch): sorted eigenvalues,
+    the reconstruction and U^T U - I; then a mixed-scale block (a 1e6-scale
+    problem beside an O(1) one) against float64 numpy."""
+    from fastmath_tpu_torch.kernels import eig as KE
+    from fastmath_tpu_torch.layouts.sym import sym_from_triangle
+
+    worst = {}
+    for dt_name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        tol = TOL_EIG[dt_name]
+        for n in EIG_CHECK_NS:
+            a = torch.tensor(rng.standard_normal((B_CHECK, n, n)), dtype=dtype, device=DEV)
+            sym = sym_from_triangle(a, True)
+            sweeps = KE.sweeps_for(n)
+            wp, up = KE.eig_plain(sym, True, sweeps)
+            for compute_u in (False, True):
+                wk, uk = KE.launch_eig_full(a, True, compute_u, sweeps)
+                torch.cuda.synchronize()
+                errs = eig_errors(torch, wk, uk, sym, wp)
+                if compute_u:  # the plain version's own reconstruction, for scale
+                    errs.append(eig_errors(torch, wp, up, sym, wk)[1])
+                key = f"eig {dt_name} n={n} u={compute_u}"
+                worst[key] = errs
+                if not max(errs) <= tol:
+                    fail(f"{key}: kernel vs plain / reconstruction / orthogonality {errs}")
+        for n in (4, 12):
+            x = rng.standard_normal((n, n))
+            full = np.stack([1e6 * np.diag(np.arange(1.0, n + 1)), x + x.T])
+            w, _ = KE.launch_eig_full(torch.tensor(full, dtype=dtype, device=DEV), True, False,
+                                      KE.sweeps_for(n))
+            want = np.sort(np.linalg.eigvalsh(full), -1)
+            got = np.sort(w.double().cpu().numpy(), -1)
+            err = (np.abs(got - want).max(-1) / np.abs(want).max(-1)).max()
+            key = f"eig mixed-scale block {dt_name} n={n}"
+            worst[key] = [err]
+            if not err <= TOL_ORACLE[dt_name]:
+                fail(f"{key}: relative error against float64 eigvalsh {err:.3e}")
+    for dt_name in ("float32", "float64"):
+        ks = [k for k in worst if k.startswith(f"eig {dt_name}")]
+        cols = list(zip(*(worst[k][:3] for k in ks)))
+        log(f"  eig {dt_name}: {len(ks)} cases over ||A||_F, worst kernel-vs-plain eigenvalues "
+            f"{max(cols[0]):.3e}, reconstruction {max(cols[1]):.3e} (plain version "
+            f"{max(worst[k][3] for k in ks if len(worst[k]) > 3):.3e}), |U^T U - I| "
+            f"{max(cols[2]):.3e} (tol {TOL_EIG[dt_name]:.0e})")
+        m = max(worst[k][0] for k in worst if k.startswith(f"eig mixed-scale block {dt_name}"))
+        log(f"  eig mixed-scale block {dt_name}: small problem vs f64 eigvalsh {m:.3e} "
+            f"(tol {TOL_ORACLE[dt_name]:.0e})")
+
+
+def gapped_sym(rng, b, n):
+    """Symmetric Q diag(w) Q^T, w = 0, 1, .., n-1 plus up to 0.5: every gap
+    at least 0.5, so the eigenvectors and their gradient are well defined."""
+    q, _ = np.linalg.qr(rng.standard_normal((b, n, n)))
+    w = np.arange(n) + rng.uniform(0, 0.5, (b, n))
+    s = np.einsum("bik,bk,bjk->bij", q, w, q)
+    return 0.5 * (s + s.transpose(0, 2, 1))
+
+
+def phase_eig_gradients(torch, rng):
+    """eig_sym's backward (the Giles formula) through the kernel against the
+    same through the plain version (float64, on the card, both triangles),
+    and the kernel route against central differences on gapped spectra.
+    The loss, sum cos(w_i) (u_i^T g)^2 + sum w_i^3, does not depend on the
+    eigenpairs' order or signs."""
+    import fastmath_tpu_torch as T
+    from fastmath_tpu_torch.kernels import eig as KE
+
+    for n in (3, 6, 12, 20):
+        a0 = torch.tensor(gapped_sym(rng, 257, n), device=DEV)
+        g = torch.tensor(rng.standard_normal(n), device=DEV)
+        d = torch.tensor(rng.standard_normal((257, n, n)), device=DEV)
+
+        def loss(a, backend, upper=True):
+            w, u = T.eig_sym(a, compute_u=True, upper=upper, backend=backend)
+            return (torch.cos(w) * ((u * g[:, None]).sum(-2)) ** 2).sum() + (w ** 3).sum()
+
+        worst = 0.0
+        counter = KE.eig_unrolled if n <= KE.UNROLL_MAX else KE.eig_rolled
+        before = counter.launches
+        for upper in (True, False):
+            grads = []
+            for backend in ("cuda", "torch"):
+                a = a0.clone().requires_grad_()
+                grads.append(torch.autograd.grad(loss(a, backend, upper), a)[0])
+            worst = max(worst, ((grads[0] - grads[1]).norm() / grads[1].norm()).item())
+        launched = counter.launches - before
+        a = a0.clone().requires_grad_()
+        grad = torch.autograd.grad(loss(a, "cuda"), a)[0]
+        h = 1e-5
+        with torch.no_grad():
+            fd = (loss(a0 + h * d, "cuda") - loss(a0 - h * d, "cuda")) / (2 * h)
+        ad = (grad * d).sum()
+        fd_err = abs((fd - ad) / ad).item()
+        torch.cuda.synchronize()
+        log(f"  eig grads n={n}: kernel vs plain relative {worst:.3e} (tol 1e-10); kernel route "
+            f"vs central differences {fd_err:.3e} (tol 1e-6); kernel launches {launched}")
+        if not (worst <= 1e-10 and fd_err <= 1e-6):
+            fail(f"eig gradient n={n}: kernel vs plain {worst:.3e}, vs differences {fd_err:.3e}")
+        if launched < 2:
+            fail(f"eig gradient n={n}: the kernel route did not launch the kernel")
+
+
+# bench/suite.py's eig_sym shapes (float32, spd_batch): 2x2 and 3x3 on 1M
+# (:667-690, the closed forms), 4x4 on 1M (:620-661), 12x12 and 16x16 on
+# 200k (:567-575, :693-701), 24x24 and 32x32 on 100k (:553-563,
+# :577-585); with vectors and the default polish, 4x4 on 1M and 16x16 on
+# 200k; sugar.lmdiv, lu and chol, 16x16 with a vector on 500k (:497-505)
+EIG_SHAPES = ((2, 1_000_000), (3, 1_000_000), (4, 1_000_000), (12, 200_000),
+              (16, 200_000), (24, 100_000), (32, 100_000))
+EIG_VEC_SHAPES = ((4, 1_000_000), (16, 200_000))
+LMDIV_SHAPE = (16, 500_000)
+# the shape of each kernel's row in the kernels line
+EIG_ROWS = {"eig_unrolled": (4, 1_000_000), "eig_rolled": (16, 200_000)}
+
+
+def ops_eig(n, compute_u, sweeps):
+    """Arithmetic operations one problem's run needs: the |A|_F^2 sum over
+    one triangle (n(n+1)) and, before each of sweeps + 1 tests, the
+    off-diagonal one over one triangle (n(n-1)); per rotation (n(n-1)/2 a
+    sweep) 16 for (c, s), then 3 a rotated entry (two products and a sum)
+    of the symmetric matrix: 2(n-2) off the pair and the 2x2 block's six,
+    and 2n of V with vectors. The rolled kernel rotates both triangles;
+    the bound does not charge that. ``sweeps`` may be a mean over
+    problems."""
+    per_rot = 16 + 3 * (2 * (n - 2) + 6) + (6 * n if compute_u else 0)
+    return n * (n + 1) + (sweeps + 1) * n * (n - 1) + sweeps * n * (n - 1) // 2 * per_rot
+
+
+def library_eig_ms(torch, a, vec):
+    """The yardstick of the eig kernels, torch.linalg.eigh (vectors) or
+    eigvalsh on the same batch (timed only, never called by the port).
+    cuSOLVER's batched solver refuses some large batches
+    (CUSOLVER_STATUS_INVALID_VALUE at 1M 4x4): then the batch goes through
+    back to back in the largest leading chunks it takes (halving until it
+    does), and the time is that of all the chunks."""
+    fn = torch.linalg.eigh if vec else torch.linalg.eigvalsh
+    name = "eigh" if vec else "eigvalsh"
+    b = a.shape[0]
+    chunk = b
+    while True:
+        try:
+            fn(a[:chunk])
+            torch.cuda.synchronize()
+            break
+        except torch.linalg.LinAlgError as e:
+            log(f"  {name} refuses {chunk} x {a.shape[-1]}x{a.shape[-1]}: {str(e)[:60]}")
+            if chunk == 1:
+                raise
+            chunk //= 2
+    if chunk < b:
+        log(f"  {name} on the whole batch in chunks of {chunk}")
+    return yardstick_ms(torch, lambda: [fn(a[i:i + chunk]) for i in range(0, b, chunk)], name)
+
+
+def phase_eig(torch, rng):
+    """eig_sym and sugar.lmdiv at the bench suite's shapes through the public
+    ops (check_finite=False, as the suite calls them): launch counts; sorted
+    eigenvalues against float64 eigvalsh (per problem over ||A||_2), with
+    vectors the reconstruction (over ||A||_F) and U^T U - I, lmdiv
+    normwise, all gated at 1e-5; per-call, host and device times; each
+    kernel alone against its bound (bytes, or the operations of the sweeps
+    this run's problems needed, counted by the plain version on a sample),
+    its plain version and eigvalsh / eigh."""
+    import fastmath_tpu_torch as T
+    from fastmath_tpu_torch.kernels import batched_cuda as BC
+    from fastmath_tpu_torch.kernels import eig as KE
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(int(rng.integers(2 ** 31)))
+    mats = {n: spd_on_card(torch, gen, b, n) for n, b in EIG_SHAPES}
+    n_l, b_l = LMDIV_SHAPE
+    a_l = spd_on_card(torch, gen, b_l, n_l)
+    v_l = torch.randn(b_l, n_l, generator=gen, device=DEV)
+    torch.cuda.synchronize()
+
+    counters = {"eig_unrolled": KE.eig_unrolled, "eig_rolled": KE.eig_rolled,
+                "solve_full": BC.solve_full_cf, "chol": BC.chol_cf}
+    for c in counters.values():
+        c.launches = 0
+    outs = {("values", n): (T.eig_sym(a, check_finite=False), None) for n, a in mats.items()}
+    for n, _ in EIG_VEC_SHAPES:
+        outs["vectors", n] = T.eig_sym(mats[n], compute_u=True, check_finite=False)
+    x_lu = T.lmdiv(a_l, v_l)
+    x_chol = T.lmdiv(a_l, v_l, method="chol")
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    log("  eig/sugar-path launches: " + " ".join(f"{k}={v}" for k, v in launches.items()))
+    if not all(v >= 1 for v in launches.values()):
+        fail(f"the eig/sugar path did not go through every kernel: {launches}")
+
+    for (what, n), (w, u) in outs.items():
+        b = mats[n].shape[0]
+        if tuple(w.shape) != (b, n) or not torch.isfinite(w).all() or (
+                u is not None and (tuple(u.shape) != (b, n, n) or not torch.isfinite(u).all())):
+            fail(f"eig_sym {n}x{n} {what}: output has the wrong shape or is not finite")
+        ns = 4096 if n < 24 else (2048 if n == 24 else 1024)
+        a64 = mats[n][:ns].double()
+        w64 = torch.linalg.eigvalsh(a64)
+        ev = ((w[:ns].double().sort(-1).values - w64).abs().amax(-1)
+              / w64.abs().amax(-1)).cpu().numpy()
+        msg = (f"  eig_sym {n}x{n} {what} on {b}: eigenvalues vs f64 eigvalsh over ||A||_2 "
+               f"({ns} problems) median={np.median(ev):.3e} max={ev.max():.3e}")
+        gated = [ev.max()]
+        if u is not None:
+            _, rec, orth = eig_errors(torch, w[:ns], u[:ns], a64, w64)
+            msg += f"; reconstruction over ||A||_F max={rec:.3e}; |U^T U - I| max={orth:.3e}"
+            gated += [rec, orth]
+        log(msg + f" (gate {GATE:.0e})")
+        if not max(gated) <= GATE:
+            fail(f"eig_sym {n}x{n} {what}: {gated} > {GATE}")
+    ns = 4096
+    want = oracle_solve(a_l[:ns].double().cpu().numpy(), v_l[:ns].double().cpu().numpy())
+    for meth, x in (("lu", x_lu), ("chol", x_chol)):
+        e = normwise(x[:ns].cpu().numpy(), want)
+        log(f"  lmdiv {meth} {n_l}x{n_l} on {b_l} normwise vs f64 ({ns} problems): "
+            f"median={np.median(e):.3e} max={e.max():.3e} (gate {GATE:.0e})")
+        if not e.max() <= GATE:
+            fail(f"lmdiv {meth}: normwise error {e.max():.3e} > {GATE}")
+    del outs, x_lu, x_chol
+
+    # the public ops per call (host launch included), the host's share and
+    # the card's time
+    public = {f"eig_sym {n}x{n} on {a.shape[0]}": (lambda a=a: T.eig_sym(a, check_finite=False))
+              for n, a in mats.items()}
+    for n, b in EIG_VEC_SHAPES:
+        public[f"eig_sym {n}x{n} on {b} with vectors (polish)"] = (
+            lambda a=mats[n]: T.eig_sym(a, compute_u=True, check_finite=False))
+    public[f"lmdiv lu {n_l}x{n_l} on {b_l}"] = lambda: T.lmdiv(a_l, v_l)
+    public[f"lmdiv chol {n_l}x{n_l} on {b_l}"] = lambda: T.lmdiv(a_l, v_l, method="chol")
+    for name, fn in public.items():
+        dev = device_ms(torch, fn, reps=5)
+        log(f"  public {name}: {call_ms(torch, fn, reps=5):.4f} ms per call, "
+            f"host {host_ms(torch, fn, reps=5):.4f} ms, device "
+            + ("not measured (waits for the card)" if dev is None else f"{dev:.4f} ms"))
+
+    # each kernel alone at every kernel shape against its bound, its plain
+    # version and the library call (timed only, never called by the port)
+    kernels = []
+    shapes = [(n, b, False) for n, b in EIG_SHAPES if n >= 4] + \
+        [(n, b, True) for n, b in EIG_VEC_SHAPES]
+    for n, b, vec in shapes:
+        a = mats[n]
+        sweeps = KE.sweeps_for(n)
+        kern = lambda a=a, s=sweeps, v=vec: KE.launch_eig_full(a, True, v, s)  # noqa: E731
+        plain = lambda a=a, s=sweeps, v=vec: KE.eig_plain(a, v, s)  # noqa: E731
+        (wk, uk), (wp, up) = kern(), plain()
+        errs = eig_errors(torch, wk, uk, a, wp)
+        err = (wk.sort(-1).values - wp.sort(-1).values).abs().max().item()
+        del wk, uk, wp, up
+        if not max(errs) <= TOL_EIG["float32"]:
+            fail(f"eig {n}x{n} on {b}: kernel disagrees with its plain version: {errs}")
+        ms = kernel_ms(torch, kern, f"eig {n}x{n}", reps=5)
+        plain_ms = call_ms(torch, plain, reps=2, warmup=1)
+        lib_ms = library_eig_ms(torch, a, vec)
+        mean_sweeps = KE.sweep_counts(a[:4096], sweeps).double().mean().item()
+        b_ms, b_by = bound(b * (n * n + n + (n * n if vec else 0)) * 4,
+                           b * ops_eig(n, vec, mean_sweeps), "float32")
+        name = "eig_unrolled" if n <= KE.UNROLL_MAX else "eig_rolled"
+        log(f"  {name} {n}x{n} on {b}{' with vectors' if vec else ''} kernel: {ms:.4f} ms "
+            f"(bound {b_ms:.4f} ms by {b_by} at {mean_sweeps:.2f} sweeps, "
+            f"{b_ms / ms * 100:.1f}% of it), plain {plain_ms:.4f} ms, "
+            f"{'eigh' if vec else 'eigvalsh'} {lib_ms:.4f} ms, kernel vs plain max abs {err:.3e}, "
+            f"errors {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e}")
+        if (n, b) == EIG_ROWS[name] and not vec:
+            line = 82 if name == "eig_unrolled" else 205
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "fastmath_tpu_torch/kernels/csrc/eig.cu",
+                "replaces": f"fastmath_tpu/kernels/eig_pallas.py:{line}",
+                "launches": launches[name], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+    return kernels
+
 
 def main():
     import torch
@@ -1833,11 +2147,13 @@ def main():
     phase_batched_vs_plain(torch, rng)
     phase_factor_vs_plain(torch, rng)
     phase_iterate_vs_plain(torch, rng)
+    phase_eig_vs_plain(torch, rng)
     log("== phase 3: gradients")
     phase_gradients(torch, rng)
     phase_batched_gradients(torch, rng)
     phase_factor_gradients(torch, rng)
     phase_iterate_gradients(torch, rng)
+    phase_eig_gradients(torch, rng)
     log("== phase 4: main path at full size")
     kernels, batch = phase_main_path(torch, rng)
     phase_wide(torch, rng)
@@ -1852,6 +2168,8 @@ def main():
     del mat4
     log("== phase 8: the iterations and the full-storage products at full size")
     kernels += phase_iterate(torch, rng)
+    log("== phase 9: eig_sym and sugar.lmdiv at full size")
+    kernels += phase_eig(torch, rng)
     torch.cuda.synchronize()
     log(f"total_seconds={time.perf_counter() - t0:.1f}")
     log(smi)

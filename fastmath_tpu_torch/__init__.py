@@ -9,6 +9,10 @@ CPU tensors. This package imports neither JAX nor ``fastmath_tpu``.
 from . import kernels, layouts
 from .ops.batched import (batchchol, batchdet, batchinv, batchlmdiv, batchlogdet,
                           batchmatmul, batchmatvec, batchrmdiv)
+from .ops.qr import (eig_sym, givens, givens_apply, hessenberg, hessenberg_sym, householder,
+                     householder_apply, qr_hessenberg, rq_hessenberg)
+from .ops.sugar import (dot, inv, is_orthonormal, kron2, lmdiv, matvec, mdot, outer, rmdiv,
+                        round, solvevec, trace)
 from .ops.sym import (full_to_sym, sym_addmatvec, sym_addmatvec_, sym_det, sym_diag,
                       sym_invert, sym_invert_, sym_matmul, sym_matvec, sym_matvec_chain,
                       sym_maxeig, sym_outer, sym_solve, sym_solve_, sym_solve_chain,
@@ -18,5 +22,8 @@ __all__ = ["sym_to_full", "full_to_sym", "sym_diag", "sym_solve", "sym_solve_",
            "sym_solve_chain", "sym_matvec", "sym_addmatvec", "sym_addmatvec_", "sym_submatvec",
            "sym_submatvec_", "sym_outer", "sym_matmul", "sym_matvec_chain", "sym_maxeig",
            "sym_det", "sym_invert", "sym_invert_", "batchinv", "batchmatvec", "batchmatmul",
-           "batchlmdiv", "batchrmdiv", "batchdet", "batchlogdet", "batchchol", "layouts",
-           "kernels"]
+           "batchlmdiv", "batchrmdiv", "batchdet", "batchlogdet", "batchchol", "eig_sym",
+           "qr_hessenberg", "rq_hessenberg", "hessenberg", "hessenberg_sym", "householder",
+           "householder_apply", "givens", "givens_apply", "kron2", "lmdiv", "rmdiv", "inv",
+           "matvec", "solvevec", "outer", "trace", "dot", "mdot", "is_orthonormal", "round",
+           "layouts", "kernels"]

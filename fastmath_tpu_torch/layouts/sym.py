@@ -156,3 +156,21 @@ def set_sym_diag(mat: torch.Tensor, diag: torch.Tensor) -> torch.Tensor:
     out = mat.clone()
     out[..., :n] = diag
     return out
+
+
+def triangle_mask(n: int, upper: bool, device, offset: int = 0) -> torch.Tensor:
+    """Boolean (n, n) mask of the upper (j >= i + offset) or lower
+    (j <= i - offset) triangle, made on ``device`` (no host copy)."""
+    ones = torch.ones(n, n, dtype=torch.bool, device=device)
+    return torch.triu(ones, offset) if upper else torch.tril(ones, -offset)
+
+
+def sym_from_triangle(a: torch.Tensor, upper: bool = True) -> torch.Tensor:
+    """The symmetric (Hermitian) matrix ``t + t^H - diag(Re t)`` that the
+    upper (or lower) triangle t of ``a`` (..., n, n) names; the other
+    triangle of ``a`` is not read."""
+    tri = torch.where(triangle_mask(a.shape[-1], upper, a.device), a,
+                      torch.zeros((), dtype=a.dtype, device=a.device))
+    diag = tri.diagonal(dim1=-2, dim2=-1)
+    diag = (diag.real if a.is_complex() else diag).to(a.dtype)
+    return tri + torch.conj(tri).transpose(-1, -2) - torch.diag_embed(diag)
