@@ -22,16 +22,22 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    (also reading A transposed) and the product (every pair of transposed
    reads, m, k, n up to 32); the Jacobi eigendecomposition (both tiers,
    n = 4..32, values and vectors: sorted eigenvalues, U diag(w) Uᵀ and
-   UᵀU - I) and a mixed-scale block against float64 numpy;
+   UᵀU - I) and a mixed-scale block against float64 numpy; expm and logm
+   (both tiers of each, d = 1..32, float32 and float64, batch-major and
+   channel-first bit for bit, on the bench scale, on skew-symmetric input
+   of spectral radius 128 and on rotations by up to 0.9 pi, and against
+   float64 scipy; logm's NaN on exactly the on-cut problems of a batch);
 3. gradients of ``sym_solve``, ``sym_solve_chain``, the products,
    ``batchinv``, ``batchlmdiv``, ``batchdet``, ``batchlogdet``,
    ``batchchol``, ``sym_det``, ``sym_invert``, ``sym_matvec_chain``,
-   ``sym_maxeig``, ``batchmatvec``, ``batchmatmul`` and ``eig_sym`` through
+   ``sym_maxeig``, ``batchmatvec``, ``batchmatmul``, ``eig_sym``, ``expm``
+   and ``logm`` through
    the kernels against the same through the plain versions (``eig_sym``
    also against central differences on gapped spectra) (the matvec kernel, the
    solve kernel reading A transposed, the inverse kernel, the compact
    inverse kernel, the chain kernel, the full matvec kernel reading A
-   transposed and the product kernel must launch in the backward);
+   transposed, the product kernel and, while 2d <= 32, the expm and logm
+   kernels must launch in the backward);
 4. the solve's main path at full size: the public ``sym_solve`` on a 1M
    batch of 4x4 float32 compact SPD matrices made as ``bench.py`` makes
    them, and ``sym_solve_chain`` with k = 128 on the same batch; launch
@@ -82,7 +88,17 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    at 1e-5; per-call, host and device times, each eig kernel alone
    against its bound, its plain version and ``eigvalsh`` / ``eigh`` (on
    the whole batch, in the chunks cuSOLVER takes);
-10. one JSON line of per-kernel times beside their bounds.
+10. the Lie path at the bench suite's shapes (float32): ``expm`` and
+    ``logm`` 4x4 on 1M and their chains (``0.5 expm(0.5 x)``, k = 16;
+    ``expm(0.999 logm(e))``, k = 4), both at 8x8 to 32x32 on about 64 MB,
+    SPD ``logm`` at 5 to 32 on 15,625 through the symmetric eig route and
+    through the kernel, ``meanm`` G = 4096, K = 8, 4x4 (float64); launch
+    counts, normwise error against float64 scipy gated at 1e-5 (the 4x4
+    roundtrip at the reference's elementwise bound, meanm's fixed-point
+    residual at 1e-10), per-call, host and device times, the two SPD
+    routes per call, each kernel alone against its bound, its plain
+    version and, for expm, ``torch.linalg.matrix_exp``;
+11. one JSON line of per-kernel times beside their bounds.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository beside it, the script exits non-zero
@@ -2127,6 +2143,440 @@ def phase_eig(torch, rng):
     return kernels
 
 
+# --- lie (phases 2, 3 and 10) ---------------------------------------------------
+
+# kernel vs plain version, normwise per problem (the kernels contract
+# multiply-adds into FMAs): expm at ||X|| ~ 0.5; on skew-symmetric X of
+# spectral radius 128, whose ten squarings each double the relative
+# rounding (the plain version alone sits at 3e-5 from float64 there); logm,
+# whose 2^(k+1) scaling after k square roots amplifies the last rounding
+# (the plain version alone: 4e-6 from float64, 9e-6 on rotations by 0.9 pi)
+TOL_EXPM = {"float32": 1e-5, "float64": 1e-12}
+TOL_EXPM_DEEP = {"float32": 2e-4, "float64": 1e-11}
+TOL_LOGM = {"float32": 5e-5, "float64": 1e-11}
+# every d phase 10 runs, and each tier's edges
+LIE_CHECK_DS = (1, 2, 3, 4, 5, 8, 9, 16, 17, 24, 25, 28, 32)
+LIE_ORACLE = 64  # problems held against float64 scipy in phase 2
+
+
+def lie_normwise(torch, got, want):
+    """Per-problem ||got - want||_F / ||want||_F (log I = 0 exactly: 0/0
+    counts as 0), on the card."""
+    got, want = got.double().flatten(1), want.double().flatten(1)
+    return (got - want).norm(dim=1) / want.norm(dim=1).clamp_min(1e-300)
+
+
+def skew_batch(torch, gen, b, d, radius):
+    """Skew-symmetric (b, d, d) float64 on the card, spectral radius
+    ``radius``: expm is a rotation by angles up to it."""
+    r = torch.randn(b, d, d, generator=gen, device=DEV, dtype=torch.float64)
+    s = r - r.mT
+    rho = torch.linalg.matrix_norm(s, ord=2).clamp_min(1e-30)
+    return s * (radius / rho)[:, None, None]
+
+
+def scipy_map(fn, a):
+    """fn of each float64 matrix of ``a`` (a tensor) on the host."""
+    import scipy.linalg as sla
+
+    f = getattr(sla, fn)
+    mats = a.double().cpu().numpy()
+    if fn == "logm":
+        return np.stack([np.real(f(m)) for m in mats])
+    return np.stack([f(m) for m in mats])
+
+
+def phase_lie_vs_plain(torch, rng):
+    """Both tiers of the expm and logm kernels against their plain versions
+    (d = 1..32, float32 and float64, on a ragged batch, batch-major and
+    channel-first, which must agree bit for bit) and the first problems
+    against float64 scipy: expm at the bench scale 0.5/sqrt(d) and on
+    skew-symmetric X of spectral radius 128 (ten squarings); logm of expm of
+    the bench input and of rotations by up to 0.9 pi; then a batch with a
+    reflection and a rotation by pi among regular matrices: exactly those
+    come back NaN, every other problem bit for bit as without them."""
+    from fastmath_tpu_torch.kernels import expm as KE
+    from fastmath_tpu_torch.kernels import logm as KL
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(int(rng.integers(2 ** 31)))
+    worst = {}
+    for d in LIE_CHECK_DS:
+        x = torch.randn(B_CHECK, d, d, generator=gen, device=DEV, dtype=torch.float64) * (
+            0.5 / np.sqrt(d))
+        cases = {"expm bench": (x, TOL_EXPM), "expm skew128": (skew_batch(torch, gen, B_CHECK, d, 128.0),
+                                                                TOL_EXPM_DEEP)}
+        logm_in = {"logm bench": KE.expm_plain(x),
+                   "logm rot0.9pi": KE.expm_plain(skew_batch(torch, gen, B_CHECK, d, 0.9 * np.pi))}
+        oracle = {k: scipy_map("expm", v[:LIE_ORACLE]) for k, (v, _) in cases.items()}
+        oracle.update({k: scipy_map("logm", v[:LIE_ORACLE]) for k, v in logm_in.items()})
+        for dt_name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+            for key, (launch, plain, a, tol) in {
+                    **{k: (KE.launch_expm, KE.expm_plain, v, t[dt_name]) for k, (v, t) in cases.items()},
+                    **{k: (KL.launch_logm, KL.logm_plain, v, TOL_LOGM[dt_name])
+                       for k, v in logm_in.items()}}.items():
+                a = a.to(dtype)
+                got = launch(a)
+                cf = launch(a.reshape(B_CHECK, d * d).t().contiguous().t().reshape(B_CHECK, d, d),
+                            cf_out=True)
+                want = plain(a)
+                torch.cuda.synchronize()
+                e_plain = lie_normwise(torch, got, want).max().item()
+                e_oracle = lie_normwise(torch, got[:LIE_ORACLE],
+                                        torch.tensor(oracle[key], device=DEV)).max().item()
+                name = f"{key} {dt_name} d={d}"
+                worst[name] = (e_plain, e_oracle)
+                if not torch.equal(cf, got):
+                    fail(f"{name}: channel-first and batch-major results differ")
+                if not (torch.isfinite(got).all() and e_plain <= tol and e_oracle <= tol):
+                    fail(f"{name}: kernel vs plain {e_plain:.3e}, vs f64 scipy {e_oracle:.3e} "
+                         f"(tol {tol:.0e})")
+            if d >= 2:
+                good = logm_in["logm bench"][:200].to(dtype)
+                refl = torch.eye(d, dtype=dtype, device=DEV)
+                refl[0, 0] = -1.0
+                rot = torch.eye(d, dtype=dtype, device=DEV)
+                rot[:2, :2] = -torch.eye(2, dtype=dtype, device=DEV)
+                i, j = len(good) // 3, 2 * len(good) // 3
+                got = KL.launch_logm(torch.cat([good[:i], refl[None], good[i:j], rot[None],
+                                                good[j:]]))
+                alone = KL.launch_logm(good)
+                torch.cuda.synchronize()
+                bad = torch.isnan(got).any(-1).any(-1).nonzero()[:, 0].tolist()
+                keep = torch.ones(len(got), dtype=torch.bool, device=DEV)
+                keep[[i, j + 1]] = False
+                if bad != [i, j + 1] or not torch.isnan(got[[i, j + 1]]).all() or not torch.equal(
+                        got[keep], alone):
+                    fail(f"logm cut batch {dt_name} d={d}: NaN lanes {bad}, or a neighbour moved")
+    for dt_name in ("float32", "float64"):
+        for op in ("expm bench", "expm skew128", "logm bench", "logm rot0.9pi"):
+            ks = [k for k in worst if k.startswith(f"{op} {dt_name}")]
+            p = max(worst[k][0] for k in ks)
+            o = max(worst[k][1] for k in ks)
+            tol = (TOL_LOGM if op.startswith("logm") else
+                   TOL_EXPM_DEEP if "skew" in op else TOL_EXPM)[dt_name]
+            log(f"  {op} {dt_name}: {len(ks)} sizes, worst normwise kernel-vs-plain {p:.3e}, "
+                f"vs f64 scipy {o:.3e} (tol {tol:.0e}); cut batch: NaN on exactly the 2 on-cut "
+                f"problems, neighbours bit for bit")
+
+
+def phase_lie_gradients(torch, rng):
+    """expm's Mathias backward through the kernel route against the plain
+    route at d = 4 and 16 (the 2d x 2d block through the kernel, which must
+    launch in the backward) and 20 (the 40 x 40 block through the plain
+    version); logm's at d = 4 on the card against the same on the CPU (the
+    ISS core); both against central differences. Float64."""
+    import fastmath_tpu_torch as T
+    from fastmath_tpu_torch.kernels import expm as KE
+    from fastmath_tpu_torch.kernels import logm as KL
+
+    def fd_check(f, a0, g, e, h=1e-6):
+        a = a0.clone().requires_grad_()
+        grad = torch.autograd.grad((f(a) * g).sum(), a)[0]
+        with torch.no_grad():
+            fd = ((f(a0 + h * e) * g).sum() - (f(a0 - h * e) * g).sum()) / (2 * h)
+        return abs((fd - (grad * e).sum()) / fd).item()
+
+    for d in (4, 16, 20):
+        x0 = torch.tensor(rng.standard_normal((257, d, d)) * (0.5 / np.sqrt(d)), device=DEV)
+        g = torch.tensor(rng.standard_normal((257, d, d)), device=DEV)
+        e = torch.tensor(rng.standard_normal((257, d, d)), device=DEV)
+        counter = None
+        if 2 * d <= 32:
+            counter = KE.expm_unrolled if KE.tier(2 * d, torch.float64) == "expm_unrolled" \
+                else KE.expm_warp
+        before = counter.launches if counter else 0
+        grads = []
+        for backend in ("cuda", "torch"):
+            x = x0.clone().requires_grad_()
+            grads.append(torch.autograd.grad((T.expm(x, backend=backend) * g).sum(), x)[0])
+        launched = counter.launches - before if counter else 0
+        worst = lie_normwise(torch, grads[0][None], grads[1][None]).item()
+        fd = fd_check(lambda a: T.expm(a), x0, g, e)
+        torch.cuda.synchronize()
+        log(f"  expm grads d={d}: kernel vs plain relative {worst:.3e} (tol 1e-10); vs central "
+            f"differences {fd:.3e} (tol 1e-6); expm kernel launches in the backward {launched}")
+        if not (worst <= 1e-10 and fd <= 1e-6):
+            fail(f"expm gradient d={d}: kernel vs plain {worst:.3e}, vs differences {fd:.3e}")
+        if counter and launched < 1:
+            fail(f"expm gradient d={d}: the backward did not launch the kernel")
+    x0 = torch.tensor(rng.standard_normal((257, 4, 4)) * 0.25, device=DEV)
+    a0 = KE.expm_plain(x0)
+    g = torch.tensor(rng.standard_normal((257, 4, 4)), device=DEV)
+    e = torch.tensor(rng.standard_normal((257, 4, 4)), device=DEV)
+    counters = (KL.logm_unrolled, KL.logm_warp)
+    before = [c.launches for c in counters]
+    grads = []
+    for device in (DEV, "cpu"):
+        a = a0.to(device).clone().requires_grad_()
+        grads.append(torch.autograd.grad((T.logm(a) * g.to(device)).sum(), a)[0].cpu())
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    worst = lie_normwise(torch, grads[0][None], grads[1][None]).item()
+    fd = fd_check(lambda a: T.logm(a), a0, g, e)
+    torch.cuda.synchronize()
+    log(f"  logm grads d=4: card vs CPU relative {worst:.3e} (tol 1e-10); vs central differences "
+        f"{fd:.3e} (tol 1e-6); logm kernel launches (unrolled, warp) {launched}")
+    if not (worst <= 1e-10 and fd <= 1e-6) or sum(launched) < 2:
+        fail(f"logm gradient: card vs CPU {worst:.3e}, vs differences {fd:.3e}, launches {launched}")
+
+
+# bench/suite.py's Lie section (:799-985), float32: expm and logm 4x4 on 1M
+# (X = 0.5 randn), the sustained chains (0.5 expm(0.5 x), k = 16;
+# expm(0.999 logm(e)), k = 4), expm and logm at the larger d on a batch of
+# about 1M * 64 bytes (X = 0.5/sqrt(d) randn), SPD logm (a a^T / d + I,
+# spectrum O(1)) at 16, 28 and 32 on 15,625, meanm G = 4096, K = 8, 4x4,
+# max_iter 64 (here on float64 input, so the mean stays float64)
+LIE_MAIN = (4, 1_000_000)
+LIE_SHAPES = ((8, 250_000), (16, 62_500), (24, 27_777), (28, 20_408), (32, 15_625))
+LIE_SPD = ((5, 15_625), (8, 15_625), (12, 15_625), (16, 15_625), (28, 15_625), (32, 15_625))
+MEANM_SHAPE = (4096, 8, 4)
+# the shape of each kernel row of the kernels line
+LIE_ROWS = {"expm_unrolled": (4, 1_000_000), "expm_warp": (16, 62_500),
+            "logm_unrolled": (4, 1_000_000), "logm_warp": (16, 62_500),
+            "logm_warp_d32": (32, 15_625)}
+
+
+def ops_matmul(d):
+    """Operations of one d x d product: d^2 entries of d products and d - 1 sums."""
+    return d * d * (2 * d - 1)
+
+
+def ops_expm(d, squarings, order=9):
+    """Arithmetic operations one problem's expm needs: the 1-norm (2 d^2),
+    the 2^-s scale (d^2), R = I + Y/order (d^2 + d), order - 1 Horner steps
+    (a product, the 1/m scale, the diagonal), and ``squarings`` products
+    (may be a mean over problems)."""
+    return 4 * d * d + d + (order - 1) * (ops_matmul(d) + d * d + d) + squarings * ops_matmul(d)
+
+
+def ops_logm(d, iss, db, order=9):
+    """Arithmetic operations one problem's logm needs, an inverse counted
+    as 2 d^3: per Denman-Beavers step |M - I|^2 (3 d^2), M^-1, T = M + I,
+    four products and two scales; per square root the final test, (Y +
+    I)^-1 and D (Y + I)^-1; then the series: (A + I)^-1, Z, Z^2, (order -
+    1)/2 Horner steps and L, and the 2^(k+1) scale. ``iss`` and ``db`` may
+    be means over problems."""
+    inv = 2 * d ** 3
+    per_db = 3 * d * d + inv + d + 4 * ops_matmul(d) + 2 * d * d
+    per_iss = 6 * d * d + d + inv + ops_matmul(d)
+    series = 3 * d * d + d + inv + ((order - 1) // 2 + 3) * ops_matmul(d) + d * d
+    return db * per_db + iss * per_iss + series
+
+
+def lie_elementwise(got, want):
+    """The bench suite's rel_err: elementwise |got - want| / |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want) / (np.abs(want) + 1e-30)
+
+
+def phase_lie(torch, rng):
+    """The Lie path at the bench suite's shapes through the public ops:
+    launch counts; accuracy against float64 scipy (normwise, gated at
+    1e-5; the 4x4 logm roundtrip elementwise at the reference's bound,
+    median 1e-6 and p99 3e-5; meanm's fixed-point residual in float64 at
+    1e-10); per-call, host and device times; the SPD logm through the
+    symmetric eig route and through the kernel; each kernel alone against
+    its bound (the squarings and iterations this run's problems need,
+    counted by the plain versions on 4,096 of them), its plain version and,
+    for expm, torch.linalg.matrix_exp."""
+    import fastmath_tpu_torch as T
+    from fastmath_tpu_torch.kernels import eig as KEIG
+    from fastmath_tpu_torch.kernels import expm as KE
+    from fastmath_tpu_torch.kernels import logm as KL
+    from fastmath_tpu_torch.ops import lie as L
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(int(rng.integers(2 ** 31)))
+    d0, b0 = LIE_MAIN
+    X = torch.randn(b0, d0, d0, generator=gen, device=DEV) * 0.5
+    Xs = {d: torch.randn(b, d, d, generator=gen, device=DEV) * (0.5 / np.sqrt(d))
+          for d, b in LIE_SHAPES}
+    spds = {}
+    for d, b in LIE_SPD:
+        a = torch.randn(b, d, d, generator=gen, device=DEV)
+        spds[d] = (a @ a.mT + d * torch.eye(d, device=DEV)) / d
+    g, k, dm = MEANM_SHAPE
+    Am = KE.expm_plain(0.25 * torch.randn(g, k, dm, dm, generator=gen, device=DEV,
+                                          dtype=torch.float64))
+    torch.cuda.synchronize()
+
+    counters = {"expm_unrolled": KE.expm_unrolled, "expm_warp": KE.expm_warp,
+                "logm_unrolled": KL.logm_unrolled, "logm_warp": KL.logm_warp,
+                "eig_rolled": KEIG.eig_rolled}
+    for c in counters.values():
+        c.launches = 0
+    E = T.expm(X)
+    chain = X
+    for _ in range(16):
+        chain = 0.5 * T.expm(0.5 * chain)
+    Lg = T.logm(E)
+    rt = E
+    for _ in range(4):
+        rt = T.expm(T.logm(rt) * 0.999)
+    outs = {}
+    for d, x in Xs.items():
+        e = T.expm(x)
+        outs[d] = (e, T.logm(e))
+    spd_out = {d: T.logm(a) for d, a in spds.items()}
+    mean = T.meanm(Am, max_iter=64)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    log("  lie-path launches: " + " ".join(f"{k}={v}" for k, v in launches.items()))
+    # eig_rolled: the SPD logm from _LOGM_SYM_EIG_MIN_D up takes the eig route
+    if not all(v >= 1 for v in launches.values()):
+        fail(f"the Lie path did not go through every kernel: {launches}")
+
+    def gate(name, err, limit=GATE):
+        log(f"  {name}: median={np.median(err):.3e} max={err.max():.3e} (gate {limit:.0e})")
+        if not err.max() <= limit:
+            fail(f"{name}: {err.max():.3e} > {limit}")
+
+    import scipy.linalg as sla
+
+    ns = 256
+    gate(f"expm 4x4 on {b0} normwise vs f64 scipy ({ns} problems)",
+         lie_normwise(torch, E[:ns], torch.tensor(scipy_map("expm", X[:ns]), device=DEV)).cpu().numpy())
+
+    want = X[:ns].double().cpu().numpy()
+    for _ in range(16):
+        want = 0.5 * np.stack([sla.expm(m * 0.5) for m in want])
+    gate("expm chain k=16 normwise vs the f64 scipy recurrence (256)",
+         lie_normwise(torch, chain[:ns], torch.tensor(want, device=DEV)).cpu().numpy())
+    rel = lie_elementwise(Lg[:8192].cpu().numpy(), X[:8192].cpu().numpy())
+    med, p99 = float(np.median(rel)), float(np.quantile(rel, 0.99))
+    log(f"  logm 4x4 on {b0} roundtrip vs X elementwise (8192): median={med:.3e} p99={p99:.3e} "
+        f"(gates 1e-6, 3e-5); normwise vs f64 scipy of its input (256) max="
+        f"{lie_normwise(torch, Lg[:ns], torch.tensor(scipy_map('logm', E[:ns]), device=DEV)).max().item():.3e}")
+    if not (med <= 1e-6 and p99 <= 3e-5):
+        fail(f"logm 4x4 roundtrip: median {med:.3e}, p99 {p99:.3e}")
+    want = E[:ns].double().cpu().numpy()
+    for _ in range(4):
+        want = np.stack([sla.expm(np.real(sla.logm(m)) * 0.999) for m in want])
+    gate("logm+expm chain k=4 normwise vs the f64 scipy recurrence (256)",
+         lie_normwise(torch, rt[:ns], torch.tensor(want, device=DEV)).cpu().numpy())
+    for d, (e, lg) in outs.items():
+        n = ns if d <= 16 else 128
+        x = Xs[d]
+        gate(f"expm {d}x{d} on {x.shape[0]} normwise vs f64 scipy ({n})",
+             lie_normwise(torch, e[:n], torch.tensor(scipy_map("expm", x[:n]), device=DEV)).cpu().numpy())
+        gate(f"logm {d}x{d} on {x.shape[0]} normwise vs f64 scipy of its input ({n})",
+             lie_normwise(torch, lg[:n], torch.tensor(scipy_map("logm", e[:n]), device=DEV)).cpu().numpy())
+    for d, lg in spd_out.items():
+        n = 128
+        gate(f"SPD logm {d}x{d} on {lg.shape[0]} ({'eig route' if d >= L._LOGM_SYM_EIG_MIN_D else 'kernel'}) "
+             f"normwise vs f64 scipy ({n})",
+             lie_normwise(torch, lg[:n], torch.tensor(scipy_map("logm", spds[d][:n]), device=DEV)).cpu().numpy())
+    # meanm: the fixed-point residual ||mean_k logm(M^-1 A_k)|| over the mean
+    # tangent norm, on the host (scipy) for 64 barycenters
+    ng = min(64, g)
+    mg = mean[:ng].cpu().numpy()
+    Ah = Am[:ng].cpu().numpy()
+    num, den = [], []
+    for gi in range(ng):
+        ls = [np.real(sla.logm(np.linalg.solve(mg[gi], Ah[gi, kk]))) for kk in range(k)]
+        num.append(np.linalg.norm(np.mean(ls, axis=0)))
+        den.append(np.mean([np.linalg.norm(x) for x in ls]))
+    resid = np.array(num) / np.array(den)
+    log(f"  meanm G={g} K={k} {dm}x{dm} float64: residual median={np.median(resid):.3e} "
+        f"max={resid.max():.3e} (gate: median 1e-10); finite {bool(torch.isfinite(mean).all())}")
+    if not (np.median(resid) <= 1e-10 and torch.isfinite(mean).all()):
+        fail(f"meanm residual median {np.median(resid):.3e}")
+    del chain, rt, outs, spd_out, mean
+
+    # the public ops per call (host launch included), the host's share and
+    # the card's time (logm reads the host once: it waits for the card)
+    def chain16():
+        c = X
+        for _ in range(16):
+            c = 0.5 * T.expm(0.5 * c)
+        return c
+
+    def roundtrip4():
+        c = E
+        for _ in range(4):
+            c = T.expm(T.logm(c) * 0.999)
+        return c
+
+    public = {f"expm 4x4 on {b0}": lambda: T.expm(X), "expm chain k=16 (4x4)": chain16,
+              f"logm 4x4 on {b0}": lambda: T.logm(E), "logm+expm chain k=4 (4x4)": roundtrip4}
+    for d, x in Xs.items():
+        public[f"expm {d}x{d} on {x.shape[0]}"] = lambda x=x: T.expm(x)
+    es = {d: KE.launch_expm(x) for d, x in Xs.items()}
+    for d, e in es.items():
+        public[f"logm {d}x{d} on {e.shape[0]}"] = lambda e=e: T.logm(e)
+    for d, a in spds.items():
+        public[f"SPD logm {d}x{d} on {a.shape[0]}"] = lambda a=a: T.logm(a)
+    public[f"meanm G={g} K={k} {dm}x{dm} float64, max_iter 64"] = lambda: T.meanm(Am, max_iter=64)
+    for name, fn in public.items():
+        # logm and meanm read a flag on the host, so they cannot be queued
+        # ahead of the card: their device time is not measured
+        dev = None if "logm" in name or "meanm" in name else device_ms(torch, fn, reps=5)
+        log(f"  public {name}: {call_ms(torch, fn, reps=5):.4f} ms per call, "
+            f"host {host_ms(torch, fn, reps=5):.4f} ms, device "
+            + ("not measured (waits for the card)" if dev is None else f"{dev:.4f} ms"))
+
+    # the crossover that sets _LOGM_SYM_EIG_MIN_D: the public logm per call
+    # on SPD input, the symmetric eig route switched on and off at each d
+    min_d = L._LOGM_SYM_EIG_MIN_D
+    for d, a in spds.items():
+        L._LOGM_SYM_EIG_MIN_D = d
+        sym_ms = call_ms(torch, lambda a=a: T.logm(a), reps=5)
+        L._LOGM_SYM_EIG_MIN_D = L._LOGM_SYM_EIG_MAX_D + 1
+        ker_ms = call_ms(torch, lambda a=a: T.logm(a), reps=5)
+        log(f"  SPD logm {d}x{d} on {a.shape[0]} per call: eig route {sym_ms:.4f} ms, "
+            f"kernel route {ker_ms:.4f} ms")
+    L._LOGM_SYM_EIG_MIN_D = min_d
+
+    # each kernel alone at its row's shape against its bound, its plain
+    # version and, for expm, torch.linalg.matrix_exp (timed only, never
+    # called by the port)
+    kernels = []
+    rows = {"expm_unrolled": (X, "expm"), "expm_warp": (Xs[16], "expm"),
+            "logm_unrolled": (E, "logm"), "logm_warp": (es[16], "logm"),
+            "logm_warp_d32": (es[32], "logm")}
+    lines = {"expm_unrolled": "expm_pallas.py:114", "expm_warp": "expm_pallas.py:73",
+             "logm_unrolled": "logm_pallas.py:106", "logm_warp": "logm_pallas.py:235",
+             "logm_warp_d32": "logm_pallas.py:317"}
+    for name, (a, op) in rows.items():
+        b, d = a.shape[0], a.shape[-1]
+        if (d, b) != LIE_ROWS[name]:
+            fail(f"{name}: row shape {(d, b)} is not {LIE_ROWS[name]}")
+        launch = KE.launch_expm if op == "expm" else KL.launch_logm
+        plain = KE.expm_plain if op == "expm" else KL.logm_plain
+        tier = (KE.tier if op == "expm" else KL.tier)(d, a.dtype)
+        if tier != name.replace("_d32", ""):
+            fail(f"{name}: d={d} runs {tier}")
+        got, want = launch(a), plain(a)
+        err = (got - want).abs().max().item()
+        nerr = lie_normwise(torch, got, want).max().item()
+        del got, want
+        if not nerr <= (TOL_EXPM if op == "expm" else TOL_LOGM)["float32"]:
+            fail(f"{name} {d}x{d} on {b}: kernel disagrees with its plain version: {nerr:.3e}")
+        ms = kernel_ms(torch, lambda a=a: launch(a), f"{name} {d}x{d}", reps=10)
+        plain_ms = call_ms(torch, lambda a=a: plain(a), reps=2, warmup=1)
+        sample = a[:4096]
+        if op == "expm":
+            s = KE.squaring_counts(sample).double().mean().item()
+            nops, what = ops_expm(d, s), f"{s:.2f} squarings"
+            lib_ms = yardstick_ms(torch, lambda a=a: torch.linalg.matrix_exp(a), "matrix_exp")
+        else:
+            iss, db = (t.double().mean().item() for t in KL.iteration_counts(sample))
+            nops, what = ops_logm(d, iss, db), f"{iss:.2f} square roots, {db:.2f} DB steps"
+            lib_ms = None
+        b_ms, b_by = bound(2 * b * d * d * 4, b * nops, "float32")
+        log(f"  {name} {d}x{d} on {b} kernel: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by} at "
+            f"{what}, {b_ms / ms * 100:.1f}% of it), plain {plain_ms:.4f} ms, "
+            + (f"matrix_exp {lib_ms:.4f} ms, " if lib_ms is not None else "")
+            + f"kernel vs plain max abs {err:.3e}, normwise {nerr:.3e}")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"fastmath_tpu_torch/kernels/csrc/{op}.cu",
+            "replaces": f"fastmath_tpu/kernels/{lines[name]}",
+            "launches": launches[name.replace("_d32", "")], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+    return kernels
+
+
 def main():
     import torch
 
@@ -2148,12 +2598,14 @@ def main():
     phase_factor_vs_plain(torch, rng)
     phase_iterate_vs_plain(torch, rng)
     phase_eig_vs_plain(torch, rng)
+    phase_lie_vs_plain(torch, rng)
     log("== phase 3: gradients")
     phase_gradients(torch, rng)
     phase_batched_gradients(torch, rng)
     phase_factor_gradients(torch, rng)
     phase_iterate_gradients(torch, rng)
     phase_eig_gradients(torch, rng)
+    phase_lie_gradients(torch, rng)
     log("== phase 4: main path at full size")
     kernels, batch = phase_main_path(torch, rng)
     phase_wide(torch, rng)
@@ -2170,6 +2622,8 @@ def main():
     kernels += phase_iterate(torch, rng)
     log("== phase 9: eig_sym and sugar.lmdiv at full size")
     kernels += phase_eig(torch, rng)
+    log("== phase 10: the Lie path (expm, logm, meanm) at full size")
+    kernels += phase_lie(torch, rng)
     torch.cuda.synchronize()
     log(f"total_seconds={time.perf_counter() - t0:.1f}")
     log(smi)

@@ -9,6 +9,7 @@ CPU tensors. This package imports neither JAX nor ``fastmath_tpu``.
 from . import kernels, layouts
 from .ops.batched import (batchchol, batchdet, batchinv, batchlmdiv, batchlogdet,
                           batchmatmul, batchmatvec, batchrmdiv)
+from .ops.lie import expm, expm_derivatives, logm, meanm
 from .ops.qr import (eig_sym, givens, givens_apply, hessenberg, hessenberg_sym, householder,
                      householder_apply, qr_hessenberg, rq_hessenberg)
 from .ops.sugar import (dot, inv, is_orthonormal, kron2, lmdiv, matvec, mdot, outer, rmdiv,
@@ -26,4 +27,4 @@ __all__ = ["sym_to_full", "full_to_sym", "sym_diag", "sym_solve", "sym_solve_",
            "qr_hessenberg", "rq_hessenberg", "hessenberg", "hessenberg_sym", "householder",
            "householder_apply", "givens", "givens_apply", "kron2", "lmdiv", "rmdiv", "inv",
            "matvec", "solvevec", "outer", "trace", "dot", "mdot", "is_orthonormal", "round",
-           "layouts", "kernels"]
+           "expm", "logm", "meanm", "expm_derivatives", "layouts", "kernels"]

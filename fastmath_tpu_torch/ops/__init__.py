@@ -1,6 +1,7 @@
 """Public ops (PyTorch counterparts of ``fastmath_tpu.ops``)."""
 from .batched import (batchchol, batchdet, batchinv, batchlmdiv, batchlogdet, batchmatmul,
                       batchmatvec, batchrmdiv)
+from .lie import expm, expm_derivatives, logm, meanm
 from .qr import (eig_sym, givens, givens_apply, hessenberg, hessenberg_sym, householder,
                  householder_apply, qr_hessenberg, rq_hessenberg)
 from .sugar import (dot, inv, is_orthonormal, kron2, lmdiv, matvec, mdot, outer, rmdiv, round,
@@ -17,4 +18,5 @@ __all__ = ["sym_to_full", "full_to_sym", "sym_diag", "sym_solve", "sym_solve_",
            "batchlmdiv", "batchrmdiv", "batchdet", "batchlogdet", "batchchol", "eig_sym",
            "qr_hessenberg", "rq_hessenberg", "hessenberg", "hessenberg_sym", "householder",
            "householder_apply", "givens", "givens_apply", "kron2", "lmdiv", "rmdiv", "inv",
-           "matvec", "solvevec", "outer", "trace", "dot", "mdot", "is_orthonormal", "round"]
+           "matvec", "solvevec", "outer", "trace", "dot", "mdot", "is_orthonormal", "round",
+           "expm", "logm", "meanm", "expm_derivatives"]

@@ -87,7 +87,8 @@ def _plu(a: torch.Tensor):
     nb = lu.shape[0]
     rows = torch.arange(nb, device=a.device)
     perm = torch.arange(n, device=a.device).repeat(nb, 1)
-    parity = torch.ones(nb, dtype=a.dtype, device=a.device)
+    # the sign is real for complex input too (a complex one cannot be compared)
+    parity = torch.ones(nb, dtype=a.real.dtype, device=a.device)
     for k in range(n):
         p = k + torch.argmax(lu[:, k:, k].abs(), dim=1)
         row_k, row_p = lu[:, k].clone(), lu[rows, p]

@@ -246,6 +246,6 @@ def test_public_names_match_reference():
         assert getattr(TS, name) is getattr(layouts, name)
     ported = {"sym_matvec_chain_cf", "sym_maxeig_cf", "matvec_full_cf", "matmul_cf"}
     assert ported <= set(K.__all__) and ported <= set(RK.__all__)
-    # every kernel entry of the reference's except the two still to port
+    # every kernel entry of the reference's has its counterpart
     missing = set(RK.__all__) - set(K.__all__) - {"DEFAULT_BLOCK"}
-    assert missing == {"expm_cf", "logm_cf"}
+    assert missing == set()
