@@ -16,7 +16,8 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    oracle; the full-storage solve (k = 1, 3, 8 columns up to n = 8, 1 and
    16 above, also reading A transposed) and inverse on general matrices
    that pivot at most steps and on SPD matrices; the determinant,
-   log-determinant, Cholesky, compact determinant and compact inverse;
+   log-determinant, Cholesky, compact determinant and compact inverse
+   (also at n = 12, 17 and 24, the edges of the lane-group tiers);
    the matvec chain (iters 0, 1, 7, with and without ``add``), the power
    iteration (iters 0, 5, 32; ``renorm_every`` 1, 8, 16), the full matvec
    (also reading A transposed) and the product (every pair of transposed
@@ -67,7 +68,9 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    for log|det|), per-call, host and device times, each kernel alone
    against its bound, its plain version and one ``torch.linalg`` call
    (``det``, ``slogdet``, ``cholesky_ex``, ``det`` / ``inv_ex`` of the
-   densified compact matrix);
+   densified compact matrix); the determinant kernel also timed at 16x16
+   on 500k and 32x32 on 100k (on (a a^T + n I) / n), the compact inverse
+   at N = 32 on 65,536;
 8. the iterations and the full-storage products at the bench suite's
    shapes (float32): ``sym_matvec_chain`` at 1M x 4 x 4 (k = 128) and
    16 x 16 (k = 32) on contraction-scaled a a^T + n I, gated normwise
@@ -506,6 +509,10 @@ def log_err(got, want):
     return np.abs(got - want) / np.maximum(1.0, np.abs(want))
 
 
+# every tier, and the lane-group LU's edges (G = 16 to n = 16, 32 above)
+FACTOR_CHECK_NS = (1, 2, 3, 4, 5, 8, 9, 12, 16, 17, 24, 32)
+
+
 def phase_factor_vs_plain(torch, rng):
     """The determinant (and its log mode), Cholesky, compact determinant
     and compact inverse kernels against their plain versions and a
@@ -517,7 +524,7 @@ def phase_factor_vs_plain(torch, rng):
 
     worst = {}
     for dt_name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
-        for n in (1, 2, 3, 4, 5, 8, 9, 16, 32):
+        for n in FACTOR_CHECK_NS:
             a = torch.tensor((general(rng, B_CHECK, n) / n).reshape(B_CHECK, n * n), dtype=dtype,
                              device=DEV)
             sym = torch.tensor(compact(symmetric(rng, B_CHECK, n)), dtype=dtype, device=DEV)
@@ -1388,6 +1395,11 @@ CHOL_SHAPES = ((3, 1_000_000), (8, 1_000_000), (16, 500_000), (24, 200_000))
 LOGDET_SHAPES = ((16, 500_000), (32, 100_000))
 DET_SHAPES = ((3, 1_000_000), (8, 1_000_000))
 SYM_SHAPES = ((4, 1_000_000), (16, 262_144))
+# timed beside their library calls, not part of the path: the determinant
+# at log|det|'s shapes, on (a a^T + n I) / n (in float32 range at 32), and
+# the compact inverse at N = 32
+DET_TIMED = ((16, 500_000), (32, 100_000))
+SYM_INVERT_TIMED = ((32, 65_536),)
 # the shape of each kernel's row in the kernels line
 FACTOR_ROWS = {"det": 8, "logdet": 16, "chol": 16, "sym_det": 4, "sym_invert": 4}
 
@@ -1520,11 +1532,14 @@ def phase_factor(torch, rng, mat4):
                        "sym_pallas.py:493", "sym_factor.cu"),
     }
     kernels = []
-    for op, shapes in (("chol", CHOL_SHAPES), ("logdet", LOGDET_SHAPES), ("det", DET_SHAPES),
-                       ("sym_det", SYM_SHAPES), ("sym_invert", SYM_SHAPES)):
+    for op, shapes in (("chol", CHOL_SHAPES), ("logdet", LOGDET_SHAPES),
+                       ("det", DET_SHAPES + DET_TIMED), ("sym_det", SYM_SHAPES),
+                       ("sym_invert", SYM_SHAPES + SYM_INVERT_TIMED)):
         for n, b in shapes:
             nn = n * (n + 1) // 2
             if op in ("sym_det", "sym_invert"):
+                if (n, b) not in comp:  # a timed shape
+                    comp[n, b] = full_to_sym(spd_on_card(torch, gen, b, n)).contiguous()
                 inp = arg = comp[n, b]
                 dense = sym_to_full(inp)
                 lib = ((lambda d=dense: torch.linalg.det(d)) if op == "sym_det"
@@ -1532,7 +1547,7 @@ def phase_factor(torch, rng, mat4):
                 nbytes = (nn + 1) * 4 if op == "sym_det" else 2 * nn * 4
                 nops = ops_det(n) if op == "sym_det" else ops_sym_invert(n)
             else:
-                inp = a = full[n, b]
+                inp = a = full[n, b] / n if op == "det" and (n, b) in DET_TIMED else full[n, b]
                 if op == "chol":
                     arg = full_to_sym(a).contiguous()
                     lib = lambda a=a: torch.linalg.cholesky_ex(a)  # noqa: E731

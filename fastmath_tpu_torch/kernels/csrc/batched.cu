@@ -10,7 +10,8 @@
 //
 // A matrix is full n x n storage in n*n row-major channels; right-hand
 // sides and solutions are n x k in n*k row-major channels. One thread owns
-// one problem, and each operand is addressed through a batch stride and a
+// one problem (a group of lanes in the determinant's 9..32 tier), and each
+// operand is addressed through a batch stride and a
 // channel stride (View, sym_common.cuh), so one kernel reads both the
 // batch-major (B, n*n) layout of the public ops and the channel-first
 // (n*n, B) layout of the *_cf wrappers without a transpose. The solve can
@@ -35,10 +36,12 @@
 //                   magnitude and the logs of the scales are added, so the
 //                   expansion stays in range at any scale;
 //   det, 5..8       the unrolled LU, sign * prod U_ii, or sum log|U_ii|;
-//   det, 9..32      the rolled LU on an n x n local array (no right-hand
-//                   side), as above. log|det| sums the per-pivot logs and
-//                   never takes the log of the product, which saturates
-//                   float32 (an 8 x 8 with pivots ~7e4).
+//   det, 9..32      the lane-group LU (lu_groups.cuh, det_groups): G = 16
+//                   lanes a problem to n = 16, 32 above, row i in lane i's
+//                   registers, rolled_factor's pivots and multipliers
+//                   without moving a row. log|det| sums the per-pivot logs
+//                   and never takes the log of the product, which
+//                   saturates float32 (an 8 x 8 with pivots ~7e4).
 //   chol            compact SPD in, compact lower factor out (slot (i, j)
 //                   holds L[max(i,j)][min(i,j)]), no pivoting: n <= 8 the
 //                   unrolled Cholesky-Banachiewicz in registers (L_jj =
@@ -55,7 +58,9 @@
 // unrolled tiers keep A in registers (the double-precision n = 8 tiers
 // spill), and the rolled tier's array lives in local memory (cached,
 // spilled to device memory), which is measured and recorded, not tuned
-// here.
+// here. The determinant's lane groups keep it in registers instead (about
+// n^2 / 2 FMAs a lane); what bounds them is instruction issue: each step's
+// reductions, division and broadcast reads cost more than its FMAs.
 //
 // Every launch goes on the caller's stream, allocates nothing and does
 // not synchronize; each entry point returns cudaGetLastError().
@@ -63,6 +68,7 @@
 #include <cuda_runtime.h>
 
 #include "batched_adjugate.cuh"
+#include "lu_groups.cuh"
 #include "sym_common.cuh"
 
 namespace fm {
@@ -207,26 +213,37 @@ det_unrolled(long long nb, MatView<T> mat, View<T> out) {
   out.p[b * out.sb] = r;
 }
 
-template <typename T, bool kLog>
-__global__ void __launch_bounds__(kThreads)
-det_rolled(long long nb, int n, MatView<T> mat, View<T> out) {
-  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (b >= nb) return;
-  T a[kMaxN * kMaxN];
-  const T* m = mat.p + b * mat.sb;
-  for (int i = 0; i < n; ++i)
-    for (int j = 0; j < n; ++j) a[i * n + j] = m[i * mat.rs + j * mat.cs];
-  const int sign = rolled_factor(a, n, n);
-  T r;
-  if constexpr (kLog) {
-    r = fm_log(fm_abs(a[0]));
-    for (int i = 1; i < n; ++i) r = r + fm_log(fm_abs(a[i * n + i]));
-  } else {
-    r = a[0];
-    for (int i = 1; i < n; ++i) r = r * a[i * n + i];
-    if (sign < 0) r = -r;
+// A group of G lanes a problem (lu_groups.cuh): the lane-group LU, then
+// the pivots' terms, log|U_ss| or U_ss, written by the lane of row s in
+// slot s and folded in step order by the group's first lane, which
+// applies the sign and writes the one result.
+template <typename T, int G, bool kLog>
+__global__ void det_groups(long long nb, int n, MatView<T> mat, View<T> out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % kLieWarp, gl = lane % G;
+  const long long b = blockIdx.x * (long long)(blockDim.x / G) + threadIdx.x / G;
+  T* stage = reinterpret_cast<T*>(smem_raw) + (threadIdx.x / G) * lu_det_values<G>();
+  T* rows = stage + G * (G | 1);
+  T* terms = rows + 2 * G;
+  T row[G];
+  lu_load_full<T, G>(mat, b < nb ? b : nb - 1, n, gl, stage, row);
+  const LuLane<T> me = lu_group_factor<T, G, false>(row, n, lane, rows, nullptr);
+  if (me.step >= 0) terms[me.step] = kLog ? fm_log(fm_abs(me.pivot)) : me.pivot;
+  __syncwarp(kLieMask);
+  if (gl == 0 && b < nb) {
+    T r = terms[0];
+    for (int i = 1; i < n; ++i) r = kLog ? r + terms[i] : r * terms[i];
+    out.p[b * out.sb] = !kLog && me.odd ? -r : r;
   }
-  out.p[b * out.sb] = r;
+}
+
+template <typename T, int G, bool kLog>
+void launch_det_groups(int n, long long nb, MatView<T> mat, View<T> out, cudaStream_t s) {
+  const int per_group = lu_det_values<G>() * (int)sizeof(T);
+  const int warps = lie_warps((kLieWarp / G) * per_group);
+  const int per_block = warps * (kLieWarp / G);
+  const unsigned g = (unsigned)((nb + per_block - 1) / per_block);
+  det_groups<T, G, kLog><<<g, warps * kLieWarp, per_block * per_group, s>>>(nb, n, mat, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -338,7 +355,8 @@ cudaError_t launch_det(int n, long long nb, MatView<T> mat, View<T> out, cudaStr
 #undef FM_DET_CASE
     default:
       if (n < 1 || n > kMaxN) return cudaErrorInvalidValue;
-      det_rolled<T, kLog><<<g, kThreads, 0, s>>>(nb, n, mat, out);
+      if (lie_group(n) == 16) launch_det_groups<T, 16, kLog>(n, nb, mat, out, s);
+      else launch_det_groups<T, kLieWarp, kLog>(n, nb, mat, out, s);
   }
   return cudaGetLastError();
 }

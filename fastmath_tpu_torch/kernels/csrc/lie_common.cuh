@@ -1,5 +1,7 @@
 // Code shared by the matrix exponential and logarithm kernels (expm.cu,
-// logm.cu): the staged row loads and stores of the one-thread-a-problem
+// logm.cu), whose group sizes and launch shapes (lie_group, lie_warps) the
+// lane-group LU (lu_groups.cuh) takes too: the staged row loads and stores
+// of the one-thread-a-problem
 // tiers, their unrolled products and squared distance to I, and the
 // lane-group tiers' products, distance and Gauss-Jordan inverse on
 // row-major d x d matrices in shared memory (a group of 8, 16 or 32 lanes

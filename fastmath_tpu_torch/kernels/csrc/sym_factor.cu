@@ -4,7 +4,8 @@
 //   fm_sym_det     <- _det_sym_kernel  (sym_det_cf)
 //   fm_sym_invert  <- _invert_kernel   (sym_invert_cf)
 //
-// One thread owns one problem; operands are addressed through a batch
+// One thread owns one problem (a group of lanes in the inverse's 9..32
+// tier); operands are addressed through a batch
 // stride and a channel stride (View, sym_common.cuh), so one kernel reads
 // the batch-major (B, NN) layout of the public ops and the channel-first
 // (NN, B) layout of the *_cf wrappers. The inverse is compact too: the
@@ -20,22 +21,29 @@
 //              keeps only the strict lower part of what it has solved,
 //              which the later columns need for the symmetrized upper
 //              slots 0.5 * (X_ij + X_ji);
-//   9 <= N <= 32 the rolled LU over a per-thread local array: n x n for
-//              the determinant, [A | I] (2n columns) for the inverse,
-//              whose upper slots are symmetrized the same way.
+//   9 <= N <= 32 the determinant: the rolled LU over an n x n per-thread
+//              local array; the inverse: the lane-group LU (lu_groups.cuh,
+//              sym_invert_groups), G = 16 lanes a problem to N = 16, 32
+//              above, rolled_factor's pivots on [A | I] without moving a
+//              row, each lane then solving for one column, the upper slots
+//              symmetrized the same way.
 //
 // What bounds them on the card: per problem the determinant moves
 // N(N+1)/2 + 1 values and the inverse N(N+1), for O(N^3) flops; at N <= 4
 // device memory bounds them, and each operand is read once with the work
-// in registers. The rolled tier's local array ([A | I] is 8,192 B in
-// float32 at N = 32) lives in local memory; that is measured and
-// recorded, not tuned here.
+// in registers. The determinant's rolled local array (4,096 B in float32
+// at N = 32) lives in local memory; that is measured and recorded, not
+// tuned here. The inverse's lane groups hold a row, then a column, in
+// registers (about N^2 FMAs a lane) and U in shared memory; what bounds
+// them is instruction issue: each elimination step's reductions, division
+// and broadcast reads, then two triangular solves of dependent FMAs.
 //
 // Every launch goes on the caller's stream, allocates nothing and does
 // not synchronize; each entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
+#include "lu_groups.cuh"
 #include "sym_adjugate.cuh"
 #include "sym_common.cuh"
 
@@ -128,24 +136,51 @@ sym_invert_unrolled(long long nb, View<const T> mat, View<T> out) {
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-sym_invert_rolled(long long nb, int n, View<const T> mat, View<T> out) {
-  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (b >= nb) return;
-  const int w = 2 * n;
-  T a[kMaxN * 2 * kMaxN];
-  rolled_load(a, n, w, mat.p + b * mat.sb, mat.sc, static_cast<const T*>(nullptr));
-  rolled_identity(a, n, w, n);
-  rolled_factor(a, n, w);
-  rolled_backsub(a, n, w);
-  // X[i][j] = a[i * w + n + j]
-  T* o = out.p + b * out.sb;
-  for (int i = 0; i < n; ++i) {
-    o[i * out.sc] = a[i * w + n + i];
-    for (int j = i + 1; j < n; ++j)
-      o[tri_index(i, j, n) * out.sc] = T(0.5) * (a[i * w + n + j] + a[j * w + n + i]);
+// A group of G lanes a problem (lu_groups.cuh): the lane-group LU with
+// every pivot row kept, lane c's solve for column c of the inverse, X
+// through shared memory (row stride G + 1: lane c writes row i's entry c,
+// then reads its own row c, both free of bank conflicts), and lane i's
+// compact slots of row i, X_ii and 0.5 (X_ij + X_ji) for j > i, staged so
+// the group writes the problem's slots in order.
+template <typename T, int G>
+__global__ void sym_invert_groups(long long nb, int n, View<const T> mat, View<T> out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kX = G + 1;
+  const int lane = threadIdx.x % kLieWarp, gl = lane % G;
+  const long long b = blockIdx.x * (long long)(blockDim.x / G) + threadIdx.x / G;
+  T* ux = reinterpret_cast<T*>(smem_raw + (threadIdx.x / G) * lu_invert_bytes<T, G>());
+  T* stage = ux + G * kX;
+  int* perm = reinterpret_cast<int*>(stage + G * kX / 2);
+  T row[G];
+  lu_load_sym<T, G>(mat, b < nb ? b : nb - 1, n, gl, stage, row);
+  lu_group_factor<T, G, true>(row, n, lane, ux, perm);
+  T x[G];
+  lu_group_solve_eye<T, G>(ux, perm, n, gl, x);
+  __syncwarp(kLieMask);  // U is read; X takes its place
+#pragma unroll
+  for (int i = 0; i < G; ++i)
+    if (i < n) ux[i * kX + gl] = x[i];
+  __syncwarp(kLieMask);
+  if (gl < n) {
+    stage[gl] = ux[gl * kX + gl];
+#pragma unroll
+    for (int j = 1; j < G; ++j)
+      if (j > gl && j < n) stage[tri_index(gl, j, n)] = T(0.5) * (ux[gl * kX + j] + x[j]);
   }
+  __syncwarp(kLieMask);
+  if (b >= nb) return;
+  T* o = out.p + b * out.sb;
+  for (int e = gl; e < n * (n + 1) / 2; e += G) o[e * out.sc] = stage[e];
+}
+
+template <typename T, int G>
+void launch_sym_invert_groups(int n, long long nb, View<const T> mat, View<T> out,
+                              cudaStream_t s) {
+  const int per_group = lu_invert_bytes<T, G>();
+  const int warps = lie_warps((kLieWarp / G) * per_group);
+  const int per_block = warps * (kLieWarp / G);
+  const unsigned g = (unsigned)((nb + per_block - 1) / per_block);
+  sym_invert_groups<T, G><<<g, warps * kLieWarp, per_block * per_group, s>>>(nb, n, mat, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -180,7 +215,8 @@ cudaError_t launch_sym_invert(int n, long long nb, View<const T> mat, View<T> ou
 #undef FM_SYM_INVERT_CASE
     default:
       if (n < 1 || n > kMaxN) return cudaErrorInvalidValue;
-      sym_invert_rolled<T><<<g, kThreads, 0, s>>>(nb, n, mat, out);
+      if (lie_group(n) == 16) launch_sym_invert_groups<T, 16>(n, nb, mat, out, s);
+      else launch_sym_invert_groups<T, kLieWarp>(n, nb, mat, out, s);
   }
   return cudaGetLastError();
 }
