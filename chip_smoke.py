@@ -14,8 +14,9 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    and without ``eps``, ``refine`` 0..2, on a ragged batch, in the
    batch-major and the channel-first layout, and against a float64 numpy
    oracle; the full-storage solve (k = 1, 3, 8 columns up to n = 8, 1 and
-   16 above, also reading A transposed) and inverse on general matrices
-   that pivot at most steps and on SPD matrices; the determinant,
+   16 above, also reading A transposed) and inverse (also at n = 12, 17
+   and 24) on general matrices that pivot at most steps and on SPD
+   matrices; the determinant,
    log-determinant, Cholesky, compact determinant and compact inverse
    (also at n = 12, 17 and 24, the edges of the lane-group tiers);
    the matvec chain (iters 0, 1, 7, with and without ``add``), the power
@@ -57,7 +58,8 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    full storage at 1M x 4 x 4 and on compact N = 40 (checked, not timed);
    launch counts, normwise error against float64 numpy, per-call, host
    and device times, each kernel alone against its bound, its plain
-   version and ``torch.linalg.inv_ex`` / ``solve_ex``;
+   version and ``torch.linalg.inv_ex`` / ``solve_ex``; the inverse kernel
+   also timed at 32x32 on 100,000;
 7. the factor path at the bench suite's shapes (float32, a a^T + n I):
    the public ``batchchol`` at 3x3 and 8x8 on 1M, 16x16 on 500k and 24x24
    on 200k, ``batchlogdet`` 16x16 on 500k and 32x32 on 100k, ``batchdet``
@@ -69,8 +71,9 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    against its bound, its plain version and one ``torch.linalg`` call
    (``det``, ``slogdet``, ``cholesky_ex``, ``det`` / ``inv_ex`` of the
    densified compact matrix); the determinant kernel also timed at 16x16
-   on 500k and 32x32 on 100k (on (a a^T + n I) / n), the compact inverse
-   at N = 32 on 65,536;
+   on 500k and 32x32 on 100k (on (a a^T + n I) / n), the compact
+   determinant at N = 32 on 65,536 (on (a a^T + n I) / n), the compact
+   inverse at N = 32 on 65,536;
 8. the iterations and the full-storage products at the bench suite's
    shapes (float32): ``sym_matvec_chain`` at 1M x 4 x 4 (k = 128) and
    16 x 16 (k = 32) on contraction-scaled a a^T + n I, gated normwise
@@ -101,7 +104,8 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
     residual at 1e-10), per-call, host and device times, the two SPD
     routes per call, each kernel alone against its bound, its plain
     version and, for expm, ``torch.linalg.matrix_exp``;
-11. one JSON line of per-kernel times beside their bounds.
+11. one JSON line of per-kernel times beside their bounds (the batched
+    and factor kernels also at each shape phases 6 and 7 time).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository beside it, the script exits non-zero
@@ -439,10 +443,16 @@ def general(rng, b, n):
     return np.take_along_axis(a, perm[..., None], axis=1)
 
 
+# every tier, and the lane-group LU's edges (G = 16 to n = 16, 32 above)
+FACTOR_CHECK_NS = (1, 2, 3, 4, 5, 8, 9, 12, 16, 17, 24, 32)
+SOLVE_CHECK_NS = (1, 2, 3, 4, 5, 8, 9, 16, 32)
+
+
 def phase_batched_vs_plain(torch, rng):
     """The full-storage solve and inverse kernels against their plain
     versions and a float64 numpy oracle, on general (pivoting) and SPD
-    matrices; the solve also reading A transposed (its gradient's read)."""
+    matrices; the solve also reading A transposed (its gradient's read).
+    The inverse at ``FACTOR_CHECK_NS``, the solve at ``SOLVE_CHECK_NS``."""
     from fastmath_tpu_torch.kernels import batched_cuda as BC
 
     worst = {}
@@ -451,7 +461,7 @@ def phase_batched_vs_plain(torch, rng):
         hold(torch, worst, key, got, plain, want64, dt_name)
 
     for dt_name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
-        for n in (1, 2, 3, 4, 5, 8, 9, 16, 32):
+        for n in FACTOR_CHECK_NS:
             for kind, full in (("general", general(rng, B_CHECK, n)),
                                ("spd", spd(rng, B_CHECK, n, np.float64))):
                 a = torch.tensor(full.reshape(B_CHECK, n * n), dtype=dtype, device=DEV)
@@ -462,6 +472,8 @@ def phase_batched_vs_plain(torch, rng):
                 for layout, m in (("bm", a), ("cf", a_cf)):
                     check(f"inv {dt_name} n={n} {kind} {layout}",
                           BC.launch_inv(m, cf_out=layout == "cf"), plain, inv64, dt_name)
+                if n not in SOLVE_CHECK_NS:
+                    continue
                 for k in ((1, 3, 8) if n <= 8 else (1, 16)):
                     rhs = torch.tensor(rng.standard_normal((B_CHECK, n * k)), dtype=dtype,
                                        device=DEV)
@@ -507,10 +519,6 @@ def log_err(got, want):
     """|got - want| / max(1, |want|) per problem, for log|det|."""
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return np.abs(got - want) / np.maximum(1.0, np.abs(want))
-
-
-# every tier, and the lane-group LU's edges (G = 16 to n = 16, 32 above)
-FACTOR_CHECK_NS = (1, 2, 3, 4, 5, 8, 9, 12, 16, 17, 24, 32)
 
 
 def phase_factor_vs_plain(torch, rng):
@@ -758,7 +766,7 @@ def phase_batched_gradients(torch, rng):
     import fastmath_tpu_torch as T
     from fastmath_tpu_torch.kernels import solve_full_cf
 
-    for n in (3, 6, 12):
+    for n in (3, 6, 12, 24):
         ins0 = [torch.tensor(x, device=DEV) for x in (
             general(rng, 515, n), rng.standard_normal((515, n)),
             rng.standard_normal((515, n, 2)))]
@@ -793,7 +801,7 @@ def phase_factor_gradients(torch, rng):
     from fastmath_tpu_torch.kernels import inv_cf, solve_full_cf, sym_invert_cf
 
     counters = (inv_cf, solve_full_cf, sym_invert_cf)
-    for n in (3, 6, 12):
+    for n in (3, 6, 12, 24):
         ins0 = [torch.tensor(x, device=DEV) for x in (
             general(rng, 515, n) / n, spd(rng, 515, n, np.float64),
             compact(symmetric(rng, 515, n)))]
@@ -1233,6 +1241,9 @@ def phase_products(torch, rng, full, vec_np, mat, vec):
 # 16x16 on 500k (:468-480), 24x24 on 200k (:513-530); the 16x16 solve
 # on 500k (:499-506)
 INV_SHAPES = ((3, 1_000_000), (8, 1_000_000), (16, 500_000), (24, 200_000))
+# timed beside its library call, not part of the path: the inverse's
+# G = 32 lane groups at their widest
+INV_TIMED = ((32, 100_000),)
 N_GATE, B_GATE = 16, 500_000
 N_DENSE, B_DENSE = 40, 4096  # compact N > 32: sym_solve's torch.linalg tier
 
@@ -1257,6 +1268,12 @@ def ops_inv(n):
     if n == 1:
         return 1
     return cofactor_ops(n) + 1 + n * n if n <= 4 else ops_plu(n, n)
+
+
+def shape_row(shape, ms, plain_ms, b_ms, b_by, lib_ms):
+    """One timed shape of a kernel, for its entry in the kernels line."""
+    return {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
 
 
 def spd_on_card(torch, gen, b, n):
@@ -1340,11 +1357,12 @@ def phase_batched(torch, rng):
 
     # each kernel alone against its bound, the library call on the same
     # tensors (timed only), and the plain version; the inverse also at
-    # the 4x4 of sym_solve on full storage
+    # the 4x4 of sym_solve on full storage and at INV_TIMED
     alone = {**mats, N_MAIN: m4}
+    alone.update({n: spd_on_card(torch, gen, b, n) for n, b in INV_TIMED})
     flat = {n: a.reshape(-1, n * n) for n, a in alone.items()}
     rows = {}
-    for n, b in INV_SHAPES + ((N_MAIN, B_MAIN),):
+    for n, b in INV_SHAPES + ((N_MAIN, B_MAIN),) + INV_TIMED:
         kern = lambda f=flat[n]: BC.launch_inv(f)  # noqa: E731
         rows[f"inv {n}x{n} on {b}"] = (
             "inv", kern, lambda f=flat[n]: BC.inv_plain(f),
@@ -1357,7 +1375,7 @@ def phase_batched(torch, rng):
         lambda: torch.linalg.solve_ex(mats[N_GATE], v16[..., None]),
         bound(B_GATE * (N_GATE * N_GATE + 2 * N_GATE) * 4, B_GATE * ops_plu(N_GATE, 1),
               "float32"))
-    kernels = []
+    kernels, shapes = [], {"inv": [], "solve_full": []}
     for name, (counted, kern, plain, lib, (b_ms, b_by)) in rows.items():
         y, want = kern(), plain()
         diff = y.reshape(want.shape) - want
@@ -1374,6 +1392,7 @@ def phase_batched(torch, rng):
         log(f"  {name} kernel: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
             f"{b_ms / ms * 100:.1f}% of it), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
             f"kernel vs plain max abs {err:.3e}, normwise {rel:.3e}")
+        shapes[counted].append(shape_row(name.split(" ", 1)[1], ms, plain_ms, b_ms, b_by, lib_ms))
         if name in (f"inv {N_GATE}x{N_GATE} on {B_GATE}", f"solve {N_GATE}x{N_GATE} on {B_GATE}"):
             line = 184 if counted == "inv" else 248
             kernels.append({
@@ -1382,6 +1401,8 @@ def phase_batched(torch, rng):
                 "replaces": f"fastmath_tpu/kernels/batched_pallas.py:{line}",
                 "launches": launches[counted], "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+    for k in kernels:
+        k["shapes"] = shapes[k["name"].removesuffix("_cf")]
     return kernels
 
 
@@ -1396,12 +1417,14 @@ LOGDET_SHAPES = ((16, 500_000), (32, 100_000))
 DET_SHAPES = ((3, 1_000_000), (8, 1_000_000))
 SYM_SHAPES = ((4, 1_000_000), (16, 262_144))
 # timed beside their library calls, not part of the path: the determinant
-# at log|det|'s shapes, on (a a^T + n I) / n (in float32 range at 32), and
-# the compact inverse at N = 32
+# at log|det|'s shapes and the compact determinant at N = 32, on
+# (a a^T + n I) / n (in float32 range at 32), and the compact inverse at
+# N = 32
 DET_TIMED = ((16, 500_000), (32, 100_000))
+SYM_DET_TIMED = ((32, 65_536),)
 SYM_INVERT_TIMED = ((32, 65_536),)
 # the shape of each kernel's row in the kernels line
-FACTOR_ROWS = {"det": 8, "logdet": 16, "chol": 16, "sym_det": 4, "sym_invert": 4}
+FACTOR_ROWS = {"det": 8, "logdet": 16, "chol": 16, "sym_det": 16, "sym_invert": 4}
 
 
 def ops_det(n):
@@ -1531,16 +1554,17 @@ def phase_factor(torch, rng, mat4):
         "sym_invert": (T.sym_invert, SF.launch_sym_invert, SF.invert_plain,
                        "sym_pallas.py:493", "sym_factor.cu"),
     }
-    kernels = []
+    kernels, timed = [], {op: [] for op in spec}
     for op, shapes in (("chol", CHOL_SHAPES), ("logdet", LOGDET_SHAPES),
-                       ("det", DET_SHAPES + DET_TIMED), ("sym_det", SYM_SHAPES),
+                       ("det", DET_SHAPES + DET_TIMED), ("sym_det", SYM_SHAPES + SYM_DET_TIMED),
                        ("sym_invert", SYM_SHAPES + SYM_INVERT_TIMED)):
         for n, b in shapes:
             nn = n * (n + 1) // 2
             if op in ("sym_det", "sym_invert"):
                 if (n, b) not in comp:  # a timed shape
                     comp[n, b] = full_to_sym(spd_on_card(torch, gen, b, n)).contiguous()
-                inp = arg = comp[n, b]
+                inp = arg = (comp[n, b] / n if op == "sym_det" and (n, b) in SYM_DET_TIMED
+                             else comp[n, b])
                 dense = sym_to_full(inp)
                 lib = ((lambda d=dense: torch.linalg.det(d)) if op == "sym_det"
                        else (lambda d=dense: torch.linalg.inv_ex(d)))
@@ -1585,6 +1609,7 @@ def phase_factor(torch, rng, mat4):
             log(f"  {op} {n}x{n} on {b} kernel: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
                 f"{b_ms / ms * 100:.1f}% of it), plain {plain_ms:.4f} ms, library "
                 f"{lib_ms:.4f} ms, kernel vs plain max abs {err:.3e}, error {rel:.3e}")
+            timed[op].append(shape_row(f"{n}x{n} on {b}", ms, plain_ms, b_ms, b_by, lib_ms))
             if n == FACTOR_ROWS[op]:
                 kernels.append({
                     "name": f"{op}_cf", "route": "cuda",
@@ -1593,6 +1618,8 @@ def phase_factor(torch, rng, mat4):
                     "launches": launches[op], "max_abs_err": err, "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": lib_ms})
+    for k in kernels:
+        k["shapes"] = timed[k["name"].removesuffix("_cf")]
     return kernels
 
 
@@ -2347,8 +2374,8 @@ LIE_SPD = ((5, 15_625), (8, 15_625), (12, 15_625), (16, 15_625), (28, 15_625), (
 MEANM_SHAPE = (4096, 8, 4)
 # the shape of each kernel row of the kernels line
 LIE_ROWS = {"expm_unrolled": (4, 1_000_000), "expm_warp": (16, 62_500),
-            "logm_unrolled": (4, 1_000_000), "logm_warp": (16, 62_500),
-            "logm_warp_d32": (32, 15_625)}
+            "expm_warp_d32": (32, 15_625), "logm_unrolled": (4, 1_000_000),
+            "logm_warp": (16, 62_500), "logm_warp_d32": (32, 15_625)}
 
 
 def ops_matmul(d):
@@ -2547,11 +2574,11 @@ def phase_lie(torch, rng):
     # called by the port)
     kernels = []
     rows = {"expm_unrolled": (X, "expm"), "expm_warp": (Xs[16], "expm"),
-            "logm_unrolled": (E, "logm"), "logm_warp": (es[16], "logm"),
-            "logm_warp_d32": (es[32], "logm")}
+            "expm_warp_d32": (Xs[32], "expm"), "logm_unrolled": (E, "logm"),
+            "logm_warp": (es[16], "logm"), "logm_warp_d32": (es[32], "logm")}
     lines = {"expm_unrolled": "expm_pallas.py:114", "expm_warp": "expm_pallas.py:73",
-             "logm_unrolled": "logm_pallas.py:106", "logm_warp": "logm_pallas.py:235",
-             "logm_warp_d32": "logm_pallas.py:317"}
+             "expm_warp_d32": "expm_pallas.py:73", "logm_unrolled": "logm_pallas.py:106",
+             "logm_warp": "logm_pallas.py:235", "logm_warp_d32": "logm_pallas.py:317"}
     for name, (a, op) in rows.items():
         b, d = a.shape[0], a.shape[-1]
         if (d, b) != LIE_ROWS[name]:

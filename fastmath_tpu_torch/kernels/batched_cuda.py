@@ -9,7 +9,8 @@ versions and autograd.
 ``_matvec_full_kernel`` and ``matmul_cf`` ``_matmul_kernel``
 (``fastmath_tpu/kernels/batched_pallas.py``). The first five kernels live
 in ``csrc/batched.cu``, where one thread owns one problem (a group of 16
-or 32 lanes in the determinant's 9 <= n <= 32 tier, ``csrc/lu_groups.cuh``);
+or 32 lanes in the 9 <= n <= 32 tiers of the inverse and the determinant,
+``csrc/lu_groups.cuh``);
 the two products in ``csrc/batched_products.cu``, where one thread owns a
 problem (matvec) or one output entry (matmul). Each source's header gives
 the tiers and what bounds them.
@@ -52,7 +53,7 @@ __all__ = ["solve_full_cf", "inv_cf", "det_cf", "logdet_cf", "chol_cf", "matvec_
 _LIB = "batched"
 _PRODUCTS_LIB = "batched_products"
 #: n up to this runs the unrolled tiers in registers; above, the rolled
-#: tier (the solve and inverse over a per-thread local array, the
+#: tier (the solve over a per-thread local array, the inverse and the
 #: determinant in lane groups; the same pivots and arithmetic)
 _PLU_UNROLL_N = 8
 #: the Cholesky factor is unrolled up to this n; above, the rolled

@@ -10,8 +10,8 @@
 //
 // A matrix is full n x n storage in n*n row-major channels; right-hand
 // sides and solutions are n x k in n*k row-major channels. One thread owns
-// one problem (a group of lanes in the determinant's 9..32 tier), and each
-// operand is addressed through a batch stride and a
+// one problem (a group of lanes in the 9..32 tiers of the inverse and the
+// determinant), and each operand is addressed through a batch stride and a
 // channel stride (View, sym_common.cuh), so one kernel reads both the
 // batch-major (B, n*n) layout of the public ops and the channel-first
 // (n*n, B) layout of the *_cf wrappers without a transpose. The solve can
@@ -27,10 +27,16 @@
 //                   registers and is taken at run time;
 //   inverse, n <= 4 generated cofactors times 1/det (batched_adjugate.cuh);
 //   inverse, 5..8   the unrolled solve against the identity's columns;
-//   both, 9..32     rolled LU over a per-thread local array [A | B] (n + k
-//                   columns) or [A | I] (2n columns), multipliers by
-//                   division, then back-substitution (fm::rolled_factor,
-//                   fm::rolled_backsub).
+//   solve, 9..32    rolled LU over a per-thread local array [A | B] (n + k
+//                   columns), multipliers by division, then
+//                   back-substitution (fm::rolled_factor,
+//                   fm::rolled_backsub);
+//   inverse, 9..32  the lane-group LU (lu_groups.cuh, inv_groups): G = 16
+//                   lanes a problem to n = 16, 32 above, rolled_factor's
+//                   pivots on [A | I] without moving a row, U kept in
+//                   shared memory, then lane c solves for column c and
+//                   writes it (the operations of rolled_factor and
+//                   rolled_backsub on that column, in their order).
 //   det, n <= 4     the generated expansion (batched_adjugate.cuh); for
 //                   log|det| each row is first scaled by its largest
 //                   magnitude and the logs of the scales are added, so the
@@ -56,11 +62,13 @@
 // factor n(n + 1), for O(n^3) flops, so at n <= 4 device memory bounds
 // them: each operand is read once and the work stays in registers. From n = 8 on the arithmetic grows past the bytes: the
 // unrolled tiers keep A in registers (the double-precision n = 8 tiers
-// spill), and the rolled tier's array lives in local memory (cached,
+// spill), and the rolled solve's array lives in local memory (cached,
 // spilled to device memory), which is measured and recorded, not tuned
-// here. The determinant's lane groups keep it in registers instead (about
-// n^2 / 2 FMAs a lane); what bounds them is instruction issue: each step's
-// reductions, division and broadcast reads cost more than its FMAs.
+// here. The lane groups of the inverse and the determinant keep A in
+// registers instead (about n^2 / 2 FMAs a lane in the factor, n^2 more in
+// the inverse's two triangular solves); what bounds them is instruction
+// issue: each step's reductions, division and broadcast reads cost more
+// than its FMAs.
 //
 // Every launch goes on the caller's stream, allocates nothing and does
 // not synchronize; each entry point returns cudaGetLastError().
@@ -146,11 +154,11 @@ inv_unrolled(long long nb, MatView<T> mat, View<T> out) {
 }
 
 // ---------------------------------------------------------------------------
-// rolled tier: 9 <= n <= 32
+// 9 <= n <= 32: the rolled solve, the inverse's lane groups
 // ---------------------------------------------------------------------------
 
-// [A | B] (rhs given, k columns) or [A | I] (rhs null, k == n): factor,
-// back-substitute, write the k solution columns.
+// [A | B] (k columns): factor, back-substitute, write the k solution
+// columns.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 full_rolled(long long nb, int n, int k, MatView<T> mat, View<const T> rhs, View<T> out) {
@@ -161,18 +169,39 @@ full_rolled(long long nb, int n, int k, MatView<T> mat, View<const T> rhs, View<
   const T* m = mat.p + b * mat.sb;
   for (int i = 0; i < n; ++i)
     for (int j = 0; j < n; ++j) a[i * w + j] = m[i * mat.rs + j * mat.cs];
-  if (rhs.p != nullptr) {
-    const T* r = rhs.p + b * rhs.sb;
-    for (int i = 0; i < n; ++i)
-      for (int c = 0; c < k; ++c) a[i * w + n + c] = r[(i * k + c) * rhs.sc];
-  } else {
-    rolled_identity(a, n, w, n);
-  }
+  const T* r = rhs.p + b * rhs.sb;
+  for (int i = 0; i < n; ++i)
+    for (int c = 0; c < k; ++c) a[i * w + n + c] = r[(i * k + c) * rhs.sc];
   rolled_factor(a, n, w);
   rolled_backsub(a, n, w);
   T* o = out.p + b * out.sb;
   for (int i = 0; i < n; ++i)
     for (int c = 0; c < k; ++c) o[(i * k + c) * out.sc] = a[i * w + n + c];
+}
+
+// A group of G lanes a problem (lu_groups.cuh): the lane-group LU with
+// every pivot row kept in U, which takes the place of the staged operand,
+// then lane c's solve for column c of A^-1, written as entry (i, c) of
+// each row i: in the batch-major layout the group writes each row as one
+// contiguous run.
+template <typename T, int G>
+__global__ void inv_groups(long long nb, int n, MatView<T> mat, View<T> out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % kLieWarp, gl = lane % G;
+  const long long b = blockIdx.x * (long long)(blockDim.x / G) + threadIdx.x / G;
+  T* u = reinterpret_cast<T*>(smem_raw + (threadIdx.x / G) * lu_inv_bytes<T, G>());
+  int* perm = reinterpret_cast<int*>(u + G * (G | 1));
+  T row[G];
+  lu_load_full<T, G>(mat, b < nb ? b : nb - 1, n, gl, u, row);
+  __syncwarp(kLieMask);  // every row is gathered: step 0 may store its pivot row
+  lu_group_factor<T, G, true>(row, n, lane, u, perm);
+  T x[G];
+  lu_group_solve_eye<T, G>(u, perm, n, gl, x);
+  if (b >= nb || gl >= n) return;
+  T* o = out.p + b * out.sb + gl * out.sc;
+#pragma unroll
+  for (int i = 0; i < G; ++i)
+    if (i < n) o[i * n * out.sc] = x[i];
 }
 
 // ---------------------------------------------------------------------------
@@ -213,37 +242,20 @@ det_unrolled(long long nb, MatView<T> mat, View<T> out) {
   out.p[b * out.sb] = r;
 }
 
-// A group of G lanes a problem (lu_groups.cuh): the lane-group LU, then
-// the pivots' terms, log|U_ss| or U_ss, written by the lane of row s in
-// slot s and folded in step order by the group's first lane, which
-// applies the sign and writes the one result.
+// A group of G lanes a problem (lu_groups.cuh): the operand staged and
+// gathered into rows, then lu_group_det, whose result the group's first
+// lane writes.
 template <typename T, int G, bool kLog>
 __global__ void det_groups(long long nb, int n, MatView<T> mat, View<T> out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % kLieWarp, gl = lane % G;
   const long long b = blockIdx.x * (long long)(blockDim.x / G) + threadIdx.x / G;
-  T* stage = reinterpret_cast<T*>(smem_raw) + (threadIdx.x / G) * lu_det_values<G>();
+  T* stage = reinterpret_cast<T*>(smem_raw + (threadIdx.x / G) * lu_det_bytes<T, G>());
   T* rows = stage + G * (G | 1);
-  T* terms = rows + 2 * G;
   T row[G];
   lu_load_full<T, G>(mat, b < nb ? b : nb - 1, n, gl, stage, row);
-  const LuLane<T> me = lu_group_factor<T, G, false>(row, n, lane, rows, nullptr);
-  if (me.step >= 0) terms[me.step] = kLog ? fm_log(fm_abs(me.pivot)) : me.pivot;
-  __syncwarp(kLieMask);
-  if (gl == 0 && b < nb) {
-    T r = terms[0];
-    for (int i = 1; i < n; ++i) r = kLog ? r + terms[i] : r * terms[i];
-    out.p[b * out.sb] = !kLog && me.odd ? -r : r;
-  }
-}
-
-template <typename T, int G, bool kLog>
-void launch_det_groups(int n, long long nb, MatView<T> mat, View<T> out, cudaStream_t s) {
-  const int per_group = lu_det_values<G>() * (int)sizeof(T);
-  const int warps = lie_warps((kLieWarp / G) * per_group);
-  const int per_block = warps * (kLieWarp / G);
-  const unsigned g = (unsigned)((nb + per_block - 1) / per_block);
-  det_groups<T, G, kLog><<<g, warps * kLieWarp, per_block * per_group, s>>>(nb, n, mat, out);
+  const T r = lu_group_det<T, G, kLog>(row, n, lane, rows, rows + 2 * G);
+  if (gl == 0 && b < nb) out.p[b * out.sb] = r;
 }
 
 // ---------------------------------------------------------------------------
@@ -339,7 +351,11 @@ cudaError_t launch_inv(int n, long long nb, MatView<T> mat, View<T> out, cudaStr
 #undef FM_INV_CASE
     default:
       if (n < 1 || n > kMaxN) return cudaErrorInvalidValue;
-      full_rolled<T><<<g, kThreads, 0, s>>>(nb, n, n, mat, View<const T>{nullptr, 0, 0}, out);
+      if (lie_group(n) == 16)
+        lu_launch<16>(inv_groups<T, 16>, lu_inv_bytes<T, 16>(), nb, s, n, mat, out);
+      else
+        lu_launch<kLieWarp>(inv_groups<T, kLieWarp>, lu_inv_bytes<T, kLieWarp>(), nb, s, n,
+                            mat, out);
   }
   return cudaGetLastError();
 }
@@ -355,8 +371,11 @@ cudaError_t launch_det(int n, long long nb, MatView<T> mat, View<T> out, cudaStr
 #undef FM_DET_CASE
     default:
       if (n < 1 || n > kMaxN) return cudaErrorInvalidValue;
-      if (lie_group(n) == 16) launch_det_groups<T, 16, kLog>(n, nb, mat, out, s);
-      else launch_det_groups<T, kLieWarp, kLog>(n, nb, mat, out, s);
+      if (lie_group(n) == 16)
+        lu_launch<16>(det_groups<T, 16, kLog>, lu_det_bytes<T, 16>(), nb, s, n, mat, out);
+      else
+        lu_launch<kLieWarp>(det_groups<T, kLieWarp, kLog>, lu_det_bytes<T, kLieWarp>(), nb, s, n,
+                            mat, out);
   }
   return cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // Lane-group LU with first-max partial pivoting for 9 <= n <= 32, shared by
-// the determinant / log-determinant kernel (batched.cu, det_groups) and the
-// compact inverse (sym_factor.cu, sym_invert_groups).
+// the determinant / log-determinant and inverse kernels (batched.cu,
+// det_groups, inv_groups) and the compact determinant and inverse
+// (sym_factor.cu, sym_det_groups, sym_invert_groups).
 //
 // A group of G lanes owns one problem (G = 16 for n <= 16, 32 above:
 // lie_group; 32 / G problems a warp, lie_common.cuh). Lane i holds row i
@@ -25,11 +26,11 @@
 // division, as rolled_factor) and updates its columns k+1.. with FMAs in
 // registers.
 //
-// The determinant keeps two pivot rows in turn and the retiring rows'
-// pivots. The inverse keeps every retired row (row s of U, with the
-// multipliers of row s's steps in its columns < s: in-place LU) and the lane
-// each came from, then lane c solves for column c of A^-1: forward
-// substitution against the pivoted identity column, which is what
+// The determinants keep two pivot rows in turn and the retiring rows'
+// pivots (lu_group_det). The inverses keep every retired row (row s of U,
+// with the multipliers of row s's steps in its columns < s: in-place LU)
+// and the lane each came from, then lane c solves for column c of A^-1:
+// forward substitution against the pivoted identity column, which is what
 // eliminating [A | I] does to it, then rolled_backsub's back-substitution.
 // Every U and L read is a broadcast, and a lane holds about n live values
 // instead of 2n.
@@ -250,6 +251,25 @@ __device__ __forceinline__ void lu_group_solve_eye(const T* U, const int* perm, 
   }
 }
 
+// The determinant (kLog: log|det|) of the matrix whose row gl is `row`:
+// lu_group_factor<T, G, false> with two pivot rows at `rows`, then each
+// pivot's term, U_ss or log|U_ss|, written by the lane of row s to
+// terms[s] (G values) and folded in step order by the group's first lane,
+// which applies the parity's sign; the result is that lane's. Ends
+// synchronized.
+template <typename T, int G, bool kLog>
+__device__ __forceinline__ T lu_group_det(T (&row)[G], int n, int lane, T* rows, T* terms) {
+  const LuLane<T> me = lu_group_factor<T, G, false>(row, n, lane, rows, nullptr);
+  if (me.step >= 0) terms[me.step] = kLog ? fm_log(fm_abs(me.pivot)) : me.pivot;
+  __syncwarp(kLieMask);
+  T r = T(0);
+  if (lane % G == 0) {
+    r = terms[0];
+    for (int i = 1; i < n; ++i) r = kLog ? r + terms[i] : r * terms[i];
+  }
+  return !kLog && me.odd ? -r : r;
+}
+
 // Row gl of problem b of a full n x n operand into `row` (zero past n).
 // Lane gl reads entries e = gl + G t, t < G, all loads in flight at once
 // (`row` holds them), the group together in order (contiguous in a
@@ -307,16 +327,39 @@ __device__ __forceinline__ void lu_load_sym(const View<const T>& m, long long b,
   for (int c = 0; c < G; ++c) row[c] = gl < n && c < n ? stage[tri_index(gl, c, n)] : T(0);
 }
 
-// Shared memory of one group, in values of T: the determinant's staged
-// operand, two pivot rows and the n pivots' terms; the inverse's U (row
-// stride G, then X at stride G + 1), its staged compact operand and result
-// (G (G + 1) / 2 values, a multiple of 16 bytes), and perm (G ints).
-template <int G>
-__host__ __device__ constexpr int lu_det_values() { return G * (G | 1) + 3 * G; }
+// Shared memory of one group, in bytes: the determinants' staged operand
+// (G (G | 1) values, full, or compact in its first G (G + 1) / 2), two
+// pivot rows and the n pivots' terms (3 G values); the full inverse's U
+// (row stride G) over its staged operand (n (n | 1) <= G (G | 1) values:
+// the load is over before step 0 stores its pivot row), then perm (G
+// ints); the compact inverse's U (row stride G, then X at stride G + 1),
+// its staged compact operand and result (G (G + 1) / 2 values, a multiple
+// of 16 bytes), and perm. Every size is a multiple of 16 bytes, so each
+// group's pivot rows stay aligned for the vector stores.
+template <typename T, int G>
+__host__ __device__ constexpr int lu_det_bytes() {
+  return (G * (G | 1) + 3 * G) * (int)sizeof(T);
+}
+
+template <typename T, int G>
+__host__ __device__ constexpr int lu_inv_bytes() {
+  return G * (G | 1) * (int)sizeof(T) + G * (int)sizeof(int);
+}
 
 template <typename T, int G>
 __host__ __device__ constexpr int lu_invert_bytes() {
   return (G * (G + 1) + G * (G + 1) / 2) * (int)sizeof(T) + G * (int)sizeof(int);
+}
+
+// Launch `kern` over nb problems, a group of G lanes each at `per_group`
+// bytes of shared memory: blocks of lie_warps warps, 32 / G problems a
+// warp.
+template <int G, typename Kernel, typename... Args>
+void lu_launch(Kernel kern, int per_group, long long nb, cudaStream_t s, Args... args) {
+  const int warps = lie_warps((kLieWarp / G) * per_group);
+  const int per_block = warps * (kLieWarp / G);
+  const unsigned g = (unsigned)((nb + per_block - 1) / per_block);
+  kern<<<g, warps * kLieWarp, per_block * per_group, s>>>(nb, args...);
 }
 
 }  // namespace fm

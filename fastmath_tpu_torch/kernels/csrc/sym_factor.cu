@@ -4,8 +4,8 @@
 //   fm_sym_det     <- _det_sym_kernel  (sym_det_cf)
 //   fm_sym_invert  <- _invert_kernel   (sym_invert_cf)
 //
-// One thread owns one problem (a group of lanes in the inverse's 9..32
-// tier); operands are addressed through a batch
+// One thread owns one problem (a group of lanes in the 9..32 tiers);
+// operands are addressed through a batch
 // stride and a channel stride (View, sym_common.cuh), so one kernel reads
 // the batch-major (B, NN) layout of the public ops and the channel-first
 // (NN, B) layout of the *_cf wrappers. The inverse is compact too: the
@@ -21,22 +21,22 @@
 //              keeps only the strict lower part of what it has solved,
 //              which the later columns need for the symmetrized upper
 //              slots 0.5 * (X_ij + X_ji);
-//   9 <= N <= 32 the determinant: the rolled LU over an n x n per-thread
-//              local array; the inverse: the lane-group LU (lu_groups.cuh,
-//              sym_invert_groups), G = 16 lanes a problem to N = 16, 32
-//              above, rolled_factor's pivots on [A | I] without moving a
-//              row, each lane then solving for one column, the upper slots
-//              symmetrized the same way.
+//   9 <= N <= 32 the lane-group LU (lu_groups.cuh), G = 16 lanes a
+//              problem to N = 16, 32 above, rolled_factor's pivots without
+//              moving a row: the determinant (sym_det_groups) the signed
+//              product of the pivots, lu_group_det as batched.cu's
+//              det_groups on the compact load; the inverse
+//              (sym_invert_groups) on [A | I], each lane then solving for
+//              one column, the upper slots symmetrized the same way.
 //
 // What bounds them on the card: per problem the determinant moves
 // N(N+1)/2 + 1 values and the inverse N(N+1), for O(N^3) flops; at N <= 4
 // device memory bounds them, and each operand is read once with the work
-// in registers. The determinant's rolled local array (4,096 B in float32
-// at N = 32) lives in local memory; that is measured and recorded, not
-// tuned here. The inverse's lane groups hold a row, then a column, in
-// registers (about N^2 FMAs a lane) and U in shared memory; what bounds
-// them is instruction issue: each elimination step's reductions, division
-// and broadcast reads, then two triangular solves of dependent FMAs.
+// in registers. The lane groups hold a row in registers (about N^2 / 2
+// FMAs a lane), and the inverse's then a column (about N^2 more) with U in
+// shared memory; what bounds them is instruction issue: each elimination
+// step's reductions, division and broadcast reads, then the inverse's two
+// triangular solves of dependent FMAs.
 //
 // Every launch goes on the caller's stream, allocates nothing and does
 // not synchronize; each entry point returns cudaGetLastError().
@@ -84,17 +84,20 @@ sym_det_unrolled(long long nb, View<const T> mat, View<T> out) {
   out.p[b * out.sb] = r;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-sym_det_rolled(long long nb, int n, View<const T> mat, View<T> out) {
-  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (b >= nb) return;
-  T a[kMaxN * kMaxN];
-  rolled_load(a, n, n, mat.p + b * mat.sb, mat.sc, static_cast<const T*>(nullptr));
-  const int sign = rolled_factor(a, n, n);
-  T r = a[0];
-  for (int i = 1; i < n; ++i) r = r * a[i * n + i];
-  out.p[b * out.sb] = sign < 0 ? -r : r;
+// A group of G lanes a problem (lu_groups.cuh): the compact operand
+// staged and gathered into rows, then lu_group_det, whose result the
+// group's first lane writes.
+template <typename T, int G>
+__global__ void sym_det_groups(long long nb, int n, View<const T> mat, View<T> out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % kLieWarp, gl = lane % G;
+  const long long b = blockIdx.x * (long long)(blockDim.x / G) + threadIdx.x / G;
+  T* stage = reinterpret_cast<T*>(smem_raw + (threadIdx.x / G) * lu_det_bytes<T, G>());
+  T* rows = stage + G * (G | 1);
+  T row[G];
+  lu_load_sym<T, G>(mat, b < nb ? b : nb - 1, n, gl, stage, row);
+  const T r = lu_group_det<T, G, false>(row, n, lane, rows, rows + 2 * G);
+  if (gl == 0 && b < nb) out.p[b * out.sb] = r;
 }
 
 // ---------------------------------------------------------------------------
@@ -173,16 +176,6 @@ __global__ void sym_invert_groups(long long nb, int n, View<const T> mat, View<T
   for (int e = gl; e < n * (n + 1) / 2; e += G) o[e * out.sc] = stage[e];
 }
 
-template <typename T, int G>
-void launch_sym_invert_groups(int n, long long nb, View<const T> mat, View<T> out,
-                              cudaStream_t s) {
-  const int per_group = lu_invert_bytes<T, G>();
-  const int warps = lie_warps((kLieWarp / G) * per_group);
-  const int per_block = warps * (kLieWarp / G);
-  const unsigned g = (unsigned)((nb + per_block - 1) / per_block);
-  sym_invert_groups<T, G><<<g, warps * kLieWarp, per_block * per_group, s>>>(nb, n, mat, out);
-}
-
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
@@ -198,7 +191,11 @@ cudaError_t launch_sym_det(int n, long long nb, View<const T> mat, View<T> out, 
 #undef FM_SYM_DET_CASE
     default:
       if (n < 1 || n > kMaxN) return cudaErrorInvalidValue;
-      sym_det_rolled<T><<<g, kThreads, 0, s>>>(nb, n, mat, out);
+      if (lie_group(n) == 16)
+        lu_launch<16>(sym_det_groups<T, 16>, lu_det_bytes<T, 16>(), nb, s, n, mat, out);
+      else
+        lu_launch<kLieWarp>(sym_det_groups<T, kLieWarp>, lu_det_bytes<T, kLieWarp>(), nb, s, n,
+                            mat, out);
   }
   return cudaGetLastError();
 }
@@ -215,8 +212,11 @@ cudaError_t launch_sym_invert(int n, long long nb, View<const T> mat, View<T> ou
 #undef FM_SYM_INVERT_CASE
     default:
       if (n < 1 || n > kMaxN) return cudaErrorInvalidValue;
-      if (lie_group(n) == 16) launch_sym_invert_groups<T, 16>(n, nb, mat, out, s);
-      else launch_sym_invert_groups<T, kLieWarp>(n, nb, mat, out, s);
+      if (lie_group(n) == 16)
+        lu_launch<16>(sym_invert_groups<T, 16>, lu_invert_bytes<T, 16>(), nb, s, n, mat, out);
+      else
+        lu_launch<kLieWarp>(sym_invert_groups<T, kLieWarp>, lu_invert_bytes<T, kLieWarp>(), nb,
+                            s, n, mat, out);
   }
   return cudaGetLastError();
 }

@@ -5,8 +5,8 @@ PyTorch versions and autograd.
 ``sym_invert_cf`` replaces ``_invert_kernel``
 (``fastmath_tpu/kernels/sym_pallas.py``). Both kernels live in
 ``csrc/sym_factor.cu``; one thread owns one problem (a group of 16 or 32
-lanes in the inverse's 9 <= N <= 32 tier, ``csrc/lu_groups.cuh``), and the
-source's header gives the tiers and what bounds them.
+lanes in the 9 <= N <= 32 tiers, ``csrc/lu_groups.cuh``), and the source's
+header gives the tiers and what bounds them.
 
 Matrices and inverses are compact (the diagonal first, then the upper
 rows). Each wrapper launches its kernel on a CUDA tensor and runs its

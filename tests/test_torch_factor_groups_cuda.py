@@ -1,6 +1,7 @@
-"""The lane-group LU tiers (9 <= n <= 32) of the determinant, log-determinant
-and compact inverse kernels (``csrc/lu_groups.cuh``) on the inputs that
-exercise their pivot bookkeeping, on the card.
+"""The lane-group LU tiers (9 <= n <= 32) of the determinant, log-determinant,
+inverse, compact determinant and compact inverse kernels
+(``csrc/lu_groups.cuh``) on the inputs that exercise their pivot
+bookkeeping, on the card.
 
 Every test here is marked ``cuda`` and skips on a machine without an
 NVIDIA GPU (the kernels have no CPU mode). This file imports neither JAX
@@ -13,7 +14,7 @@ nor ``fastmath_tpu``:
   Signed, row- and column-permuted Hadamard blocks (every entry of a
   column ties), row-permuted scaled identities (every step swaps) and
   small-integer matrices (ties in most columns) must give the plain
-  version's determinant sign exactly and its values within ``TOL``:
+  version's determinant signs exactly and its values within ``TOL``:
   float32 1e-5, float64 1e-12, relative for a determinant, ``tol *
   max(1, |logdet|)`` for log|det|, normwise for the inverse. The kernels
   contract multiply-adds into FMAs and the plain versions do not. The
@@ -29,7 +30,8 @@ import numpy as np
 import pytest
 import torch
 
-from fastmath_tpu_torch.kernels import batched_cuda, det_cf, logdet_cf, sym_factor, sym_invert_cf
+from fastmath_tpu_torch.kernels import (batched_cuda, det_cf, inv_cf, logdet_cf, sym_det_cf,
+                                        sym_factor, sym_invert_cf)
 from fastmath_tpu_torch.layouts import full_to_sym
 
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -131,20 +133,26 @@ def test_ties_match_plain(n, dtype, layout, rng):
     s = full_to_sym(torch.tensor(_ties_symmetric(rng, n), dtype=dtype, device="cuda"))
     a_in, s_in = (_cf(a), _cf(s)) if cf else (a, s.contiguous())
 
-    before = [w.launches for w in (det_cf, logdet_cf, sym_invert_cf)]
+    wrappers = (det_cf, logdet_cf, inv_cf, sym_det_cf, sym_invert_cf)
+    before = [w.launches for w in wrappers]
     det = batched_cuda.launch_det(a_in, cf_out=cf)
     logdet = batched_cuda.launch_logdet(a_in, cf_out=cf)
-    inv = sym_factor.launch_sym_invert(s_in, cf_out=cf)
-    assert [w.launches - b for w, b in zip((det_cf, logdet_cf, sym_invert_cf), before)] == [1] * 3
+    inv = batched_cuda.launch_inv(a_in, cf_out=cf)
+    sdet = sym_factor.launch_sym_det(s_in, cf_out=cf)
+    sinv = sym_factor.launch_sym_invert(s_in, cf_out=cf)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1] * len(wrappers)
 
     det_p, logdet_p = batched_cuda.det_plain(a), batched_cuda.logdet_plain(a)
-    inv_p = sym_factor.invert_plain(s.contiguous())
-    assert torch.isfinite(det_p).all() and (det_p != 0).all()
-    assert torch.equal(torch.sign(det).cpu(), torch.sign(det_p).cpu())
-    assert ((det - det_p).abs() / det_p.abs()).max().item() <= tol
+    sdet_p = sym_factor.sym_det_plain(s.contiguous())
+    for got, want in ((det, det_p), (sdet, sdet_p)):
+        assert torch.isfinite(want).all() and (want != 0).all()
+        assert torch.equal(torch.sign(got).cpu(), torch.sign(want).cpu())
+        assert ((got - want).abs() / want.abs()).max().item() <= tol
     assert ((logdet - logdet_p).abs() / logdet_p.abs().clamp_min(1.0)).max().item() <= tol
-    err = ((inv - inv_p).double().norm(dim=1) / inv_p.double().norm(dim=1)).max().item()
-    assert err <= tol
+    for got, want in ((inv, batched_cuda.inv_plain(a)),
+                      (sinv, sym_factor.invert_plain(s.contiguous()))):
+        err = ((got - want).double().norm(dim=1) / want.double().norm(dim=1)).max().item()
+        assert err <= tol
 
 
 def _poisoned(rng, b, n):
@@ -172,16 +180,19 @@ def test_neighbours_keep_their_bits(n, dtype, rng):
         a_in, s_in = (_cf(a), _cf(s)) if cf else (a, s)
         outs = (batched_cuda.launch_det(a_in, cf_out=cf),
                 batched_cuda.launch_logdet(a_in, cf_out=cf),
+                batched_cuda.launch_inv(a_in, cf_out=cf),
+                sym_factor.launch_sym_det(s_in, cf_out=cf),
                 sym_factor.launch_sym_invert(s_in, cf_out=cf))
         for t in range(0, b, 2):
             alone = (batched_cuda.launch_det(a[t:t + 1]), batched_cuda.launch_logdet(a[t:t + 1]),
+                     batched_cuda.launch_inv(a[t:t + 1]), sym_factor.launch_sym_det(s[t:t + 1]),
                      sym_factor.launch_sym_invert(s[t:t + 1]))
             for got, one in zip(outs, alone):
                 assert torch.isfinite(one).all()
                 assert torch.equal(_bits(got[t:t + 1]), _bits(one)), (t, cf)
         # the singular problems: det exactly 0 or NaN, never a finite nonzero
-        det = outs[0].cpu()
-        assert all(det[t] == 0 or torch.isnan(det[t]) for t in range(1, b, 4))
+        for det in (outs[0].cpu(), outs[3].cpu()):
+            assert all(det[t] == 0 or torch.isnan(det[t]) for t in range(1, b, 4))
 
 
 @pytest.mark.cuda
@@ -193,6 +204,7 @@ def test_ragged_batches(n, dtype, rng):
     s = full_to_sym(torch.tensor(0.5 * (full + full.transpose(0, 2, 1)), dtype=dtype,
                                  device="cuda")).contiguous()
     whole = (batched_cuda.launch_det(a), batched_cuda.launch_logdet(a),
+             batched_cuda.launch_inv(a), sym_factor.launch_sym_det(s),
              sym_factor.launch_sym_invert(s))
     for b in (1, 3, 33):
         for cf in (False, True):
@@ -200,6 +212,8 @@ def test_ragged_batches(n, dtype, rng):
             s_in = _cf(s[:b]) if cf else s[:b]
             part = (batched_cuda.launch_det(a_in, cf_out=cf),
                     batched_cuda.launch_logdet(a_in, cf_out=cf),
+                    batched_cuda.launch_inv(a_in, cf_out=cf),
+                    sym_factor.launch_sym_det(s_in, cf_out=cf),
                     sym_factor.launch_sym_invert(s_in, cf_out=cf))
             for got, want in zip(part, whole):
                 assert torch.equal(_bits(got), _bits(want[:b])), (b, cf)

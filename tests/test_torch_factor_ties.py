@@ -1,6 +1,7 @@
 """The rolled tier's first-max partial pivoting (9 <= n <= 32) on inputs
 whose pivot columns tie: the port's plain versions of the determinant,
-log-determinant and compact inverse (``det_plain``, ``logdet_plain``,
+log-determinant, inverse, compact determinant and compact inverse
+(``det_plain``, ``logdet_plain``, ``inv_plain``, ``sym_det_plain``,
 ``invert_plain``, which the lane-group CUDA kernels of
 ``csrc/lu_groups.cuh`` mirror) against the reference's Pallas kernels run
 in interpret mode, at n = 9 and 16.
@@ -74,14 +75,15 @@ def _tie_heavy(rng, n, sym, b=22):
 
 
 @pytest.mark.parametrize("n", [9, 16])
-@pytest.mark.parametrize("name", ["det_cf", "logdet_cf", "sym_invert_cf"])
+@pytest.mark.parametrize("name", ["det_cf", "logdet_cf", "inv_cf", "sym_det_cf", "sym_invert_cf"])
 def test_rolled_pivots_on_ties_match_pallas(name, n, rng):
     # the rolled tier's first-max pivoting on tie-heavy input: the plain
     # versions (which the lane-group kernels mirror) against the reference
     # kernel in interpret mode, the determinant's sign exactly
-    full = _tie_heavy(rng, n, sym=name == "sym_invert_cf")
+    sym = name.startswith("sym_")
+    full = _tie_heavy(rng, n, sym=sym)
     b = len(full)
-    mat = _compact(full) if name == "sym_invert_cf" else full.reshape(b, n * n)
+    mat = _compact(full) if sym else full.reshape(b, n * n)
     mat = np.ascontiguousarray(mat.T)
     wrapper = getattr(K, name)
     got = wrapper(torch.from_numpy(mat)).numpy()
@@ -89,7 +91,7 @@ def test_rolled_pivots_on_ties_match_pallas(name, n, rng):
     assert got.shape == want.shape
     if name == "logdet_cf":
         assert np.all(np.abs(got - want) <= 1e-10 * np.maximum(1.0, np.abs(want)))
-    elif name == "det_cf":
+    elif name in ("det_cf", "sym_det_cf"):
         assert np.all(np.abs(want) > 0.5)  # nonsingular integer-valued determinants
         np.testing.assert_array_equal(np.sign(got), np.sign(want))
         np.testing.assert_allclose(got, want, rtol=1e-10)
