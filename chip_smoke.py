@@ -13,8 +13,8 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    tier (N = 1 .. 32; JᵀHJ at K, D up to 32), float32 and float64, with
    and without ``eps``, ``refine`` 0..2, on a ragged batch, in the
    batch-major and the channel-first layout, and against a float64 numpy
-   oracle; the full-storage solve (k = 1, 3, 8 columns up to n = 8, 1 and
-   16 above, also reading A transposed) and inverse (also at n = 12, 17
+   oracle; the full-storage solve (k = 1, 3, 8 columns up to n = 8, 1, 16,
+   17 and 40 above, also reading A transposed) and inverse (also at n = 12, 17
    and 24) on general matrices that pivot at most steps and on SPD
    matrices; the determinant,
    log-determinant, Cholesky, compact determinant and compact inverse
@@ -44,7 +44,8 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    batch of 4x4 float32 compact SPD matrices made as ``bench.py`` makes
    them, and ``sym_solve_chain`` with k = 128 on the same batch; launch
    counts, normwise error against float64 numpy, solves/s; then N = 8
-   and 16;
+   and 16, the solve and the chain beside their bounds and the solve
+   beside ``torch.linalg.solve_ex`` on the densified batch;
 5. the products' path at full size (``bench/suite.py``'s shapes): the
    public ``sym_matvec``, ``sym_addmatvec``, ``sym_submatvec`` and
    ``sym_outer`` on that batch, ``sym_matmul`` JᵀHJ at K = D = 16 on
@@ -59,7 +60,8 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    launch counts, normwise error against float64 numpy, per-call, host
    and device times, each kernel alone against its bound, its plain
    version and ``torch.linalg.inv_ex`` / ``solve_ex``; the inverse kernel
-   also timed at 32x32 on 100,000;
+   also timed at 32x32 on 100,000, the solve kernel at 24x24 on 200,000
+   and 32x32 on 100,000 with one column and at 16x16 on 500k with 16;
 7. the factor path at the bench suite's shapes (float32, a a^T + n I):
    the public ``batchchol`` at 3x3 and 8x8 on 1M, 16x16 on 500k and 24x24
    on 200k, ``batchlogdet`` 16x16 on 500k and 32x32 on 100k, ``batchdet``
@@ -70,7 +72,8 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    for log|det|), per-call, host and device times, each kernel alone
    against its bound, its plain version and one ``torch.linalg`` call
    (``det``, ``slogdet``, ``cholesky_ex``, ``det`` / ``inv_ex`` of the
-   densified compact matrix); the determinant kernel also timed at 16x16
+   densified compact matrix); the Cholesky kernel also timed at 32x32 on
+   100k, the determinant kernel at 16x16
    on 500k and 32x32 on 100k (on (a a^T + n I) / n), the compact
    determinant at N = 32 on 65,536 (on (a a^T + n I) / n), the compact
    inverse at N = 32 on 65,536;
@@ -446,6 +449,10 @@ def general(rng, b, n):
 # every tier, and the lane-group LU's edges (G = 16 to n = 16, 32 above)
 FACTOR_CHECK_NS = (1, 2, 3, 4, 5, 8, 9, 12, 16, 17, 24, 32)
 SOLVE_CHECK_NS = (1, 2, 3, 4, 5, 8, 9, 16, 32)
+# the lane-group solve's widths: one column, a block of G = 16 columns and
+# one ragged column past it, and 40 (two blocks and a ragged one at G = 16,
+# one and a ragged one at G = 32)
+SOLVE_GROUP_KS = (1, 16, 17, 40)
 
 
 def phase_batched_vs_plain(torch, rng):
@@ -474,7 +481,7 @@ def phase_batched_vs_plain(torch, rng):
                           BC.launch_inv(m, cf_out=layout == "cf"), plain, inv64, dt_name)
                 if n not in SOLVE_CHECK_NS:
                     continue
-                for k in ((1, 3, 8) if n <= 8 else (1, 16)):
+                for k in ((1, 3, 8) if n <= 8 else SOLVE_GROUP_KS):
                     rhs = torch.tensor(rng.standard_normal((B_CHECK, n * k)), dtype=dtype,
                                        device=DEV)
                     r64 = rhs.double().cpu().numpy().reshape(B_CHECK, n, k)
@@ -1008,8 +1015,17 @@ def phase_main_path(torch, rng):
     return kernels, (full, vec_np, mat, vec)
 
 
+def ops_chain_rolled(n, iters):
+    """Arithmetic operations of the rolled chain kernel's ``iters`` steps
+    x <- A^-1 x + c: the explicit inverse once (the solve against the
+    identity's n columns), then n^2 multiply-adds and n adds a step."""
+    return ops_plu(n, n) + iters * 2 * n * n
+
+
 def phase_wide(torch, rng):
-    """Solve and chain at N = 8 (unrolled PLU) and N = 16 (rolled PLU)."""
+    """Solve and chain at N = 8 (unrolled PLU) and N = 16 (rolled PLU),
+    each kernel beside its bound; the solve also beside
+    ``torch.linalg.solve_ex`` on the densified batch."""
     import fastmath_tpu_torch as T
     from fastmath_tpu_torch.kernels import sym_cuda
     from fastmath_tpu_torch.layouts import full_to_sym
@@ -1017,7 +1033,9 @@ def phase_wide(torch, rng):
     torch.backends.cuda.matmul.allow_tf32 = False
     for n in (8, 16):
         a = torch.from_numpy(rng.standard_normal((B_WIDE, n, n)).astype(np.float32)).to(DEV)
-        mat = full_to_sym(a @ a.mT + n * torch.eye(n, device=DEV)).contiguous()
+        dense = a @ a.mT + n * torch.eye(n, device=DEV)
+        mat = full_to_sym(dense).contiguous()
+        del a
         vec = torch.from_numpy(rng.standard_normal((B_WIDE, n)).astype(np.float32)).to(DEV)
         x = T.sym_solve(mat, vec, backend="cuda")
         nw = normwise(x[:4096].cpu().numpy(),
@@ -1030,9 +1048,19 @@ def phase_wide(torch, rng):
                         reps=5)
         if t_s is None or t_c is None:
             fail(f"N={n}: the kernels could not be queued ahead of the card")
+        # yardstick only: one library solve of the same systems, densified
+        t_lib = yardstick_ms(torch, lambda: torch.linalg.solve_ex(dense, vec[..., None]),
+                             f"N={n} solve_ex")
+        nn = n * (n + 1) // 2
+        b_s, by_s = bound(B_WIDE * (nn + 2 * n) * 4, B_WIDE * ops_plu(n, 1), "float32")
+        b_c, by_c = bound(B_WIDE * (nn + 2 * n) * 4, B_WIDE * ops_chain_rolled(n, CHAIN_K),
+                          "float32")
         log(f"  N={n} B={B_WIDE} f32 kernels: solve {t_s:.4f} ms "
-            f"({B_WIDE / t_s * 1e3:.4e} solves/s, normwise max {nw.max():.3e}); "
-            f"chain k={CHAIN_K} {t_c:.4f} ms ({B_WIDE * CHAIN_K / t_c * 1e3:.4e} solves/s)")
+            f"({B_WIDE / t_s * 1e3:.4e} solves/s, normwise max {nw.max():.3e}; bound "
+            f"{b_s:.4f} ms by {by_s}, {b_s / t_s * 100:.1f}% of it; solve_ex {t_lib:.4f} ms); "
+            f"chain k={CHAIN_K} {t_c:.4f} ms ({B_WIDE * CHAIN_K / t_c * 1e3:.4e} solves/s; "
+            f"bound {b_c:.4f} ms by {by_c})")
+        del dense, mat, vec, x
 
 
 # --- phase 5 -----------------------------------------------------------------
@@ -1244,6 +1272,10 @@ INV_SHAPES = ((3, 1_000_000), (8, 1_000_000), (16, 500_000), (24, 200_000))
 # timed beside its library call, not part of the path: the inverse's
 # G = 32 lane groups at their widest
 INV_TIMED = ((32, 100_000),)
+# the solve's lane groups timed beside their library call, not part of the
+# path: (n, batch, k) at the inverse's shapes with one column, and 16
+# columns at 16 x 16
+SOLVE_TIMED = ((24, 200_000, 1), (32, 100_000, 1), (16, 500_000, 16))
 N_GATE, B_GATE = 16, 500_000
 N_DENSE, B_DENSE = 40, 4096  # compact N > 32: sym_solve's torch.linalg tier
 
@@ -1368,13 +1400,14 @@ def phase_batched(torch, rng):
             "inv", kern, lambda f=flat[n]: BC.inv_plain(f),
             lambda a=alone[n]: torch.linalg.inv_ex(a),
             bound(b * 2 * n * n * 4, b * ops_inv(n), "float32"))
-    g16, rhs16 = flat[N_GATE], v16
-    rows[f"solve {N_GATE}x{N_GATE} on {B_GATE}"] = (
-        "solve_full", lambda: BC.launch_solve_full(g16, rhs16, 1),
-        lambda: BC.solve_full_plain(g16, rhs16, 1),
-        lambda: torch.linalg.solve_ex(mats[N_GATE], v16[..., None]),
-        bound(B_GATE * (N_GATE * N_GATE + 2 * N_GATE) * 4, B_GATE * ops_plu(N_GATE, 1),
-              "float32"))
+    for n, b, k in ((N_GATE, B_GATE, 1),) + SOLVE_TIMED:
+        rhs = v16 if (n, b, k) == (N_GATE, B_GATE, 1) else torch.randn(
+            b, n * k, generator=gen, device=DEV)
+        rows[f"solve {n}x{n} on {b}" + (f" k={k}" if k > 1 else "")] = (
+            "solve_full", lambda f=flat[n], r=rhs, k=k: BC.launch_solve_full(f, r, k),
+            lambda f=flat[n], r=rhs, k=k: BC.solve_full_plain(f, r, k),
+            lambda a=alone[n], r=rhs, n=n, k=k: torch.linalg.solve_ex(a, r.reshape(-1, n, k)),
+            bound(b * (n * n + 2 * n * k) * 4, b * ops_plu(n, k), "float32"))
     kernels, shapes = [], {"inv": [], "solve_full": []}
     for name, (counted, kern, plain, lib, (b_ms, b_by)) in rows.items():
         y, want = kern(), plain()
@@ -1423,6 +1456,8 @@ SYM_SHAPES = ((4, 1_000_000), (16, 262_144))
 DET_TIMED = ((16, 500_000), (32, 100_000))
 SYM_DET_TIMED = ((32, 65_536),)
 SYM_INVERT_TIMED = ((32, 65_536),)
+# the Cholesky factor's G = 32 lane groups at their widest
+CHOL_TIMED = ((32, 100_000),)
 # the shape of each kernel's row in the kernels line
 FACTOR_ROWS = {"det": 8, "logdet": 16, "chol": 16, "sym_det": 16, "sym_invert": 4}
 
@@ -1483,7 +1518,7 @@ def phase_factor(torch, rng, mat4):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=DEV)
     gen.manual_seed(int(rng.integers(2 ** 31)))
-    sizes = sorted({*CHOL_SHAPES, *LOGDET_SHAPES, *DET_SHAPES})
+    sizes = sorted({*CHOL_SHAPES, *LOGDET_SHAPES, *DET_SHAPES, *CHOL_TIMED})
     full = {nb: spd_on_card(torch, gen, nb[1], nb[0]) for nb in sizes}
     comp = {(4, B_MAIN): mat4,
             SYM_SHAPES[1]: full_to_sym(spd_on_card(torch, gen, SYM_SHAPES[1][1],
@@ -1555,7 +1590,7 @@ def phase_factor(torch, rng, mat4):
                        "sym_pallas.py:493", "sym_factor.cu"),
     }
     kernels, timed = [], {op: [] for op in spec}
-    for op, shapes in (("chol", CHOL_SHAPES), ("logdet", LOGDET_SHAPES),
+    for op, shapes in (("chol", CHOL_SHAPES + CHOL_TIMED), ("logdet", LOGDET_SHAPES),
                        ("det", DET_SHAPES + DET_TIMED), ("sym_det", SYM_SHAPES + SYM_DET_TIMED),
                        ("sym_invert", SYM_SHAPES + SYM_INVERT_TIMED)):
         for n, b in shapes:

@@ -6,7 +6,9 @@ every Pallas TPU kernel becomes a CUDA kernel written for Hopper
 (``kernels/csrc``), with a plain PyTorch version beside it that serves
 CPU tensors. This package imports neither JAX nor ``fastmath_tpu``.
 """
-from . import kernels, layouts
+from . import core, kernels, layouts
+from .kernels import sym_invert_cf, sym_matvec_cf, sym_solve_cf
+from .ops import batched, lie, qr, sugar, sym
 from .ops.batched import (batchchol, batchdet, batchinv, batchlmdiv, batchlogdet,
                           batchmatmul, batchmatvec, batchrmdiv)
 from .ops.lie import expm, expm_derivatives, logm, meanm
@@ -27,4 +29,5 @@ __all__ = ["sym_to_full", "full_to_sym", "sym_diag", "sym_solve", "sym_solve_",
            "qr_hessenberg", "rq_hessenberg", "hessenberg", "hessenberg_sym", "householder",
            "householder_apply", "givens", "givens_apply", "kron2", "lmdiv", "rmdiv", "inv",
            "matvec", "solvevec", "outer", "trace", "dot", "mdot", "is_orthonormal", "round",
-           "expm", "logm", "meanm", "expm_derivatives", "layouts", "kernels"]
+           "expm", "logm", "meanm", "expm_derivatives", "core", "layouts", "kernels", "batched",
+           "lie", "qr", "sugar", "sym", "sym_solve_cf", "sym_matvec_cf", "sym_invert_cf"]

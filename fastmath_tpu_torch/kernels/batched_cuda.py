@@ -9,8 +9,7 @@ versions and autograd.
 ``_matvec_full_kernel`` and ``matmul_cf`` ``_matmul_kernel``
 (``fastmath_tpu/kernels/batched_pallas.py``). The first five kernels live
 in ``csrc/batched.cu``, where one thread owns one problem (a group of 16
-or 32 lanes in the 9 <= n <= 32 tiers of the inverse and the determinant,
-``csrc/lu_groups.cuh``);
+or 32 lanes in the 9 <= n <= 32 tiers, ``csrc/lu_groups.cuh``);
 the two products in ``csrc/batched_products.cu``, where one thread owns a
 problem (matvec) or one output entry (matmul). Each source's header gives
 the tiers and what bounds them.
@@ -53,15 +52,11 @@ __all__ = ["solve_full_cf", "inv_cf", "det_cf", "logdet_cf", "chol_cf", "matvec_
 _LIB = "batched"
 _PRODUCTS_LIB = "batched_products"
 #: n up to this runs the unrolled tiers in registers; above, the rolled
-#: tier (the solve over a per-thread local array, the inverse and the
-#: determinant in lane groups; the same pivots and arithmetic)
+#: tier (lane groups on the card; the same pivots and arithmetic)
 _PLU_UNROLL_N = 8
 #: the Cholesky factor is unrolled up to this n; above, the rolled
 #: outer-product form
 _CHOL_UNROLL_N = 8
-#: row width of the rolled tier's local array (``kRolledWidth`` of
-#: ``csrc/sym_common.cuh``): it holds [A | B] with n + k columns
-_ROLLED_WIDTH = 2 * MAX_N + 1
 
 
 def _order(channels: int) -> int:
@@ -278,9 +273,6 @@ def launch_solve_full(mat, rhs, k, trans=False, cf_out=False):
     transposed view of (n*k, B) if ``cf_out``."""
     n = _order(mat.shape[-1])
     b = check(mat, n, ("mat", mat, n * n), ("rhs", rhs, n * k))
-    if n > _PLU_UNROLL_N and n + k > _ROLLED_WIDTH:
-        raise ValueError(f"the rolled tier (n > {_PLU_UNROLL_N}) holds [A | B] in "
-                         f"n + k <= {_ROLLED_WIDTH} columns; got n={n}, k={k}")
     out = empty(rhs, b, n * k, cf_out)
     launch(_library(), solve_full_cf, "fm_solve_full", mat, n, k, b, *operand(mat),
            int(trans), *operand(rhs), *operand(out))
@@ -532,8 +524,8 @@ def _check_order(op, channels):
 def solve_full_cf(mat: torch.Tensor, rhs: torch.Tensor, k: int = 1) -> torch.Tensor:
     r"""Channel-first batched full-matrix solve ``A \ B``: ``mat (n*n,
     ...)`` row-major, ``rhs (n*k, ...)`` row-major ``(i, c) -> i*k + c``
-    -> ``(n*k, ...)``; batch dims broadcast, n <= 32. All k columns are
-    solved with one factorization. Launches the CUDA kernel on CUDA
+    -> ``(n*k, ...)``; batch dims broadcast, n <= 32, any k. All k columns
+    are solved with one factorization. Launches the CUDA kernel on CUDA
     tensors, and runs the plain version on CPU tensors."""
     mat, rhs, half = upcast_half(mat, rhs)
     n = _check_order("solve_full_cf", mat.shape[0])

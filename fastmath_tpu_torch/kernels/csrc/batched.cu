@@ -10,9 +10,9 @@
 //
 // A matrix is full n x n storage in n*n row-major channels; right-hand
 // sides and solutions are n x k in n*k row-major channels. One thread owns
-// one problem (a group of lanes in the 9..32 tiers of the inverse and the
-// determinant), and each operand is addressed through a batch stride and a
-// channel stride (View, sym_common.cuh), so one kernel reads both the
+// one problem (a group of lanes in the 9..32 tiers), and each operand is
+// addressed through a batch stride and a channel stride (View,
+// sym_common.cuh), so one kernel reads both the
 // batch-major (B, n*n) layout of the public ops and the channel-first
 // (n*n, B) layout of the *_cf wrappers without a transpose. The solve can
 // read A transposed (entry (i, j) from channel j*n + i), which is how its
@@ -27,16 +27,19 @@
 //                   registers and is taken at run time;
 //   inverse, n <= 4 generated cofactors times 1/det (batched_adjugate.cuh);
 //   inverse, 5..8   the unrolled solve against the identity's columns;
-//   solve, 9..32    rolled LU over a per-thread local array [A | B] (n + k
-//                   columns), multipliers by division, then
-//                   back-substitution (fm::rolled_factor,
-//                   fm::rolled_backsub);
-//   inverse, 9..32  the lane-group LU (lu_groups.cuh, inv_groups): G = 16
-//                   lanes a problem to n = 16, 32 above, rolled_factor's
-//                   pivots on [A | I] without moving a row, U kept in
-//                   shared memory, then lane c solves for column c and
-//                   writes it (the operations of rolled_factor and
-//                   rolled_backsub on that column, in their order).
+//   solve and inverse, 9..32
+//                   the lane-group LU (lu_groups.cuh, solve_groups,
+//                   inv_groups): G = 16 lanes a problem to n = 16, 32
+//                   above, rolled_factor's pivots on [A | B] without
+//                   moving a row, U kept in shared memory, then lane c
+//                   solves for column c (the operations of rolled_factor
+//                   and rolled_backsub on that column, in their order).
+//                   The solve stages B in blocks of G columns through
+//                   shared memory, so k is any width; at k = 1 each lane
+//                   carries its row's entry of B through the factor
+//                   instead (solve1_groups), and one lane back-
+//                   substitutes. The inverse's columns are the
+//                   identity's, and each lane writes its own.
 //   det, n <= 4     the generated expansion (batched_adjugate.cuh); for
 //                   log|det| each row is first scaled by its largest
 //                   magnitude and the logs of the scales are added, so the
@@ -52,23 +55,22 @@
 //                   holds L[max(i,j)][min(i,j)]), no pivoting: n <= 8 the
 //                   unrolled Cholesky-Banachiewicz in registers (L_jj =
 //                   sqrt(s), then L_ij = s * (1 / L_jj)); 9..32 the
-//                   right-looking outer-product form on the packed lower
-//                   triangle in local memory (column k scaled by
-//                   rsqrt(W_kk), then the rank-1 update of the trailing
-//                   block). A matrix that is not SPD gives NaN.
+//                   right-looking outer-product form in lane groups
+//                   (chol_groups: row i in lane i's registers, column k
+//                   scaled by rsqrt(W_kk), then the rank-1 update of the
+//                   trailing rows). A matrix that is not SPD gives NaN.
 //
 // What bounds them on the card: per problem the solve moves n^2 + 2nk
 // values, the inverse 2n^2, the determinant n^2 + 1 and the Cholesky
 // factor n(n + 1), for O(n^3) flops, so at n <= 4 device memory bounds
-// them: each operand is read once and the work stays in registers. From n = 8 on the arithmetic grows past the bytes: the
-// unrolled tiers keep A in registers (the double-precision n = 8 tiers
-// spill), and the rolled solve's array lives in local memory (cached,
-// spilled to device memory), which is measured and recorded, not tuned
-// here. The lane groups of the inverse and the determinant keep A in
-// registers instead (about n^2 / 2 FMAs a lane in the factor, n^2 more in
-// the inverse's two triangular solves); what bounds them is instruction
-// issue: each step's reductions, division and broadcast reads cost more
-// than its FMAs.
+// them: each operand is read once and the work stays in registers. From
+// n = 8 on the arithmetic grows past the bytes: the unrolled tiers keep A
+// in registers (the double-precision n = 8 tiers spill), and the lane
+// groups of the 9..32 tiers keep a row a lane (about n^2 / 2 FMAs a lane in
+// the factor, n^2 more in each column's two triangular solves); what
+// bounds them is instruction issue: each step's reductions, division and
+// broadcast reads cost more than its FMAs, and at k = 1 one lane of the
+// group does the back-substitution.
 //
 // Every launch goes on the caller's stream, allocates nothing and does
 // not synchronize; each entry point returns cudaGetLastError().
@@ -154,29 +156,74 @@ inv_unrolled(long long nb, MatView<T> mat, View<T> out) {
 }
 
 // ---------------------------------------------------------------------------
-// 9 <= n <= 32: the rolled solve, the inverse's lane groups
+// 9 <= n <= 32: the lane groups of the solve and the inverse
 // ---------------------------------------------------------------------------
 
-// [A | B] (k columns): factor, back-substitute, write the k solution
-// columns.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-full_rolled(long long nb, int n, int k, MatView<T> mat, View<const T> rhs, View<T> out) {
-  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (b >= nb) return;
-  const int w = n + k;
-  T a[kMaxN * kRolledWidth];
-  const T* m = mat.p + b * mat.sb;
-  for (int i = 0; i < n; ++i)
-    for (int j = 0; j < n; ++j) a[i * w + j] = m[i * mat.rs + j * mat.cs];
-  const T* r = rhs.p + b * rhs.sb;
-  for (int i = 0; i < n; ++i)
-    for (int c = 0; c < k; ++c) a[i * w + n + c] = r[(i * k + c) * rhs.sc];
-  rolled_factor(a, n, w);
-  rolled_backsub(a, n, w);
-  T* o = out.p + b * out.sb;
-  for (int i = 0; i < n; ++i)
-    for (int c = 0; c < k; ++c) o[(i * k + c) * out.sc] = a[i * w + n + c];
+// A group of G lanes a problem (lu_groups.cuh): the lane-group LU with
+// every pivot row kept in U, which takes the place of the staged operand;
+// then, for each block of G columns of B staged in shared memory, lane c
+// solves for column c of the block, overwrites it with its solution, and
+// the group writes the block back in order.
+template <typename T, int G>
+__global__ void solve_groups(long long nb, int n, int k, MatView<T> mat, View<const T> rhs,
+                             View<T> out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % kLieWarp, gl = lane % G;
+  const long long b = blockIdx.x * (long long)(blockDim.x / G) + threadIdx.x / G;
+  const long long bb = b < nb ? b : nb - 1;
+  T* u = reinterpret_cast<T*>(smem_raw + (threadIdx.x / G) * lu_solve_bytes<T, G>());
+  T* blk = u + G * (G | 1);
+  int* perm = reinterpret_cast<int*>(blk + G * G);
+  T row[G];
+  lu_load_full<T, G>(mat, bb, n, gl, u, row);
+  __syncwarp(kLieMask);  // every row is gathered: step 0 may store its pivot row
+  lu_group_factor<T, G, true>(row, n, lane, u, perm);
+  for (int c0 = 0; c0 < k; c0 += G) {
+    const int kc = k - c0 < G ? k - c0 : G;
+    lu_block_load<T, G>(rhs, bb, n, k, c0, kc, gl, blk, row);
+    if (gl < kc) {
+      T x[G];
+      lu_group_solve<T, G>(u, perm, n, [=](int r) { return blk[r * kc + gl]; }, x);
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+        if (i < n) blk[i * kc + gl] = x[i];
+    }
+    __syncwarp(kLieMask);
+    if (b < nb) lu_block_store<T, G>(out, b, n, k, c0, kc, gl, blk);
+    __syncwarp(kLieMask);  // the block is written out before the next one loads
+  }
+}
+
+// k = 1: each lane carries its row's entry of B through the factor, which
+// leaves the forward substitution's y in shared memory; the group's first
+// lane back-substitutes, and the group writes x.
+template <typename T, int G>
+__global__ void solve1_groups(long long nb, int n, MatView<T> mat, View<const T> rhs,
+                              View<T> out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % kLieWarp, gl = lane % G;
+  const long long b = blockIdx.x * (long long)(blockDim.x / G) + threadIdx.x / G;
+  const long long bb = b < nb ? b : nb - 1;
+  T* u = reinterpret_cast<T*>(smem_raw + (threadIdx.x / G) * lu_solve1_bytes<T, G>());
+  T* y = u + G * (G | 1);
+  int* perm = reinterpret_cast<int*>(y + 2 * G);
+  T row[G];
+  T bv = gl < n ? rhs.p[bb * rhs.sb + gl * rhs.sc] : T(0);
+  lu_load_full<T, G>(mat, bb, n, gl, u, row);
+  __syncwarp(kLieMask);  // every row is gathered: step 0 may store its pivot row
+  lu_group_factor<T, G, true>(row, n, lane, u, perm, &bv, y);
+  __syncwarp(kLieMask);  // y is whole
+  if (gl == 0) {
+    T x[G];
+#pragma unroll
+    for (int s = 0; s < G; ++s) x[s] = s < n ? y[s] : T(0);
+    lu_group_backsub<T, G>(u, n, x);
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+      if (i < n) y[G + i] = x[i];
+  }
+  __syncwarp(kLieMask);
+  if (b < nb && gl < n) out.p[b * out.sb + gl * out.sc] = y[G + gl];
 }
 
 // A group of G lanes a problem (lu_groups.cuh): the lane-group LU with
@@ -196,7 +243,7 @@ __global__ void inv_groups(long long nb, int n, MatView<T> mat, View<T> out) {
   __syncwarp(kLieMask);  // every row is gathered: step 0 may store its pivot row
   lu_group_factor<T, G, true>(row, n, lane, u, perm);
   T x[G];
-  lu_group_solve_eye<T, G>(u, perm, n, gl, x);
+  lu_group_solve<T, G>(u, perm, n, [gl](int r) { return r == gl ? T(1) : T(0); }, x);
   if (b >= nb || gl >= n) return;
   T* o = out.p + b * out.sb + gl * out.sc;
 #pragma unroll
@@ -293,29 +340,60 @@ chol_unrolled(long long nb, View<const T> mat, View<T> out) {
     for (int j = 0; j <= i; ++j) o[tri_index(i, j, N) * out.sc] = E[i][j];
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-chol_rolled(long long nb, int n, View<const T> mat, View<T> out) {
-  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (b >= nb) return;
-  // the lower triangle packed by rows: entry (i, j), j <= i, at
-  // i (i + 1) / 2 + j; the factor overwrites it column by column
-  T w[kMaxN * (kMaxN + 1) / 2];
-  const T* m = mat.p + b * mat.sb;
-  for (int i = 0; i < n; ++i)
-    for (int j = 0; j <= i; ++j) w[i * (i + 1) / 2 + j] = m[tri_index(i, j, n) * mat.sc];
-  for (int k = 0; k < n; ++k) {
-    const T r = fm_rsqrt(w[k * (k + 1) / 2 + k]);
-    for (int i = k; i < n; ++i) w[i * (i + 1) / 2 + k] = w[i * (i + 1) / 2 + k] * r;
-    for (int i = k + 1; i < n; ++i) {
-      const T li = w[i * (i + 1) / 2 + k];
-      for (int j = k + 1; j <= i; ++j)
-        w[i * (i + 1) / 2 + j] = w[i * (i + 1) / 2 + j] - li * w[j * (j + 1) / 2 + k];
+// A group of G lanes a problem (lu_groups.cuh's row layout): lane i holds
+// row i of W, loaded by lu_load_sym. Step k: lane k's W_kk comes by a
+// shuffle within the group, lanes i >= k scale their entry k by
+// rsqrt(W_kk), giving L_ik, lanes i > k publish it to a column of L in
+// shared memory (two in turn: one __syncwarp a step orders a column's
+// readers before its next writer) and subtract L_ik L_jk from their
+// entries j > k, the L_jk read as broadcast vectors. Lane i ends with
+// row i of L in its entries j <= i, which go to compact slots (j, i)
+// staged in shared memory, and the group writes them in order. A problem
+// that is not SPD gives NaN in its own group only.
+template <typename T, int G>
+__global__ void chol_groups(long long nb, int n, View<const T> mat, View<T> out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  using V = typename LuVec<T>::type;
+  constexpr int kW = LuVec<T>::width;
+  const int lane = threadIdx.x % kLieWarp, gl = lane % G;
+  const long long b = blockIdx.x * (long long)(blockDim.x / G) + threadIdx.x / G;
+  T* cols = reinterpret_cast<T*>(smem_raw + (threadIdx.x / G) * lu_chol_bytes<T, G>());
+  T* stage = cols + 2 * G;
+  T row[G];
+  lu_load_sym<T, G>(mat, b < nb ? b : nb - 1, n, gl, stage, row);
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    if (k >= n) break;
+    const T d = __shfl_sync(kLieMask, row[k], k, G);
+    if (gl >= k) row[k] = row[k] * fm_rsqrt(d);
+    T* col = cols + (k & 1) * G;
+    if (gl > k) col[gl] = row[k];
+    __syncwarp(kLieMask);
+    if (gl > k) {
+#pragma unroll
+      for (int q = 0; q < G / kW; ++q) {
+        if (q < (k + 1) / kW) continue;
+        const V x = reinterpret_cast<const V*>(col)[q];
+#pragma unroll
+        for (int c = 0; c < kW; ++c) {
+          const int j = q * kW + c;
+          if (j > k) row[j] = row[j] - row[k] * lu_get(x, c);
+        }
+      }
     }
   }
+  // slot (j, i), j < i: n + j (n - 1) - j (j - 1) / 2 + i - j - 1
+  if (gl < n) {
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      if (j < gl) stage[n + j * (n - 1) - j * (j - 1) / 2 + gl - j - 1] = row[j];
+      else if (j == gl) stage[gl] = row[j];
+    }
+  }
+  __syncwarp(kLieMask);
+  if (b >= nb) return;
   T* o = out.p + b * out.sb;
-  for (int i = 0; i < n; ++i)
-    for (int j = 0; j <= i; ++j) o[tri_index(i, j, n) * out.sc] = w[i * (i + 1) / 2 + j];
+  for (int e = gl; e < n * (n + 1) / 2; e += G) o[e * out.sc] = stage[e];
 }
 
 // ---------------------------------------------------------------------------
@@ -334,8 +412,17 @@ cudaError_t launch_solve_full(int n, int k, long long nb, MatView<T> mat, View<c
     FM_SOLVE_FULL_CASE(5) FM_SOLVE_FULL_CASE(6) FM_SOLVE_FULL_CASE(7) FM_SOLVE_FULL_CASE(8)
 #undef FM_SOLVE_FULL_CASE
     default:
-      if (n < 1 || n > kMaxN || n + k > kRolledWidth) return cudaErrorInvalidValue;
-      full_rolled<T><<<g, kThreads, 0, s>>>(nb, n, k, mat, rhs, out);
+      if (n < 1 || n > kMaxN) return cudaErrorInvalidValue;
+      if (k == 1 && lie_group(n) == 16)
+        lu_launch<16>(solve1_groups<T, 16>, lu_solve1_bytes<T, 16>(), nb, s, n, mat, rhs, out);
+      else if (k == 1)
+        lu_launch<kLieWarp>(solve1_groups<T, kLieWarp>, lu_solve1_bytes<T, kLieWarp>(), nb, s,
+                            n, mat, rhs, out);
+      else if (lie_group(n) == 16)
+        lu_launch<16>(solve_groups<T, 16>, lu_solve_bytes<T, 16>(), nb, s, n, k, mat, rhs, out);
+      else
+        lu_launch<kLieWarp>(solve_groups<T, kLieWarp>, lu_solve_bytes<T, kLieWarp>(), nb, s, n,
+                            k, mat, rhs, out);
   }
   return cudaGetLastError();
 }
@@ -391,7 +478,11 @@ cudaError_t launch_chol(int n, long long nb, View<const T> mat, View<T> out, cud
 #undef FM_CHOL_CASE
     default:
       if (n < 1 || n > kMaxN) return cudaErrorInvalidValue;
-      chol_rolled<T><<<g, kThreads, 0, s>>>(nb, n, mat, out);
+      if (lie_group(n) == 16)
+        lu_launch<16>(chol_groups<T, 16>, lu_chol_bytes<T, 16>(), nb, s, n, mat, out);
+      else
+        lu_launch<kLieWarp>(chol_groups<T, kLieWarp>, lu_chol_bytes<T, kLieWarp>(), nb, s, n,
+                            mat, out);
   }
   return cudaGetLastError();
 }

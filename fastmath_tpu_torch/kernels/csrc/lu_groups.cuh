@@ -1,7 +1,8 @@
 // Lane-group LU with first-max partial pivoting for 9 <= n <= 32, shared by
-// the determinant / log-determinant and inverse kernels (batched.cu,
-// det_groups, inv_groups) and the compact determinant and inverse
-// (sym_factor.cu, sym_det_groups, sym_invert_groups).
+// the determinant / log-determinant, inverse and solve kernels (batched.cu,
+// det_groups, inv_groups, solve_groups) and the compact determinant and
+// inverse (sym_factor.cu, sym_det_groups, sym_invert_groups); the Cholesky
+// factor (batched.cu, chol_groups) takes its row layout and compact load.
 //
 // A group of G lanes owns one problem (G = 16 for n <= 16, 32 above:
 // lie_group; 32 / G problems a warp, lie_common.cuh). Lane i holds row i
@@ -27,13 +28,17 @@
 // registers.
 //
 // The determinants keep two pivot rows in turn and the retiring rows'
-// pivots (lu_group_det). The inverses keep every retired row (row s of U,
-// with the multipliers of row s's steps in its columns < s: in-place LU)
-// and the lane each came from, then lane c solves for column c of A^-1:
-// forward substitution against the pivoted identity column, which is what
-// eliminating [A | I] does to it, then rolled_backsub's back-substitution.
-// Every U and L read is a broadcast, and a lane holds about n live values
-// instead of 2n.
+// pivots (lu_group_det). The inverses and the solve keep every retired row
+// (row s of U, with the multipliers of row s's steps in its columns < s:
+// in-place LU) and the lane each came from, then lane c solves for one
+// column (lu_group_solve): forward substitution against the pivoted
+// column of the right-hand side (the identity's column c, or column c of
+// B staged in shared memory), which is what eliminating [A | B] does to
+// it, then rolled_backsub's back-substitution. Every U and L read is a
+// broadcast, and a lane holds about n live values instead of 2n. With one
+// right-hand side, each lane carries its row's entry of B through the
+// factor instead (eliminated in the same step as the row, so the forward
+// substitution is done when the factor is), and one lane back-substitutes.
 //
 // Operands are staged through shared memory so that device memory sees
 // the group read and write each problem's values in order (contiguous,
@@ -155,10 +160,15 @@ struct LuLane {
 // G): with kSolve to row k, whole, with the multipliers of its steps, and
 // perm[k] names the lane it came from; otherwise to row k % 2 from the
 // vector holding column k on (two rows in turn suffice: one __syncwarp a
-// step orders a row's readers before its next writer). Ends synchronized.
+// step orders a row's readers before its next writer). Given `b` (the
+// lane's entry of a right-hand-side column) and `y` (G values of shared
+// memory), b is eliminated with the row, b -= l * y[k], and the pivot
+// row's goes to y[k]: y ends as the forward substitution's result, in
+// step order. Ends synchronized.
 template <typename T, int G, bool kSolve>
 __device__ __forceinline__ LuLane<T> lu_group_factor(T (&row)[G], int n, int lane, T* rows,
-                                                     int* perm) {
+                                                     int* perm, T* b = nullptr,
+                                                     T* y = nullptr) {
   const int gl = lane % G;
   using V = typename LuVec<T>::type;
   constexpr int kW = LuVec<T>::width;
@@ -175,6 +185,7 @@ __device__ __forceinline__ LuLane<T> lu_group_factor(T (&row)[G], int n, int lan
       for (int q = 0; q < G / kW; ++q)
         if (kSolve || q >= k / kW) reinterpret_cast<V*>(pr)[q] = lu_pack<G>(row, q);
       if constexpr (kSolve) perm[k] = gl;
+      if (y != nullptr) y[k] = *b;
       me.step = k;
       me.pivot = row[k];
       live = false;
@@ -186,6 +197,7 @@ __device__ __forceinline__ LuLane<T> lu_group_factor(T (&row)[G], int n, int lan
     if (live) {
       const T l = row[k] / pr[k];
       if constexpr (kSolve) row[k] = l;
+      if (y != nullptr) *b = *b - l * y[k];
 #pragma unroll
       for (int q = 0; q < G / kW; ++q) {
         if (q < (k + 1) / kW) continue;
@@ -201,36 +213,14 @@ __device__ __forceinline__ LuLane<T> lu_group_factor(T (&row)[G], int n, int lan
   return me;
 }
 
-// Column c of A^-1 into x[0..n) (zero past n) from lu_group_factor<T, G,
-// true>'s rows U (row stride G) and perm: y_s = [perm[s] == c] - sum over
-// k < s, ascending, of L_sk y_k; then x_i = (y_i - s_i) / U_ii for i from
-// n - 1 down, s_i = sum over j > i, ascending from 0, of U_ij x_j. The
-// same operations, in the same order, as rolled_factor on [A | I]
-// followed by rolled_backsub.
+// Back-substitution with lu_group_factor<T, G, true>'s rows U (row
+// stride G), in place on x[0..n) (zero past n), which holds y: x_i = (y_i
+// - s_i) / U_ii for i from n - 1 down, s_i = sum over j > i, ascending
+// from 0, of U_ij x_j: rolled_backsub's operations in its order.
 template <typename T, int G>
-__device__ __forceinline__ void lu_group_solve_eye(const T* U, const int* perm, int n, int c,
-                                                   T (&x)[G]) {
+__device__ __forceinline__ void lu_group_backsub(const T* U, int n, T (&x)[G]) {
   using V = typename LuVec<T>::type;
   constexpr int kW = LuVec<T>::width;
-#pragma unroll
-  for (int s = 0; s < G; ++s) {
-    T y = T(0);
-    if (s < n) {
-      y = perm[s] == c ? T(1) : T(0);
-      const V* l = reinterpret_cast<const V*>(U + s * G);
-#pragma unroll
-      for (int q = 0; q < G / kW; ++q) {
-        if (q * kW >= s) continue;
-        const V v = l[q];
-#pragma unroll
-        for (int cc = 0; cc < kW; ++cc) {
-          const int k = q * kW + cc;
-          if (k < s) y = y - lu_get(v, cc) * x[k];
-        }
-      }
-    }
-    x[s] = y;
-  }
 #pragma unroll
   for (int i = G - 1; i >= 0; --i) {
     if (i < n) {
@@ -249,6 +239,39 @@ __device__ __forceinline__ void lu_group_solve_eye(const T* U, const int* perm, 
       x[i] = (x[i] - acc) / U[i * G + i];
     }
   }
+}
+
+// One column of the solution into x[0..n) (zero past n) from
+// lu_group_factor<T, G, true>'s rows U (row stride G) and perm, where
+// rhs(r) is the column's right-hand side in row r (the identity's column
+// c: r == c): y_s = rhs(perm[s]) - sum over k < s, ascending, of L_sk
+// y_k, then lu_group_backsub. The same operations, in the same order, as
+// rolled_factor on [A | B] followed by rolled_backsub.
+template <typename T, int G, typename Rhs>
+__device__ __forceinline__ void lu_group_solve(const T* U, const int* perm, int n, Rhs rhs,
+                                               T (&x)[G]) {
+  using V = typename LuVec<T>::type;
+  constexpr int kW = LuVec<T>::width;
+#pragma unroll
+  for (int s = 0; s < G; ++s) {
+    T y = T(0);
+    if (s < n) {
+      y = rhs(perm[s]);
+      const V* l = reinterpret_cast<const V*>(U + s * G);
+#pragma unroll
+      for (int q = 0; q < G / kW; ++q) {
+        if (q * kW >= s) continue;
+        const V v = l[q];
+#pragma unroll
+        for (int cc = 0; cc < kW; ++cc) {
+          const int k = q * kW + cc;
+          if (k < s) y = y - lu_get(v, cc) * x[k];
+        }
+      }
+    }
+    x[s] = y;
+  }
+  lu_group_backsub<T, G>(U, n, x);
 }
 
 // The determinant (kLog: log|det|) of the matrix whose row gl is `row`:
@@ -327,15 +350,75 @@ __device__ __forceinline__ void lu_load_sym(const View<const T>& m, long long b,
   for (int c = 0; c < G; ++c) row[c] = gl < n && c < n ? stage[tri_index(gl, c, n)] : T(0);
 }
 
+// Where entry e = gl + G t of an n x kc block (row stride kc) lies: row
+// i, column c. A step of t advances G / kc rows and G % kc columns, so
+// the walk divides only at its start.
+struct LuWalk {
+  int i, c, di, dc, kc;
+  __device__ __forceinline__ LuWalk(int gl, int g, int kc_)
+      : i(gl / kc_), c(gl % kc_), di(g / kc_), dc(g % kc_), kc(kc_) {}
+  __device__ __forceinline__ void next() {
+    i += di;
+    c += dc;
+    if (c >= kc) {
+      c -= kc;
+      ++i;
+    }
+  }
+};
+
+// Columns [c0, c0 + kc) of problem b's n x k operand (row-major: entry
+// (i, c) in channel i k + c) into `blk`, an n x kc block at row stride
+// kc. Lane gl reads entries e = gl + G t, all loads in flight at once
+// (`tmp` holds them), the group together in order (contiguous in a
+// batch-major tensor when kc == k). Ends synchronized.
+template <typename T, int G>
+__device__ __forceinline__ void lu_block_load(const View<const T>& v, long long b, int n, int k,
+                                              int c0, int kc, int gl, T* blk, T (&tmp)[G]) {
+  const T* base = v.p + b * v.sb;
+  LuWalk w(gl, G, kc);
+#pragma unroll
+  for (int t = 0; t < G; ++t) {
+    if (G * t >= n * kc) break;
+    tmp[t] = gl + G * t < n * kc ? base[(w.i * k + c0 + w.c) * v.sc] : T(0);
+    w.next();
+  }
+#pragma unroll
+  for (int t = 0; t < G; ++t) {
+    if (G * t >= n * kc) break;
+    if (gl + G * t < n * kc) blk[gl + G * t] = tmp[t];
+  }
+  __syncwarp(kLieMask);
+}
+
+// The block back to columns [c0, c0 + kc) of problem b of `v`, in the
+// same order.
+template <typename T, int G>
+__device__ __forceinline__ void lu_block_store(const View<T>& v, long long b, int n, int k,
+                                               int c0, int kc, int gl, const T* blk) {
+  T* base = v.p + b * v.sb;
+  LuWalk w(gl, G, kc);
+#pragma unroll
+  for (int t = 0; t < G; ++t) {
+    if (G * t >= n * kc) break;
+    if (gl + G * t < n * kc) base[(w.i * k + c0 + w.c) * v.sc] = blk[gl + G * t];
+    w.next();
+  }
+}
+
 // Shared memory of one group, in bytes: the determinants' staged operand
 // (G (G | 1) values, full, or compact in its first G (G + 1) / 2), two
 // pivot rows and the n pivots' terms (3 G values); the full inverse's U
 // (row stride G) over its staged operand (n (n | 1) <= G (G | 1) values:
 // the load is over before step 0 stores its pivot row), then perm (G
-// ints); the compact inverse's U (row stride G, then X at stride G + 1),
-// its staged compact operand and result (G (G + 1) / 2 values, a multiple
-// of 16 bytes), and perm. Every size is a multiple of 16 bytes, so each
-// group's pivot rows stay aligned for the vector stores.
+// ints); the solve's the same with a block of G right-hand-side columns
+// (G G values) between them, or at one column that column's y and x (2 G
+// values); the compact inverse's U (row stride G, then
+// X at stride G + 1), its staged compact operand and result (G (G + 1) / 2
+// values, a multiple of 16 bytes), and perm; the Cholesky factor's two
+// columns of L (2 G values) and its staged compact operand and result.
+// Every size is a multiple of 16 bytes, so each group's pivot rows and
+// columns stay aligned for the vector accesses.
 template <typename T, int G>
 __host__ __device__ constexpr int lu_det_bytes() {
   return (G * (G | 1) + 3 * G) * (int)sizeof(T);
@@ -344,6 +427,21 @@ __host__ __device__ constexpr int lu_det_bytes() {
 template <typename T, int G>
 __host__ __device__ constexpr int lu_inv_bytes() {
   return G * (G | 1) * (int)sizeof(T) + G * (int)sizeof(int);
+}
+
+template <typename T, int G>
+__host__ __device__ constexpr int lu_solve_bytes() {
+  return (G * (G | 1) + G * G) * (int)sizeof(T) + G * (int)sizeof(int);
+}
+
+template <typename T, int G>
+__host__ __device__ constexpr int lu_solve1_bytes() {
+  return (G * (G | 1) + 2 * G) * (int)sizeof(T) + G * (int)sizeof(int);
+}
+
+template <typename T, int G>
+__host__ __device__ constexpr int lu_chol_bytes() {
+  return (2 * G + G * (G + 1) / 2) * (int)sizeof(T);
 }
 
 template <typename T, int G>

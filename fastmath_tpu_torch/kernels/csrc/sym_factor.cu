@@ -158,7 +158,7 @@ __global__ void sym_invert_groups(long long nb, int n, View<const T> mat, View<T
   lu_load_sym<T, G>(mat, b < nb ? b : nb - 1, n, gl, stage, row);
   lu_group_factor<T, G, true>(row, n, lane, ux, perm);
   T x[G];
-  lu_group_solve_eye<T, G>(ux, perm, n, gl, x);
+  lu_group_solve<T, G>(ux, perm, n, [gl](int r) { return r == gl ? T(1) : T(0); }, x);
   __syncwarp(kLieMask);  // U is read; X takes its place
 #pragma unroll
   for (int i = 0; i < G; ++i)

@@ -115,9 +115,17 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(rng):
         batched_cuda.launch_solve_full(a, a[:, :6], 1)
     with pytest.raises(ValueError, match="dtype|float32"):
         batched_cuda.launch_solve_full(a, a[:, :3].float(), 1)
-    with pytest.raises(ValueError, match="rolled tier"):
-        a32 = torch.eye(32, device="cuda").reshape(1, -1)
-        batched_cuda.launch_solve_full(a32, torch.ones(1, 32 * 34, device="cuda"), 34)
+    # no limit on k: 34 columns at n = 32 (a block of 32 columns and a
+    # ragged block of 2) are solved, against the plain version and float64
+    a32 = torch.tensor(_matrices(rng, 3, 32, "pivoting").reshape(3, -1), dtype=torch.float32,
+                       device="cuda")
+    r34 = torch.tensor(rng.standard_normal((3, 32 * 34)), dtype=torch.float32, device="cuda")
+    x = batched_cuda.launch_solve_full(a32, r34, 34)
+    assert x.shape == (3, 32 * 34)
+    assert _normwise(x, batched_cuda.solve_full_plain(a32, r34, 34)) <= TOL[torch.float32]
+    oracle = torch.linalg.solve(a32.double().cpu().reshape(3, 32, 32),
+                                r34.double().cpu().reshape(3, 32, 34))
+    assert _normwise(x, oracle.reshape(3, -1)) <= TOL[torch.float32]
     with pytest.raises(ValueError, match="regularize"):
         T.batchinv(a.reshape(8, 3, 3), regularize=True, backend="cuda")
     with pytest.raises(ValueError, match="kernel serves"):

@@ -1,7 +1,8 @@
-"""The lane-group LU tiers (9 <= n <= 32) of the determinant, log-determinant,
-inverse, compact determinant and compact inverse kernels
+"""The lane-group tiers (9 <= n <= 32) of the determinant, log-determinant,
+inverse, solve, compact determinant and compact inverse kernels
 (``csrc/lu_groups.cuh``) on the inputs that exercise their pivot
-bookkeeping, on the card.
+bookkeeping, and of the Cholesky factor, which shares their row layout,
+on the card.
 
 Every test here is marked ``cuda`` and skips on a machine without an
 NVIDIA GPU (the kernels have no CPU mode). This file imports neither JAX
@@ -16,22 +17,28 @@ nor ``fastmath_tpu``:
   small-integer matrices (ties in most columns) must give the plain
   version's determinant signs exactly and its values within ``TOL``:
   float32 1e-5, float64 1e-12, relative for a determinant, ``tol *
-  max(1, |logdet|)`` for log|det|, normwise for the inverse. The kernels
+  max(1, |logdet|)`` for log|det|, normwise for the inverse, the solve
+  (k = 1 and 3) and the Cholesky factor of A A^T + n I. The kernels
   contract multiply-adds into FMAs and the plain versions do not. The
   integer matrices are kept to condition numbers <= 60, so that these
   roundings stay within the tolerance.
 - Neighbours: a group of 16 lanes shares its warp with another problem.
   A singular or NaN problem must leave its neighbours' bits as they are
-  when each runs alone.
+  when each runs alone; a problem that is not SPD gives the Cholesky
+  factor NaN in every slot, and its SPD neighbours their own bits.
 - Ragged grids: batches of 1, 3 and 33 problems, at G = 16 and G = 32,
   give the bits of the same problems in a larger batch.
+- Widths: the solve stages B in blocks of G columns, so k = 1, 3, 16, 17
+  and 40 at n = 9 and k = 33 at n = 32, reading A as stored and
+  transposed, batch-major and channel-first, against the plain version
+  and float64 numpy.
 """
 import numpy as np
 import pytest
 import torch
 
-from fastmath_tpu_torch.kernels import (batched_cuda, det_cf, inv_cf, logdet_cf, sym_det_cf,
-                                        sym_factor, sym_invert_cf)
+from fastmath_tpu_torch.kernels import (batched_cuda, chol_cf, det_cf, inv_cf, logdet_cf,
+                                        solve_full_cf, sym_det_cf, sym_factor, sym_invert_cf)
 from fastmath_tpu_torch.layouts import full_to_sym
 
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -113,6 +120,13 @@ def _ties_symmetric(rng, n, b=24):
                            _well_conditioned_ints(rng, b, n, sym=True)])
 
 
+def _compact_lower(L):
+    """Compact slots of lower factors (the Cholesky kernel's output): the
+    diagonal, then slot (i, j), i < j, holding L[j][i]."""
+    rows, cols = np.triu_indices(L.shape[-1], k=1)
+    return np.concatenate([np.diagonal(L, axis1=-2, axis2=-1), L[..., cols, rows]], axis=-1)
+
+
 def _cf(t):
     """The channel-first copy of a (B, K) tensor, seen as a (B, K) view."""
     return t.t().contiguous().t()
@@ -133,14 +147,23 @@ def test_ties_match_plain(n, dtype, layout, rng):
     s = full_to_sym(torch.tensor(_ties_symmetric(rng, n), dtype=dtype, device="cuda"))
     a_in, s_in = (_cf(a), _cf(s)) if cf else (a, s.contiguous())
 
-    wrappers = (det_cf, logdet_cf, inv_cf, sym_det_cf, sym_invert_cf)
+    r = torch.tensor(rng.standard_normal((a.shape[0], 3 * n)), dtype=dtype, device="cuda")
+    r1 = r[:, :n].contiguous()
+    gram = full_to_sym(a.reshape(-1, n, n) @ a.reshape(-1, n, n).mT
+                       + n * torch.eye(n, dtype=dtype, device="cuda")).contiguous()
+    r_in, r1_in, g_in = (_cf(r), _cf(r1), _cf(gram)) if cf else (r, r1, gram)
+
+    wrappers = (det_cf, logdet_cf, inv_cf, sym_det_cf, sym_invert_cf, solve_full_cf, chol_cf)
     before = [w.launches for w in wrappers]
     det = batched_cuda.launch_det(a_in, cf_out=cf)
     logdet = batched_cuda.launch_logdet(a_in, cf_out=cf)
     inv = batched_cuda.launch_inv(a_in, cf_out=cf)
     sdet = sym_factor.launch_sym_det(s_in, cf_out=cf)
     sinv = sym_factor.launch_sym_invert(s_in, cf_out=cf)
-    assert [w.launches - b for w, b in zip(wrappers, before)] == [1] * len(wrappers)
+    x1 = batched_cuda.launch_solve_full(a_in, r1_in, 1, cf_out=cf)
+    x3 = batched_cuda.launch_solve_full(a_in, r_in, 3, cf_out=cf)
+    chol = batched_cuda.launch_chol(g_in, cf_out=cf)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1] * 5 + [2, 1]
 
     det_p, logdet_p = batched_cuda.det_plain(a), batched_cuda.logdet_plain(a)
     sdet_p = sym_factor.sym_det_plain(s.contiguous())
@@ -150,7 +173,10 @@ def test_ties_match_plain(n, dtype, layout, rng):
         assert ((got - want).abs() / want.abs()).max().item() <= tol
     assert ((logdet - logdet_p).abs() / logdet_p.abs().clamp_min(1.0)).max().item() <= tol
     for got, want in ((inv, batched_cuda.inv_plain(a)),
-                      (sinv, sym_factor.invert_plain(s.contiguous()))):
+                      (sinv, sym_factor.invert_plain(s.contiguous())),
+                      (x1, batched_cuda.solve_full_plain(a, r1, 1)),
+                      (x3, batched_cuda.solve_full_plain(a, r, 3)),
+                      (chol, batched_cuda.chol_plain(gram))):
         err = ((got - want).double().norm(dim=1) / want.double().norm(dim=1)).max().item()
         assert err <= tol
 
@@ -176,17 +202,22 @@ def test_neighbours_keep_their_bits(n, dtype, rng):
     a = torch.tensor(full.reshape(b, n * n), dtype=dtype, device="cuda")
     s = full_to_sym(torch.tensor(0.5 * (full + full.transpose(0, 2, 1)), dtype=dtype,
                                  device="cuda")).contiguous()
+    r = torch.tensor(rng.standard_normal((b, 3 * n)), dtype=dtype, device="cuda")
     for cf in (False, True):
-        a_in, s_in = (_cf(a), _cf(s)) if cf else (a, s)
+        a_in, s_in, r_in = (_cf(a), _cf(s), _cf(r)) if cf else (a, s, r)
         outs = (batched_cuda.launch_det(a_in, cf_out=cf),
                 batched_cuda.launch_logdet(a_in, cf_out=cf),
                 batched_cuda.launch_inv(a_in, cf_out=cf),
                 sym_factor.launch_sym_det(s_in, cf_out=cf),
-                sym_factor.launch_sym_invert(s_in, cf_out=cf))
+                sym_factor.launch_sym_invert(s_in, cf_out=cf),
+                batched_cuda.launch_solve_full(a_in, r_in, 3, cf_out=cf),
+                batched_cuda.launch_chol(s_in, cf_out=cf))
         for t in range(0, b, 2):
             alone = (batched_cuda.launch_det(a[t:t + 1]), batched_cuda.launch_logdet(a[t:t + 1]),
                      batched_cuda.launch_inv(a[t:t + 1]), sym_factor.launch_sym_det(s[t:t + 1]),
-                     sym_factor.launch_sym_invert(s[t:t + 1]))
+                     sym_factor.launch_sym_invert(s[t:t + 1]),
+                     batched_cuda.launch_solve_full(a[t:t + 1], r[t:t + 1], 3),
+                     batched_cuda.launch_chol(s[t:t + 1]))
             for got, one in zip(outs, alone):
                 assert torch.isfinite(one).all()
                 assert torch.equal(_bits(got[t:t + 1]), _bits(one)), (t, cf)
@@ -197,23 +228,92 @@ def test_neighbours_keep_their_bits(n, dtype, rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n", [12, 24])  # G = 16 and G = 32
+@pytest.mark.parametrize("n", [9, 12, 16, 17, 24, 32])  # G = 16 to 16, 32 above
 def test_ragged_batches(n, dtype, rng):
     full = np.eye(n) + rng.standard_normal((70, n, n)) / (4 * np.sqrt(n))
     a = torch.tensor(full.reshape(70, n * n), dtype=dtype, device="cuda")
     s = full_to_sym(torch.tensor(0.5 * (full + full.transpose(0, 2, 1)), dtype=dtype,
                                  device="cuda")).contiguous()
+    r = torch.tensor(rng.standard_normal((70, 17 * n)), dtype=dtype, device="cuda")
     whole = (batched_cuda.launch_det(a), batched_cuda.launch_logdet(a),
              batched_cuda.launch_inv(a), sym_factor.launch_sym_det(s),
-             sym_factor.launch_sym_invert(s))
+             sym_factor.launch_sym_invert(s), batched_cuda.launch_solve_full(a, r, 17),
+             batched_cuda.launch_chol(s))
     for b in (1, 3, 33):
         for cf in (False, True):
             a_in = _cf(a[:b]) if cf else a[:b]
             s_in = _cf(s[:b]) if cf else s[:b]
+            r_in = _cf(r[:b]) if cf else r[:b]
             part = (batched_cuda.launch_det(a_in, cf_out=cf),
                     batched_cuda.launch_logdet(a_in, cf_out=cf),
                     batched_cuda.launch_inv(a_in, cf_out=cf),
                     sym_factor.launch_sym_det(s_in, cf_out=cf),
-                    sym_factor.launch_sym_invert(s_in, cf_out=cf))
+                    sym_factor.launch_sym_invert(s_in, cf_out=cf),
+                    batched_cuda.launch_solve_full(a_in, r_in, 17, cf_out=cf),
+                    batched_cuda.launch_chol(s_in, cf_out=cf))
             for got, want in zip(part, whole):
                 assert torch.equal(_bits(got), _bits(want[:b])), (b, cf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", NS)
+def test_chol_not_spd_stays_in_its_problem(n, dtype, rng):
+    # SPD problems beside negated (negative definite) ones: every slot of a
+    # bad problem's factor is NaN, and each good one has its own bits and
+    # matches the plain version and float64 numpy
+    b = 33
+    x = rng.standard_normal((b, n, n))
+    full = x @ x.transpose(0, 2, 1) + n * np.eye(n)
+    full[1::2] *= -1.0
+    s = full_to_sym(torch.tensor(full, dtype=dtype, device="cuda")).contiguous()
+    for cf in (False, True):
+        got = batched_cuda.launch_chol(_cf(s) if cf else s, cf_out=cf)
+        assert torch.isnan(got[1::2]).all()
+        good = got[0::2]
+        assert torch.isfinite(good).all()
+        for t in range(0, b, 2):
+            assert torch.equal(_bits(got[t:t + 1]), _bits(batched_cuda.launch_chol(s[t:t + 1])))
+        want = batched_cuda.chol_plain(s[0::2].contiguous())
+        oracle = torch.from_numpy(_compact_lower(np.linalg.cholesky(full[0::2]))).to(dtype)
+        for ref in (want, oracle):
+            ref = ref.to("cuda")
+            err = ((good - ref).double().norm(dim=1) / ref.double().norm(dim=1)).max().item()
+            assert err <= TOL[dtype]
+
+
+# (n, k): every block shape of the solve's staged right-hand sides at G = 16
+# (k < G, k = G, one ragged column past G, 2.5 blocks) and at G = 32
+WIDTHS = [(9, 1), (9, 3), (9, 16), (9, 17), (9, 40), (32, 33)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,k", WIDTHS)
+def test_solve_any_width(n, k, dtype, rng):
+    b = 37
+    full = np.eye(n) + rng.standard_normal((b, n, n)) / (4 * np.sqrt(n))
+    a = torch.tensor(full.reshape(b, n * n), dtype=dtype, device="cuda")
+    r = torch.tensor(rng.standard_normal((b, n * k)), dtype=dtype, device="cuda")
+    for trans in (False, True):
+        want = batched_cuda.solve_full_plain(a, r, k, trans)
+        a64 = a.double().cpu().numpy().reshape(b, n, n)
+        am = np.swapaxes(a64, 1, 2) if trans else a64
+        oracle = torch.from_numpy(np.linalg.solve(
+            am, r.double().cpu().numpy().reshape(b, n, k)).reshape(b, n * k))
+        for cf in (False, True):
+            before = solve_full_cf.launches
+            got = batched_cuda.launch_solve_full(_cf(a) if cf else a, _cf(r) if cf else r, k,
+                                                 trans, cf_out=cf)
+            assert solve_full_cf.launches == before + 1
+            assert got.shape == (b, n * k)
+            for ref in (want, oracle):
+                ref = ref.double().cpu()
+                err = ((got.double().cpu() - ref).norm(dim=1) / ref.norm(dim=1)).max().item()
+                assert err <= TOL[dtype]
+    # the public channel-first wrapper at this width, on the card
+    x = solve_full_cf(a.t(), r.t(), k=k)
+    assert x.shape == (n * k, b)
+    err = ((x.t().double().cpu() - batched_cuda.solve_full_plain(a, r, k).double().cpu())
+           .norm(dim=1) / batched_cuda.solve_full_plain(a, r, k).double().cpu().norm(dim=1))
+    assert err.max().item() <= TOL[dtype]

@@ -2,7 +2,7 @@
 and compact inverse wrappers (``fastmath_tpu_torch.kernels``) against the
 reference's Pallas kernels run in interpret mode, which fixes the kernel
 path's tiers: n = 2, 3, 4 (closed forms), 5 and 8 (unrolled) and 12
-(rolled).
+(rolled); the Cholesky factor also at 17 and 32.
 
 On the CPU each wrapper runs its kernel's plain PyTorch version and
 launches nothing. float64, ``1e-10`` relative (``atol = 1e-12 *
@@ -69,8 +69,13 @@ OPERANDS = {
 }
 
 
-@pytest.mark.parametrize("n", [2, 3, 4, 5, 8, 12])
-@pytest.mark.parametrize("name", sorted(OPERANDS))
+# every wrapper at each tier; the Cholesky factor also at both lane-group
+# sizes of its rolled tier on the card (G = 16 to n = 16, 32 above)
+CASES = [(name, n) for name in sorted(OPERANDS) for n in (2, 3, 4, 5, 8, 12)]
+CASES += [("chol_cf", 17), ("chol_cf", 32)]
+
+
+@pytest.mark.parametrize("name,n", CASES)
 def test_kernel_matches_pallas(name, n, rng):
     mat = np.ascontiguousarray(OPERANDS[name](rng, 64, n).T)  # channel-first
     wrapper = getattr(K, name)

@@ -1,10 +1,11 @@
 """The rolled tier's first-max partial pivoting (9 <= n <= 32) on inputs
 whose pivot columns tie: the port's plain versions of the determinant,
-log-determinant, inverse, compact determinant and compact inverse
+log-determinant, inverse, compact determinant, compact inverse and solve
 (``det_plain``, ``logdet_plain``, ``inv_plain``, ``sym_det_plain``,
-``invert_plain``, which the lane-group CUDA kernels of
-``csrc/lu_groups.cuh`` mirror) against the reference's Pallas kernels run
-in interpret mode, at n = 9 and 16.
+``invert_plain``, ``solve_full_plain``, which the lane-group CUDA kernels
+of ``csrc/lu_groups.cuh`` mirror) against the reference's Pallas kernels
+run in interpret mode, at n = 9 and 16; the solve with k = 1 and 3
+right-hand-side columns.
 
 The pivot of column k is the first largest |a[i][k]| in the order left by
 the earlier swaps. On ties a wrong rule shows as a flipped determinant
@@ -13,7 +14,8 @@ permutations (every entry of a column ties), scaled permutation matrices
 (every step swaps) and matrices of integers in [-2, 2] with condition
 number <= 60, 66 problems each, float64. The determinant's sign must
 match exactly; the values within ``1e-10`` relative (``1e-10 * max(1,
-|logdet|)`` absolute for log|det|). The kernels are held against these
+|logdet|)`` absolute for log|det|, ``1e-12 * max|x|`` absolute besides
+for an inverse or a solution). The kernels are held against these
 plain versions on the card by ``tests/test_torch_factor_groups_cuda.py``.
 """
 import jax.numpy as jnp
@@ -97,3 +99,19 @@ def test_rolled_pivots_on_ties_match_pallas(name, n, rng):
         np.testing.assert_allclose(got, want, rtol=1e-10)
     else:
         np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("n", [9, 16])
+def test_rolled_solve_on_ties_match_pallas(n, k, rng):
+    # the solve's elimination of [A | B] with the same pivots, then its
+    # back-substitution: the plain version against the reference kernel
+    full = _tie_heavy(rng, n, sym=False)
+    b = len(full)
+    mat = np.ascontiguousarray(full.reshape(b, n * n).T)
+    rhs = rng.standard_normal((n * k, b))
+    got = K.solve_full_cf(torch.from_numpy(mat), torch.from_numpy(rhs), k).numpy()
+    want = np.asarray(PK.solve_full_cf(jnp.asarray(mat), jnp.asarray(rhs), k, block=BLOCK,
+                                       interpret=True))
+    assert got.shape == want.shape == (n * k, b)
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12 * np.abs(want).max())

@@ -17,6 +17,9 @@ cases allow (its ``logm`` compiles slowly, so it runs at d <= 4 here).
 * The float32 roundtrip tail on 20,000 4x4 problems, at the reference's
   own bound (``tests/test_lie.py``: median < 1e-6, p99 < 3e-5), for the
   CPU route and for the kernels' plain version.
+* ``logm`` on float16 and bfloat16 SPD input (where the reference raises)
+  against float64 scipy on the rounded input, normwise within the type's
+  epsilon, returned in the input's dtype.
 """
 import inspect
 import pathlib
@@ -325,6 +328,21 @@ def test_logm_f32_tail(rng):
 # ---------------------------------------------------------------------------
 # meanm
 # ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_logm_half_types(dtype, rng):
+    # half types compute in float32 and round once on the way out (the
+    # reference raises here): normwise within one unit of the type's
+    # precision of float64 scipy on the rounded input, in the input's dtype
+    a = rng.standard_normal((64, 4, 4))
+    x = torch.tensor(a @ a.transpose(0, 2, 1) / 4 + np.eye(4)).to(dtype)
+    y = T.logm(x)
+    assert y.dtype == dtype and y.shape == x.shape
+    want = np.stack([sla.logm(m).real for m in x.double().numpy()])
+    err = (np.linalg.norm((y.double().numpy() - want).reshape(64, -1), axis=1)
+           / np.linalg.norm(want.reshape(64, -1), axis=1))
+    assert err.max() <= torch.finfo(dtype).eps
 
 
 def test_meanm_batched_and_divergence(meanm_case):
