@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Time one source tree's full-storage solve, Cholesky and inverse kernels
-on one NVIDIA GPU, to compare two versions of a kernel in one call.
+"""Time one source tree's full-storage solve, Cholesky, inverse, compact
+solve and product kernels on one NVIDIA GPU, to compare two versions of a
+kernel in one call.
 
     python3 /path/to/chip_ab.py TAG [--library]
 
 Run it from the root of the tree to time (its ``chip_smoke.py`` and
 ``fastmath_tpu_torch`` are imported from the working directory), once for
 each tree in turns (old, new, new, old). It builds ``csrc/batched.cu``,
-times each kernel three times with ``chip_smoke.device_ms`` at the bench
-suite's shapes (the solve 16x16 on 500k, 24x24 on 200k, 32x32 on 100k
-with one column and 16x16 with 16; Cholesky 16x16, 24x24, 32x32; the
-inverse 16x16 and 32x32), holds each result against its plain version,
-and prints one JSON line: ``tag``, each shape's three times and normwise
-error, and the group kernels' registers and spills (``-Xptxas -v``).
-``--library`` also times ``torch.linalg.solve_ex`` / ``cholesky_ex`` on the
-same inputs. It imports neither JAX nor ``fastmath_tpu``.
+``csrc/sym_solve.cu`` and ``csrc/batched_products.cu``, times each kernel
+three times with ``chip_smoke.device_ms`` at the bench suite's shapes (the
+solve 16x16 on 500k, 24x24 on 200k, 32x32 on 100k with one column and
+16x16 with 16; Cholesky 16x16, 24x24, 32x32; the inverse 16x16 and 32x32;
+the compact solve at N = 16 on 262,144 (also with ``refine=1``), N = 24
+on 131,072 and N = 32 on 65,536; the product 4x4 on 1M, 16x16 on 500k and
+32x32 on 100k), holds each result against its plain version, and prints
+one JSON line: ``tag``, each shape's three times and normwise error, and
+the registers and spills (``-Xptxas -v``) of every kernel but the
+unrolled tiers. ``--library`` also times ``torch.linalg.solve_ex`` /
+``cholesky_ex`` (the compact solve's on the densified batch) and
+``torch.matmul`` on the same inputs. It imports neither JAX nor
+``fastmath_tpu``.
 """
 import json
 import pathlib
@@ -31,10 +37,12 @@ def main():
     import chip_smoke as C
     from fastmath_tpu_torch.kernels import _build
     from fastmath_tpu_torch.kernels import batched_cuda as BC
+    from fastmath_tpu_torch.kernels import sym_cuda as SC
     from fastmath_tpu_torch.layouts import full_to_sym
 
     tag, library = sys.argv[1], "--library" in sys.argv[2:]
-    _build.build_all(["batched"])
+    libs = ["batched", "sym_solve", "batched_products"]
+    _build.build_all(libs)
     res = {"tag": tag}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -63,7 +71,24 @@ def main():
         timed(f"chol {n}x{n} on {b}", lambda: BC.launch_chol(m), lambda: BC.chol_plain(m),
               lambda: torch.linalg.cholesky_ex(a))
         del a, m
-    res["ptxas"] = [row for row in C.ptxas_summary(_build.build_log("batched").read_text())
+    for n, b, refine in ((16, 262_144, 0), (16, 262_144, 1), (24, 131_072, 0),
+                         (32, 65_536, 0)):
+        a = C.spd_on_card(torch, gen, b, n)
+        m = full_to_sym(a).contiguous()
+        v = torch.randn(b, n, generator=gen, device="cuda")
+        timed(f"sym_solve N={n} on {b} refine={refine}",
+              lambda: SC.launch_solve(m, v, None, refine),
+              lambda: SC.solve_plain(m, v, None, refine),
+              lambda: torch.linalg.solve_ex(a, v[..., None]))
+        del a, m, v
+    for n, b in ((4, 1_000_000), (16, 500_000), (32, 100_000)):
+        x, y = (torch.randn(b, n, n, generator=gen, device="cuda") for _ in range(2))
+        xf, yf = x.reshape(b, -1), y.reshape(b, -1)
+        timed(f"matmul {n}x{n} on {b}", lambda: BC.launch_matmul(xf, yf, n, n, n),
+              lambda: BC.matmul_plain(xf, yf, n, n, n), lambda: torch.matmul(x, y))
+        del x, y, xf, yf
+    res["ptxas"] = [row for lib in libs
+                    for row in C.ptxas_summary(_build.build_log(lib).read_text())
                     if "unrolled" not in row]
     print(json.dumps(res), flush=True)
     return 0

@@ -13,7 +13,8 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    tier (N = 1 .. 32; JᵀHJ at K, D up to 32), float32 and float64, with
    and without ``eps``, ``refine`` 0..2, on a ragged batch, in the
    batch-major and the channel-first layout, and against a float64 numpy
-   oracle; the full-storage solve (k = 1, 3, 8 columns up to n = 8, 1, 16,
+   oracle (the compact solve also at N = 12, 17 and 24, the edges of its
+   lane groups); the full-storage solve (k = 1, 3, 8 columns up to n = 8, 1, 16,
    17 and 40 above, also reading A transposed) and inverse (also at n = 12, 17
    and 24) on general matrices that pivot at most steps and on SPD
    matrices; the determinant,
@@ -22,7 +23,7 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    the matvec chain (iters 0, 1, 7, with and without ``add``), the power
    iteration (iters 0, 5, 32; ``renorm_every`` 1, 8, 16), the full matvec
    (also reading A transposed) and the product (every pair of transposed
-   reads, m, k, n up to 32); the Jacobi eigendecomposition (both tiers,
+   reads, m, k, n up to 32, the edges of its tiers and tiles); the Jacobi eigendecomposition (both tiers,
    n = 4..32, values and vectors: sorted eigenvalues, U diag(w) Uᵀ and
    UᵀU - I) and a mixed-scale block against float64 numpy; expm and logm
    (both tiers of each, d = 1..32, float32 and float64, batch-major and
@@ -35,17 +36,20 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    ``sym_maxeig``, ``batchmatvec``, ``batchmatmul``, ``eig_sym``, ``expm``
    and ``logm`` through
    the kernels against the same through the plain versions (``eig_sym``
-   also against central differences on gapped spectra) (the matvec kernel, the
-   solve kernel reading A transposed, the inverse kernel, the compact
+   also against central differences on gapped spectra) (the compact solve
+   kernel up to N = 24, the matvec kernel, the full-storage solve kernel
+   reading A transposed, the inverse kernel, the compact
    inverse kernel, the chain kernel, the full matvec kernel reading A
    transposed, the product kernel and, while 2d <= 32, the expm and logm
    kernels must launch in the backward);
 4. the solve's main path at full size: the public ``sym_solve`` on a 1M
    batch of 4x4 float32 compact SPD matrices made as ``bench.py`` makes
    them, and ``sym_solve_chain`` with k = 128 on the same batch; launch
-   counts, normwise error against float64 numpy, solves/s; then N = 8
-   and 16, the solve and the chain beside their bounds and the solve
-   beside ``torch.linalg.solve_ex`` on the densified batch;
+   counts, normwise error against float64 numpy, solves/s; then the
+   solve at N = 8 and 16 on 262,144 (N = 16 also with ``refine=1``) and
+   N = 32 on 65,536, each beside its bound, its plain version and
+   ``torch.linalg.solve_ex`` on the densified batch, and the chain at N =
+   8 and 16 beside its bound;
 5. the products' path at full size (``bench/suite.py``'s shapes): the
    public ``sym_matvec``, ``sym_addmatvec``, ``sym_submatvec`` and
    ``sym_outer`` on that batch, ``sym_matmul`` JᵀHJ at K = D = 16 on
@@ -82,12 +86,13 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    16 x 16 (k = 32) on contraction-scaled a a^T + n I, gated normwise
    against a float64 numpy recurrence; ``sym_maxeig`` at 1M x 4 x 4 and
    8 x 8, iters = 32, on gap-boosted input, its median relative error
-   against float64 ``eigvalsh`` gated; ``batchmatmul`` at 16 x 16 on 500k
-   and 4 x 4 on 1M, ``auto`` and ``cuda``; ``sym_solve`` on full storage at
+   against float64 ``eigvalsh`` gated; ``batchmatmul`` at 16 x 16 on 500k,
+   4 x 4 on 1M and 32 x 32 on 100k, ``auto`` and ``cuda``; ``sym_solve`` on full storage at
    1M x 4 x 4 through the matvec kernel; launch counts, per-call, host and
    device times, each kernel alone against its bound, its plain version
-   and ``torch.matmul``; then the routing sweeps: the matvec and the
-   product kernels against ``torch.matmul`` from n = 4 to 32;
+   and ``torch.matmul`` (the product at each of its shapes, with the tier
+   it takes); then the routing sweeps: the matvec and the product kernels
+   against ``torch.matmul`` from n = 4 to 32, with the product's tier;
 9. ``eig_sym`` and ``sugar.lmdiv`` at the bench suite's shapes (float32,
    a a^T + n I): ``eig_sym`` 2x2 and 3x3 (closed forms) and 4x4 on 1M,
    12x12 and 16x16 on 200k, 24x24 and 32x32 on 100k, with vectors and the
@@ -300,13 +305,17 @@ def phase_device(torch):
 
 # --- phase 2 -----------------------------------------------------------------
 
+# the compact solve's and chain's tiers, and the edges of the solve's lane
+# groups (G = 16 to N = 16, 32 above)
+SYM_SOLVE_CHECK_NS = (1, 2, 3, 4, 5, 6, 8, 9, 12, 16, 17, 24, 32)
+
 
 def phase_kernels_vs_plain(torch, rng):
     from fastmath_tpu_torch.kernels import sym_cuda
 
     worst = {}
     for dt_name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
-        for n in (1, 2, 3, 4, 5, 6, 8, 9, 16, 32):
+        for n in SYM_SOLVE_CHECK_NS:
             full = spd(rng, B_CHECK, n, np.float64)
             cm = compact(full)
             v = rng.standard_normal((B_CHECK, n))
@@ -610,8 +619,10 @@ def dominant(full64):
     return w[np.arange(len(w)), np.argmax(np.abs(w), axis=-1)]
 
 
-MKN_CHECK = ((1, 1, 1), (2, 3, 4), (4, 4, 4), (6, 6, 6), (7, 3, 5), (1, 32, 1), (16, 16, 16),
-             (32, 32, 32))
+# the entry tier's and the tile tier's edges: ragged tiles, k = 1 beside the
+# largest C, square n = 8, 12, 17
+MKN_CHECK = ((1, 1, 1), (2, 3, 4), (4, 4, 4), (6, 6, 6), (7, 3, 5), (1, 32, 1), (8, 8, 8),
+             (12, 12, 12), (13, 5, 17), (16, 16, 16), (17, 17, 17), (32, 1, 32), (32, 32, 32))
 
 
 def phase_iterate_vs_plain(torch, rng):
@@ -714,8 +725,9 @@ def phase_iterate_vs_plain(torch, rng):
 
 def phase_gradients(torch, rng):
     import fastmath_tpu_torch as T
+    from fastmath_tpu_torch.kernels import sym_solve_cf
 
-    for n in (3, 6, 12):
+    for n in (3, 6, 12, 24):
         cm = compact(spd(rng, 515, n, np.float64))
         ins0 = [torch.tensor(a, device=DEV) for a in
                 (cm, rng.standard_normal((515, n)), rng.standard_normal((515, n)))]
@@ -723,17 +735,22 @@ def phase_gradients(torch, rng):
         def grads(backend):
             ins = [t.clone().requires_grad_() for t in ins0]
             out = (T.sym_solve(ins[0], ins[1], eps=0.1, backend=backend).square().sum()
+                   + T.sym_solve(ins[0], ins[2], refine=1, backend=backend).square().sum()
                    + T.sym_solve_chain(ins[0], ins[1], 3, add=ins[2],
                                        backend=backend).square().sum())
-            return torch.autograd.grad(out, ins)
+            before = sym_solve_cf.launches
+            g = torch.autograd.grad(out, ins)
+            return g, sym_solve_cf.launches - before
 
-        worst = 0.0
-        for k, p in zip(grads("cuda"), grads("torch")):
-            worst = max(worst, ((k - p).norm() / p.norm()).item())
+        (kernel, bwd), (plain, _) = grads("cuda"), grads("torch")
+        worst = max(((k - p).norm() / p.norm()).item() for k, p in zip(kernel, plain))
         torch.cuda.synchronize()
-        log(f"  grad n={n}: kernel vs plain relative {worst:.3e} (tol 1e-10)")
+        log(f"  grad n={n}: kernel vs plain relative {worst:.3e} (tol 1e-10); solve kernel "
+            f"launches in backward: {bwd}")
         if not worst <= 1e-10:
             fail(f"gradient n={n} differs: {worst:.3e}")
+        if bwd < 2:
+            fail(f"gradient n={n}: the backward did not launch the solve kernel")
 
     from fastmath_tpu_torch.kernels import sym_matvec_cf
 
@@ -1022,45 +1039,75 @@ def ops_chain_rolled(n, iters):
     return ops_plu(n, n) + iters * 2 * n * n
 
 
+# the compact solve beyond the main path: (N, batch, refine); the chain is
+# timed beside the unrefined solve at N <= 16
+WIDE_SHAPES = ((8, B_WIDE, 0), (16, B_WIDE, 0), (16, B_WIDE, 1), (32, 65_536, 0))
+
+
+def ops_sym_solve(n, refine):
+    """Arithmetic operations of one solve at 5 <= N <= 32 as the kernels do
+    it: the pivoted LU with v's column; with refinement the inverse's n
+    columns too, then per step the residual (2 n^2) and X r (2 n^2)."""
+    if refine == 0:
+        return ops_plu(n, 1)
+    return ops_plu(n, n + 1) + refine * 4 * n * n
+
+
 def phase_wide(torch, rng):
-    """Solve and chain at N = 8 (unrolled PLU) and N = 16 (rolled PLU),
-    each kernel beside its bound; the solve also beside
-    ``torch.linalg.solve_ex`` on the densified batch."""
+    """The compact solve at N = 8 (unrolled PLU), N = 16 (lane groups, also
+    with ``refine=1``) and N = 32 (lane groups of 32), each beside its
+    bound, its plain version and ``torch.linalg.solve_ex`` on the densified
+    batch, and the chain at N = 8 and 16 beside its bound. Returns the
+    solve's timed shapes for the kernels line."""
     import fastmath_tpu_torch as T
     from fastmath_tpu_torch.kernels import sym_cuda
     from fastmath_tpu_torch.layouts import full_to_sym
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    for n in (8, 16):
-        a = torch.from_numpy(rng.standard_normal((B_WIDE, n, n)).astype(np.float32)).to(DEV)
+    rows = []
+    for n, b, refine in WIDE_SHAPES:
+        a = torch.from_numpy(rng.standard_normal((b, n, n)).astype(np.float32)).to(DEV)
         dense = a @ a.mT + n * torch.eye(n, device=DEV)
         mat = full_to_sym(dense).contiguous()
         del a
-        vec = torch.from_numpy(rng.standard_normal((B_WIDE, n)).astype(np.float32)).to(DEV)
-        x = T.sym_solve(mat, vec, backend="cuda")
+        vec = torch.from_numpy(rng.standard_normal((b, n)).astype(np.float32)).to(DEV)
+        x = T.sym_solve(mat, vec, refine=refine, backend="cuda")
         nw = normwise(x[:4096].cpu().numpy(),
                       oracle_solve(T.layouts.sym_to_full(mat[:4096]).cpu().numpy(),
                                    vec[:4096].cpu().numpy()))
         if not nw.max() <= GATE:
-            fail(f"N={n} solve normwise error {nw.max():.3e}")
-        t_s = device_ms(torch, lambda: sym_cuda.launch_solve(mat, vec), reps=10)
-        t_c = device_ms(torch, lambda: sym_cuda.launch_chain(mat, vec, vec, None, CHAIN_K),
-                        reps=5)
-        if t_s is None or t_c is None:
-            fail(f"N={n}: the kernels could not be queued ahead of the card")
+            fail(f"N={n} refine={refine} solve normwise error {nw.max():.3e}")
+        plain = sym_cuda.solve_plain(mat[:4096], vec[:4096], None, refine)
+        d = normwise(x[:4096].cpu().numpy(), plain.cpu().numpy()).max()
+        if not d <= TOL_PLAIN["float32"]:
+            fail(f"N={n} refine={refine}: kernel vs plain {d:.3e}")
+        t_s = device_ms(torch, lambda: sym_cuda.launch_solve(mat, vec, None, refine), reps=10)
+        if t_s is None:
+            fail(f"N={n}: the solve kernel could not be queued ahead of the card")
+        t_plain = call_ms(torch, lambda: sym_cuda.solve_plain(mat, vec, None, refine), reps=3,
+                          warmup=1)
         # yardstick only: one library solve of the same systems, densified
         t_lib = yardstick_ms(torch, lambda: torch.linalg.solve_ex(dense, vec[..., None]),
                              f"N={n} solve_ex")
         nn = n * (n + 1) // 2
-        b_s, by_s = bound(B_WIDE * (nn + 2 * n) * 4, B_WIDE * ops_plu(n, 1), "float32")
-        b_c, by_c = bound(B_WIDE * (nn + 2 * n) * 4, B_WIDE * ops_chain_rolled(n, CHAIN_K),
-                          "float32")
-        log(f"  N={n} B={B_WIDE} f32 kernels: solve {t_s:.4f} ms "
-            f"({B_WIDE / t_s * 1e3:.4e} solves/s, normwise max {nw.max():.3e}; bound "
-            f"{b_s:.4f} ms by {by_s}, {b_s / t_s * 100:.1f}% of it; solve_ex {t_lib:.4f} ms); "
-            f"chain k={CHAIN_K} {t_c:.4f} ms ({B_WIDE * CHAIN_K / t_c * 1e3:.4e} solves/s; "
-            f"bound {b_c:.4f} ms by {by_c})")
+        b_s, by_s = bound(b * (nn + 2 * n) * 4, b * ops_sym_solve(n, refine), "float32")
+        shape = f"N = {n} on {b}" + (f", refine = {refine}" if refine else "")
+        rows.append(shape_row(shape, t_s, t_plain, b_s, by_s, t_lib))
+        log(f"  N={n} B={b} refine={refine} f32 solve kernel {t_s:.4f} ms "
+            f"({b / t_s * 1e3:.4e} solves/s, normwise max {nw.max():.3e}, vs plain {d:.3e}; "
+            f"bound {b_s:.4f} ms by {by_s}, {b_s / t_s * 100:.1f}% of it; plain "
+            f"{t_plain:.4f} ms; solve_ex {t_lib:.4f} ms)")
+        if refine == 0 and n <= 16:
+            t_c = device_ms(torch, lambda: sym_cuda.launch_chain(mat, vec, vec, None, CHAIN_K),
+                            reps=5)
+            if t_c is None:
+                fail(f"N={n}: the chain kernel could not be queued ahead of the card")
+            b_c, by_c = bound(b * (nn + 2 * n) * 4, b * ops_chain_rolled(n, CHAIN_K),
+                              "float32")
+            log(f"  N={n} B={b} f32 chain k={CHAIN_K} kernel {t_c:.4f} ms "
+                f"({b * CHAIN_K / t_c * 1e3:.4e} solves/s; bound {b_c:.4f} ms by {by_c})")
         del dense, mat, vec, x
+    return rows
 
 
 # --- phase 5 -----------------------------------------------------------------
@@ -1667,7 +1714,7 @@ def phase_factor(torch, rng, mat4):
 CHAIN_SHAPES = ((4, 128, 1_000_000), (16, 32, 1_000_000))
 MAXEIG_SHAPES = ((4, 1_000_000), (8, 1_000_000))
 MAXEIG_ITERS, MAXEIG_RENORM = 32, 8
-MATMUL_SHAPES = ((16, 500_000), (4, 1_000_000))
+MATMUL_SHAPES = ((16, 500_000), (4, 1_000_000), (32, 100_000))
 # batch of each size in the routing sweeps: 256 MB or less per operand
 SWEEP_NS = (4, 5, 6, 8, 9, 12, 16, 24, 32)
 
@@ -1892,12 +1939,19 @@ def phase_iterate(torch, rng):
                        "float32")
     log(f"  sym_maxeig_cf 8x8 on {b8} kernel: {t:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
         f"{b_ms / t * 100:.1f}% of it)")
-    a4, b4 = (x.reshape(x.shape[0], -1) for x in mm_in[4])
-    t = kernel_ms(torch, lambda: BC.launch_matmul(a4, b4, 4, 4, 4), "matmul 4")
-    b_ms, b_by = bound(B_MAIN * 48 * 4, B_MAIN * 16 * 7, "float32")
-    log(f"  matmul_cf 4x4 on {B_MAIN} kernel: {t:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
-        f"{b_ms / t * 100:.1f}% of it), torch.matmul "
-        f"{yardstick_ms(torch, lambda: torch.matmul(*mm_in[4]), 'matmul'):.4f} ms")
+    # the product at each shape of the path, kernel alone, for its row
+    mm_rows = []
+    for n, b in MATMUL_SHAPES:
+        af, bf = (x.reshape(b, -1) for x in mm_in[n])
+        t = kernel_ms(torch, lambda: BC.launch_matmul(af, bf, n, n, n), f"matmul {n}")
+        t_plain = call_ms(torch, lambda: BC.matmul_plain(af, bf, n, n, n), reps=3, warmup=1)
+        t_lib = yardstick_ms(torch, lambda: torch.matmul(*mm_in[n]), "matmul")
+        b_ms, b_by = bound(b * 3 * n * n * 4, b * n * n * (2 * n - 1), "float32")
+        mm_rows.append(shape_row(f"{n}x{n} on {b}", t, t_plain, b_ms, b_by, t_lib))
+        log(f"  matmul_cf {n}x{n} on {b} kernel ({BC.matmul_tier(n, n, n)}): {t:.4f} ms (bound "
+            f"{b_ms:.4f} ms by {b_by}, {b_ms / t * 100:.1f}% of it), plain {t_plain:.4f} ms, "
+            f"torch.matmul {t_lib:.4f} ms")
+    next(k for k in kernels if k["name"] == "matmul_cf")["shapes"] = mm_rows
     del chain_in, eig_in, eig_start, mm_in, m4, full4, v4
 
     # the routing sweeps: each kernel against torch.matmul on the same
@@ -1913,7 +1967,8 @@ def phase_iterate(torch, rng):
         t_mm = kernel_ms(torch, lambda: BC.launch_matmul(af, cf_, n, n, n), f"matmul {n}")
         t_mm_lib = yardstick_ms(torch, lambda: torch.matmul(a, c), "matmul")
         log(f"  routing n={n} on {b}: matvec kernel {t_mv:.4f} ms, torch.matmul "
-            f"{t_mv_lib:.4f} ms; matmul kernel {t_mm:.4f} ms, torch.matmul {t_mm_lib:.4f} ms")
+            f"{t_mv_lib:.4f} ms; matmul kernel ({BC.matmul_tier(n, n, n)}) {t_mm:.4f} ms, "
+            f"torch.matmul {t_mm_lib:.4f} ms")
         del a, c, v, af, cf_
     return kernels
 
@@ -2685,7 +2740,7 @@ def main():
     phase_lie_gradients(torch, rng)
     log("== phase 4: main path at full size")
     kernels, batch = phase_main_path(torch, rng)
-    phase_wide(torch, rng)
+    kernels[0]["shapes"] = phase_wide(torch, rng)
     log("== phase 5: the products' path at full size")
     kernels += phase_products(torch, rng, *batch)
     mat4 = batch[2]

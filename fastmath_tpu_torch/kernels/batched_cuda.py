@@ -11,8 +11,10 @@ versions and autograd.
 in ``csrc/batched.cu``, where one thread owns one problem (a group of 16
 or 32 lanes in the 9 <= n <= 32 tiers, ``csrc/lu_groups.cuh``);
 the two products in ``csrc/batched_products.cu``, where one thread owns a
-problem (matvec) or one output entry (matmul). Each source's header gives
-the tiers and what bounds them.
+problem (matvec), and a block stages its problems' operands in shared
+memory and each thread accumulates a 4 x 4 tile of C (matmul; one thread
+an entry at up to 8 multiply-adds a problem, ``matmul_tier``). Each
+source's header gives the tiers and what bounds them.
 
 A matrix is full n x n storage, row-major in n*n channels (entry (i, j)
 is channel ``i * n + j``); right-hand sides and solutions are n x k,
@@ -235,7 +237,8 @@ def _products_library():
         strided = [p, ll, ll]  # pointer, batch stride, channel stride
         lib.fm_matvec_full.argtypes = [i, i, ll, *strided, i, *strided, *strided, p]
         lib.fm_matmul.argtypes = [i, i, i, i, ll, *strided, i, *strided, i, *strided, p]
-        for fn in (lib.fm_matvec_full, lib.fm_matmul):
+        lib.fm_matmul_tier.argtypes = [i, i, i]
+        for fn in (lib.fm_matvec_full, lib.fm_matmul, lib.fm_matmul_tier):
             fn.restype = i
         lib.fm_error_string.argtypes = [i]
         lib.fm_error_string.restype = ctypes.c_char_p
@@ -265,6 +268,12 @@ def launch_matmul(a, b, m, k, n, trans_a=False, trans_b=False, cf_out=False):
     launch(_products_library(), matmul_cf, "fm_matmul", a, m, k, n, nb, *operand(a),
            int(trans_a), *operand(b), int(trans_b), *operand(out))
     return out
+
+
+def matmul_tier(m, k, n):
+    """The name of the CUDA tier the product kernel takes for an m x k x n
+    product (the launcher's own rule, read from the library)."""
+    return ("matmul_entries", "matmul_tiles")[_products_library().fm_matmul_tier(m, k, n)]
 
 
 def launch_solve_full(mat, rhs, k, trans=False, cf_out=False):

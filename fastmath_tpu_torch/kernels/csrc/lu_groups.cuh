@@ -1,7 +1,9 @@
 // Lane-group LU with first-max partial pivoting for 9 <= n <= 32, shared by
 // the determinant / log-determinant, inverse and solve kernels (batched.cu,
-// det_groups, inv_groups, solve_groups) and the compact determinant and
-// inverse (sym_factor.cu, sym_det_groups, sym_invert_groups); the Cholesky
+// det_groups, inv_groups, solve_groups, solve1_groups), the compact
+// determinant and inverse (sym_factor.cu, sym_det_groups,
+// sym_invert_groups) and the compact solve (sym_solve.cu,
+// sym_solve_groups); the Cholesky
 // factor (batched.cu, chol_groups) takes its row layout and compact load.
 //
 // A group of G lanes owns one problem (G = 16 for n <= 16, 32 above:
@@ -413,7 +415,9 @@ __device__ __forceinline__ void lu_block_store(const View<T>& v, long long b, in
 // the load is over before step 0 stores its pivot row), then perm (G
 // ints); the solve's the same with a block of G right-hand-side columns
 // (G G values) between them, or at one column that column's y and x (2 G
-// values); the compact inverse's U (row stride G, then
+// values), which the compact solve takes too (its refined form: the
+// compact inverse's U, X and staged operand, then y, x and r, 3 G values,
+// then perm); the compact inverse's U (row stride G, then
 // X at stride G + 1), its staged compact operand and result (G (G + 1) / 2
 // values, a multiple of 16 bytes), and perm; the Cholesky factor's two
 // columns of L (2 G values) and its staged compact operand and result.
@@ -437,6 +441,11 @@ __host__ __device__ constexpr int lu_solve_bytes() {
 template <typename T, int G>
 __host__ __device__ constexpr int lu_solve1_bytes() {
   return (G * (G | 1) + 2 * G) * (int)sizeof(T) + G * (int)sizeof(int);
+}
+
+template <typename T, int G>
+__host__ __device__ constexpr int lu_sym_refine_bytes() {
+  return (G * (G + 1) + G * (G + 1) / 2 + 3 * G) * (int)sizeof(T) + G * (int)sizeof(int);
 }
 
 template <typename T, int G>

@@ -3,7 +3,9 @@
 // strided operands (compact rows and full matrices) and launch helpers, the
 // compact index map, entry loads, residuals, and the partial-pivoting LU
 // in two forms (unrolled in registers for N <= 8, rolled over a
-// per-thread local array for 9 <= N <= 32).
+// per-thread local array for the compact chain's 9 <= N <= 32 tier; the
+// other 9..32 tiers are lane groups, lu_groups.cuh, which mirror its
+// pivots).
 //
 // Pivoting is first-max partial pivoting: the pivot of column k is the
 // lowest row i >= k whose |A[i][k]| is the column maximum, as in the
@@ -14,10 +16,10 @@
 
 namespace fm {
 
-// Largest order the rolled tier serves, and the row width of its local
-// array: [A | v | I] when a refined solve needs the explicit inverse.
+// Largest order the kernels serve, and the row width of the rolled
+// chain's local array: [A | I] for the explicit inverse.
 constexpr int kMaxN = 32;
-constexpr int kRolledWidth = 2 * kMaxN + 1;
+constexpr int kRolledWidth = 2 * kMaxN;
 
 constexpr int kThreads = 128;
 
@@ -98,8 +100,8 @@ __device__ __forceinline__ void load_sym(const T* __restrict__ m, long long sc,
   }
 }
 
-// Entry (i, j) read again from device memory (the tiers that overwrite
-// their copy of A during elimination use this for the residual).
+// Entry (i, j) of a compact matrix plus eps on the diagonal, read from
+// device memory (rolled_load).
 template <typename T>
 __device__ __forceinline__ T sym_entry(const T* __restrict__ m, long long sc,
                                        const T* __restrict__ eps, int i, int j, int n) {
@@ -118,21 +120,6 @@ __device__ __forceinline__ void residual(const T (&E)[N][N], const T (&v)[N],
 #pragma unroll
     for (int j = 0; j < N; ++j)
       if (j != i) acc = acc - E[i][j] * x[j];
-    r[i] = acc;
-  }
-}
-
-// The same residual with A read again from device memory, for orders
-// up to n (compile-time n unrolls into registers; runtime n, in the
-// rolled tier, walks local arrays).
-template <typename T>
-__device__ __forceinline__ void residual_global(const T* __restrict__ m, long long sc,
-                                                const T* __restrict__ eps, int n,
-                                                const T* v, const T* x, T* r) {
-  for (int i = 0; i < n; ++i) {
-    T acc = v[i] - sym_entry(m, sc, eps, i, i, n) * x[i];
-    for (int j = 0; j < n; ++j)
-      if (j != i) acc = acc - sym_entry(m, sc, eps, i, j, n) * x[j];
     r[i] = acc;
   }
 }

@@ -4,11 +4,12 @@
 //   fm_sym_solve        <- _solve_kernel        (sym_solve_cf)
 //   fm_sym_solve_chain  <- _solve_chain_kernel  (sym_solve_chain_cf)
 //
-// One thread owns one problem. Each operand is addressed through a batch
-// stride and a channel stride, so one kernel reads both the batch-major
-// (B, NN) layout of the public ops (strides NN, 1) and the channel-first
-// (NN, B) layout of the *_cf wrappers (strides 1, B) without a transpose.
-// The ragged edge of the last block is masked; nothing is padded.
+// One thread owns one problem (a group of lanes in the solve's 9..32
+// tier). Each operand is addressed through a batch stride and a channel
+// stride, so one kernel reads both the batch-major (B, NN) layout of the
+// public ops (strides NN, 1) and the channel-first (NN, B) layout of the
+// *_cf wrappers (strides 1, B) without a transpose. The ragged edge of the
+// last block is masked; nothing is padded.
 //
 // Tiers, as in the reference:
 //   N == 1     divide (the chain multiplies by 1/a);
@@ -17,8 +18,17 @@
 //   5 <= N <= 8  LU with first-max partial pivoting, unrolled in
 //              registers; refinement re-solves the residual through the
 //              same factors (the numbers of a from-scratch re-solve);
-//   9 <= N <= 32 rolled LU over a per-thread local array [A | v | I]; a
-//              refined solve applies the explicit inverse to the residual.
+//   9 <= N <= 32 the solve: the lane-group LU (lu_groups.cuh,
+//              sym_solve_groups): G = 16 lanes a problem to N = 16, 32
+//              above, row i of A + diag(eps) in lane i's registers,
+//              rolled_factor's pivots on [A | v] without moving a row,
+//              each lane carrying its row's entry of v through the factor,
+//              then one lane's back-substitution; a refined solve also
+//              forms the explicit inverse (lane c solves for column c) and
+//              applies it to the residual, which lane i sums for row i.
+//              The chain: rolled LU over a per-thread local array [A | I]
+//              (rolled_factor, sym_common.cuh), then the explicit inverse
+//              applied `iters` times.
 //
 // What bounds them on the card: the single solve at N <= 4 moves
 // (NN + 2N) values per problem for ~250 flops, so it is bound by device
@@ -27,14 +37,19 @@
 // runs `iters` solves on it, so it is bound by fp32/fp64 arithmetic; the
 // loop-invariant part (cofactors and 1/det, packed LU with pivots and
 // 1/U_ii, or the explicit inverse) is computed once before the loop.
-// The rolled tier's local array (up to 32 x 65 values) spills to local
-// memory; that is measured and recorded, not tuned here.
+// The solve's 9..32 tier was one thread a problem over a local array of up
+// to 32 x 65 values, every step read and written through L1 and L2, at 2%
+// of its byte bound; the lane groups keep a row a lane in registers and
+// read U as broadcast vectors from shared memory, so instruction issue
+// bounds them (each step's reductions, division and broadcast reads). The
+// chain's local array (up to 32 x 64 values) still spills to local memory.
 //
 // Every launch goes on the caller's stream, allocates nothing and does
 // not synchronize; each entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
+#include "lu_groups.cuh"
 #include "sym_adjugate.cuh"
 #include "sym_common.cuh"
 
@@ -95,36 +110,92 @@ solve_unrolled(long long nb, View<const T> mat, View<const T> vec, View<T> out,
   for (int i = 0; i < N; ++i) out.p[b * out.sb + i * out.sc] = x[i];
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-solve_rolled(long long nb, int n, View<const T> mat, View<const T> vec, View<T> out,
-             const T* __restrict__ eps, int refine) {
-  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (b >= nb) return;
-  const T* m = mat.p + b * mat.sb;
-  // [A | v] or, when refining, [A | v | I]
-  const int w = refine > 0 ? 2 * n + 1 : n + 1;
-  T a[kMaxN * kRolledWidth];
-  T v[kMaxN], x[kMaxN], r[kMaxN];
-  rolled_load(a, n, w, m, mat.sc, eps);
-  for (int i = 0; i < n; ++i) {
-    v[i] = vec.p[b * vec.sb + i * vec.sc];
-    a[i * w + n] = v[i];
-  }
-  if (refine > 0) rolled_identity(a, n, w, n + 1);
-  rolled_factor(a, n, w);
-  rolled_backsub(a, n, w);
-  for (int i = 0; i < n; ++i) x[i] = a[i * w + n];
-  for (int it = 0; it < refine; ++it) {
-    residual_global(m, mat.sc, eps, n, v, x, r);
-    for (int i = 0; i < n; ++i) {
-      const T* inv_row = a + i * w + n + 1;
-      T acc = inv_row[0] * r[0];
-      for (int j = 1; j < n; ++j) acc = acc + inv_row[j] * r[j];
-      x[i] = x[i] + acc;
+// A group of G lanes a problem (lu_groups.cuh): row i of A + diag(eps) in
+// lane i (lu_load_sym, then eps on the diagonal, as rolled_load's
+// sym_entry), the lane-group LU with every pivot row kept in U, each lane
+// carrying its row's entry of v through the factor, then the group's first
+// lane back-substitutes (solve1_groups' scheme on compact input); the
+// group writes x in order. The staged operand is over before step 0 stores
+// its pivot row, so U takes its place (lu_solve1_bytes).
+//
+// kRefine (refine > 0): the staged operand stays, U goes beside it, and
+// each lane also solves for column gl of the inverse X, which then takes
+// U's place (row stride G + 1). Each of the `refine` steps x += X (v - A x)
+// has lane i form r_i = v_i - E_ii x_i - sum over j != i, ascending, of
+// E_ij x_j from the staged A, then add row i of X times r, j ascending,
+// with x and r broadcast through shared memory: the operations of the
+// plain version's residual and update, in its order.
+template <typename T, int G, bool kRefine>
+__global__ void sym_solve_groups(long long nb, int n, View<const T> mat, View<const T> vec,
+                                 View<T> out, const T* __restrict__ eps, int refine) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kX = G + 1;
+  const int lane = threadIdx.x % kLieWarp, gl = lane % G;
+  const long long b = blockIdx.x * (long long)(blockDim.x / G) + threadIdx.x / G;
+  const long long bb = b < nb ? b : nb - 1;
+  const int per_group = kRefine ? lu_sym_refine_bytes<T, G>() : lu_solve1_bytes<T, G>();
+  T* u = reinterpret_cast<T*>(smem_raw + (threadIdx.x / G) * per_group);
+  T* stage = kRefine ? u + G * kX : u;
+  T* y = kRefine ? stage + G * kX / 2 : u + G * (G | 1);  // y, then x, then r
+  int* perm = reinterpret_cast<int*>(y + (kRefine ? 3 : 2) * G);
+  T row[G];
+  const T vi = gl < n ? vec.p[bb * vec.sb + gl * vec.sc] : T(0);
+  T bv = vi;
+  lu_load_sym<T, G>(mat, bb, n, gl, stage, row);
+  T dii = T(0);  // E_ii of lane i's row
+  const T e = eps != nullptr && gl < n ? eps[gl] : T(0);
+#pragma unroll
+  for (int c = 0; c < G; ++c) {
+    if (c == gl) {
+      if (eps != nullptr) row[c] = row[c] + e;
+      dii = row[c];
     }
   }
-  for (int i = 0; i < n; ++i) out.p[b * out.sb + i * out.sc] = x[i];
+  if constexpr (!kRefine) __syncwarp(kLieMask);  // every row is gathered: U may take its place
+  lu_group_factor<T, G, true>(row, n, lane, u, perm, &bv, y);
+  __syncwarp(kLieMask);  // y is whole
+  if (gl == 0) {
+    T x[G];
+#pragma unroll
+    for (int s = 0; s < G; ++s) x[s] = s < n ? y[s] : T(0);
+    lu_group_backsub<T, G>(u, n, x);
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+      if (i < n) y[G + i] = x[i];
+  }
+  if constexpr (kRefine) {
+    T xc[G];
+    lu_group_solve<T, G>(u, perm, n, [gl](int r) { return r == gl ? T(1) : T(0); }, xc);
+    __syncwarp(kLieMask);  // U is read, and x is whole; X takes U's place
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+      if (i < n) u[i * kX + gl] = xc[i];
+    T* xs = y + G;
+    T* rs = y + 2 * G;
+    T xi = xs[gl];
+    for (int it = 0; it < refine; ++it) {
+      __syncwarp(kLieMask);  // X and x are whole
+      if (gl < n) {
+        T acc = vi - dii * xs[gl];
+        for (int j = 0; j < n; ++j)
+          if (j != gl) acc = acc - stage[tri_index(gl, j, n)] * xs[j];
+        rs[gl] = acc;
+      }
+      __syncwarp(kLieMask);  // r is whole
+      if (gl < n) {
+        const T* xr = u + gl * kX;
+        T acc = xr[0] * rs[0];
+        for (int j = 1; j < n; ++j) acc = acc + xr[j] * rs[j];
+        xi = xi + acc;
+      }
+      __syncwarp(kLieMask);  // x and r are read
+      if (gl < n) xs[gl] = xi;
+    }
+    if (b < nb && gl < n) out.p[b * out.sb + gl * out.sc] = xi;
+  } else {
+    __syncwarp(kLieMask);
+    if (b < nb && gl < n) out.p[b * out.sb + gl * out.sc] = y[G + gl];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -223,7 +294,19 @@ cudaError_t launch_solve(int n, long long nb, View<const T> mat, View<const T> v
 #undef FM_SOLVE_CASE
     default:
       if (n < 1 || n > kMaxN) return cudaErrorInvalidValue;
-      solve_rolled<T><<<g, kThreads, 0, s>>>(nb, n, mat, vec, out, eps, refine);
+      if (refine > 0 && lie_group(n) == 16)
+        lu_launch<16>(sym_solve_groups<T, 16, true>, lu_sym_refine_bytes<T, 16>(), nb, s, n,
+                      mat, vec, out, eps, refine);
+      else if (refine > 0)
+        lu_launch<kLieWarp>(sym_solve_groups<T, kLieWarp, true>,
+                            lu_sym_refine_bytes<T, kLieWarp>(), nb, s, n, mat, vec, out, eps,
+                            refine);
+      else if (lie_group(n) == 16)
+        lu_launch<16>(sym_solve_groups<T, 16, false>, lu_solve1_bytes<T, 16>(), nb, s, n, mat,
+                      vec, out, eps, refine);
+      else
+        lu_launch<kLieWarp>(sym_solve_groups<T, kLieWarp, false>, lu_solve1_bytes<T, kLieWarp>(),
+                            nb, s, n, mat, vec, out, eps, refine);
   }
   return cudaGetLastError();
 }

@@ -32,7 +32,8 @@ The products route by their own rules (the reference never routes them
 to its kernels by default; these follow the card's measurements, see
 ``ROADMAP.md``): ``batchmatvec`` (no ``backend`` argument) launches the
 matvec kernel on a CUDA tensor for square n <= ``MATVEC_KERNEL_MAX``, and
-``batchmatmul`` for every dim <= ``MATMUL_KERNEL_MAX`` under ``"auto"``,
+``batchmatmul`` for every dim <= ``MATMUL_KERNEL_MAX`` under ``"auto"``
+(32, the kernel's whole domain: its tiles beat ``torch.matmul`` there),
 at every dim <= 32 under ``"cuda"``. bf16/f16 compute in float32 and
 round once on output.
 """
@@ -62,9 +63,10 @@ _MATMUL_UNROLL_MAX = 6
 MATVEC_KERNEL_MAX = 12
 #: ``batchmatmul(backend="auto")`` on a CUDA tensor launches the product
 #: kernel where every dim is up to this: it replaces the unrolled tier's
-#: m n (2k - 1) elementwise launches to 6, and on an H100 ran faster than
-#: torch.matmul on square n = 4..12 and slower from n = 16 (the same sweep)
-MATMUL_KERNEL_MAX = 12
+#: m n (2k - 1) elementwise launches to 6, and on an H100 its staged tiles
+#: ran faster than torch.matmul on square n = 4..32, every size it takes
+#: (the same sweep)
+MATMUL_KERNEL_MAX = 32
 
 _NO_REGULARIZE = ("backend='cuda' does not implement regularize=True (the "
                   "reference's det smoothing is a closed-form-path knob)")
@@ -362,9 +364,9 @@ def batchmatmul(a: torch.Tensor, b: torch.Tensor, backend: str = "auto") -> torc
     """Batched matmul ``(..., m, k) @ (..., k, n) -> (..., m, n)``; batch
     dims broadcast.
 
-    The kernel (one thread per output entry, each summed over k in order
-    from the first term) serves real float32/float64 with every dim
-    <= 32. ``"auto"`` launches it on a CUDA tensor where every dim is
+    The kernel (4 x 4 tiles of C a thread from operands staged in shared
+    memory, each entry summed over k in order from the first term)
+    serves real float32/float64 with every dim <= 32. ``"auto"`` launches it on a CUDA tensor where every dim is
     <= ``MATMUL_KERNEL_MAX``; ``"cuda"`` at every dim <= 32 (and raises
     outside that domain or on CPU tensors). Otherwise, and under
     ``"torch"``: unrolled (each entry summed over k in order) when every

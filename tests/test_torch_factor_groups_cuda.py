@@ -18,13 +18,16 @@ nor ``fastmath_tpu``:
   version's determinant signs exactly and its values within ``TOL``:
   float32 1e-5, float64 1e-12, relative for a determinant, ``tol *
   max(1, |logdet|)`` for log|det|, normwise for the inverse, the solve
-  (k = 1 and 3) and the Cholesky factor of A A^T + n I. The kernels
+  (k = 1 and 3), the compact solve (refine 0 and 1, without eps and, on
+  the problems it leaves at condition number <= 100, with it) and the
+  Cholesky factor of A A^T + n I. The kernels
   contract multiply-adds into FMAs and the plain versions do not. The
   integer matrices are kept to condition numbers <= 60, so that these
   roundings stay within the tolerance.
 - Neighbours: a group of 16 lanes shares its warp with another problem.
   A singular or NaN problem must leave its neighbours' bits as they are
-  when each runs alone; a problem that is not SPD gives the Cholesky
+  when each runs alone (the compact solve with and without eps and
+  refinement too); a problem that is not SPD gives the Cholesky
   factor NaN in every slot, and its SPD neighbours their own bits.
 - Ragged grids: batches of 1, 3 and 33 problems, at G = 16 and G = 32,
   give the bits of the same problems in a larger batch.
@@ -38,12 +41,16 @@ import pytest
 import torch
 
 from fastmath_tpu_torch.kernels import (batched_cuda, chol_cf, det_cf, inv_cf, logdet_cf,
-                                        solve_full_cf, sym_det_cf, sym_factor, sym_invert_cf)
+                                        solve_full_cf, sym_cuda, sym_det_cf, sym_factor,
+                                        sym_invert_cf, sym_solve_cf)
 from fastmath_tpu_torch.layouts import full_to_sym
 
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 DTYPES = [torch.float32, torch.float64]
 NS = [9, 16, 17, 32]  # both edges of each group size
+# the compact solve's eps and refine steps
+EPS = 0.25
+SOLVES = [(None, 0), (EPS, 0), (None, 1), (EPS, 1)]
 
 
 @pytest.fixture(autouse=True)
@@ -144,7 +151,8 @@ def _bits(t):
 def test_ties_match_plain(n, dtype, layout, rng):
     tol, cf = TOL[dtype], layout == "channel_first"
     a = torch.tensor(_ties_general(rng, n).reshape(-1, n * n), dtype=dtype, device="cuda")
-    s = full_to_sym(torch.tensor(_ties_symmetric(rng, n), dtype=dtype, device="cuda"))
+    sfull = _ties_symmetric(rng, n)
+    s = full_to_sym(torch.tensor(sfull, dtype=dtype, device="cuda"))
     a_in, s_in = (_cf(a), _cf(s)) if cf else (a, s.contiguous())
 
     r = torch.tensor(rng.standard_normal((a.shape[0], 3 * n)), dtype=dtype, device="cuda")
@@ -152,8 +160,15 @@ def test_ties_match_plain(n, dtype, layout, rng):
     gram = full_to_sym(a.reshape(-1, n, n) @ a.reshape(-1, n, n).mT
                        + n * torch.eye(n, dtype=dtype, device="cuda")).contiguous()
     r_in, r1_in, g_in = (_cf(r), _cf(r1), _cf(gram)) if cf else (r, r1, gram)
+    # the compact solve; with eps only where A + diag(eps) stays well
+    # conditioned (eps shifts the diagonal, the off-diagonal ties stay)
+    v = torch.tensor(rng.standard_normal((s.shape[0], n)), dtype=dtype, device="cuda")
+    ok = torch.from_numpy(np.linalg.cond(sfull + EPS * np.eye(n)) <= 100).to("cuda")
+    solves = [(s if e is None else s[ok], v if e is None else v[ok], sym_cuda._prep_eps(e, n),
+               rf) for e, rf in SOLVES]
 
-    wrappers = (det_cf, logdet_cf, inv_cf, sym_det_cf, sym_invert_cf, solve_full_cf, chol_cf)
+    wrappers = (det_cf, logdet_cf, inv_cf, sym_det_cf, sym_invert_cf, solve_full_cf, chol_cf,
+                sym_solve_cf)
     before = [w.launches for w in wrappers]
     det = batched_cuda.launch_det(a_in, cf_out=cf)
     logdet = batched_cuda.launch_logdet(a_in, cf_out=cf)
@@ -163,7 +178,10 @@ def test_ties_match_plain(n, dtype, layout, rng):
     x1 = batched_cuda.launch_solve_full(a_in, r1_in, 1, cf_out=cf)
     x3 = batched_cuda.launch_solve_full(a_in, r_in, 3, cf_out=cf)
     chol = batched_cuda.launch_chol(g_in, cf_out=cf)
-    assert [w.launches - b for w, b in zip(wrappers, before)] == [1] * 5 + [2, 1]
+    xs = [sym_cuda.launch_solve(_cf(sm) if cf else sm.contiguous(),
+                                _cf(vm) if cf else vm.contiguous(), e, rf, cf_out=cf)
+          for sm, vm, e, rf in solves]
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1] * 5 + [2, 1, 4]
 
     det_p, logdet_p = batched_cuda.det_plain(a), batched_cuda.logdet_plain(a)
     sdet_p = sym_factor.sym_det_plain(s.contiguous())
@@ -176,7 +194,9 @@ def test_ties_match_plain(n, dtype, layout, rng):
                       (sinv, sym_factor.invert_plain(s.contiguous())),
                       (x1, batched_cuda.solve_full_plain(a, r1, 1)),
                       (x3, batched_cuda.solve_full_plain(a, r, 3)),
-                      (chol, batched_cuda.chol_plain(gram))):
+                      (chol, batched_cuda.chol_plain(gram)),
+                      *((x, sym_cuda.solve_plain(sm.contiguous(), vm.contiguous(), e, rf))
+                        for x, (sm, vm, e, rf) in zip(xs, solves))):
         err = ((got - want).double().norm(dim=1) / want.double().norm(dim=1)).max().item()
         assert err <= tol
 
@@ -203,21 +223,27 @@ def test_neighbours_keep_their_bits(n, dtype, rng):
     s = full_to_sym(torch.tensor(0.5 * (full + full.transpose(0, 2, 1)), dtype=dtype,
                                  device="cuda")).contiguous()
     r = torch.tensor(rng.standard_normal((b, 3 * n)), dtype=dtype, device="cuda")
+    v = torch.tensor(rng.standard_normal((b, n)), dtype=dtype, device="cuda")
+    eps = sym_cuda._prep_eps(EPS, n)
     for cf in (False, True):
-        a_in, s_in, r_in = (_cf(a), _cf(s), _cf(r)) if cf else (a, s, r)
+        a_in, s_in, r_in, v_in = (_cf(a), _cf(s), _cf(r), _cf(v)) if cf else (a, s, r, v)
         outs = (batched_cuda.launch_det(a_in, cf_out=cf),
                 batched_cuda.launch_logdet(a_in, cf_out=cf),
                 batched_cuda.launch_inv(a_in, cf_out=cf),
                 sym_factor.launch_sym_det(s_in, cf_out=cf),
                 sym_factor.launch_sym_invert(s_in, cf_out=cf),
                 batched_cuda.launch_solve_full(a_in, r_in, 3, cf_out=cf),
-                batched_cuda.launch_chol(s_in, cf_out=cf))
+                batched_cuda.launch_chol(s_in, cf_out=cf),
+                sym_cuda.launch_solve(s_in, v_in, None, 0, cf_out=cf),
+                sym_cuda.launch_solve(s_in, v_in, eps, 1, cf_out=cf))
         for t in range(0, b, 2):
             alone = (batched_cuda.launch_det(a[t:t + 1]), batched_cuda.launch_logdet(a[t:t + 1]),
                      batched_cuda.launch_inv(a[t:t + 1]), sym_factor.launch_sym_det(s[t:t + 1]),
                      sym_factor.launch_sym_invert(s[t:t + 1]),
                      batched_cuda.launch_solve_full(a[t:t + 1], r[t:t + 1], 3),
-                     batched_cuda.launch_chol(s[t:t + 1]))
+                     batched_cuda.launch_chol(s[t:t + 1]),
+                     sym_cuda.launch_solve(s[t:t + 1], v[t:t + 1], None, 0),
+                     sym_cuda.launch_solve(s[t:t + 1], v[t:t + 1], eps, 1))
             for got, one in zip(outs, alone):
                 assert torch.isfinite(one).all()
                 assert torch.equal(_bits(got[t:t + 1]), _bits(one)), (t, cf)
@@ -235,22 +261,28 @@ def test_ragged_batches(n, dtype, rng):
     s = full_to_sym(torch.tensor(0.5 * (full + full.transpose(0, 2, 1)), dtype=dtype,
                                  device="cuda")).contiguous()
     r = torch.tensor(rng.standard_normal((70, 17 * n)), dtype=dtype, device="cuda")
+    v = torch.tensor(rng.standard_normal((70, n)), dtype=dtype, device="cuda")
+    eps = sym_cuda._prep_eps(EPS, n)
     whole = (batched_cuda.launch_det(a), batched_cuda.launch_logdet(a),
              batched_cuda.launch_inv(a), sym_factor.launch_sym_det(s),
              sym_factor.launch_sym_invert(s), batched_cuda.launch_solve_full(a, r, 17),
-             batched_cuda.launch_chol(s))
+             batched_cuda.launch_chol(s), sym_cuda.launch_solve(s, v, None, 0),
+             sym_cuda.launch_solve(s, v, eps, 1))
     for b in (1, 3, 33):
         for cf in (False, True):
             a_in = _cf(a[:b]) if cf else a[:b]
             s_in = _cf(s[:b]) if cf else s[:b]
             r_in = _cf(r[:b]) if cf else r[:b]
+            v_in = _cf(v[:b]) if cf else v[:b]
             part = (batched_cuda.launch_det(a_in, cf_out=cf),
                     batched_cuda.launch_logdet(a_in, cf_out=cf),
                     batched_cuda.launch_inv(a_in, cf_out=cf),
                     sym_factor.launch_sym_det(s_in, cf_out=cf),
                     sym_factor.launch_sym_invert(s_in, cf_out=cf),
                     batched_cuda.launch_solve_full(a_in, r_in, 17, cf_out=cf),
-                    batched_cuda.launch_chol(s_in, cf_out=cf))
+                    batched_cuda.launch_chol(s_in, cf_out=cf),
+                    sym_cuda.launch_solve(s_in, v_in, None, 0, cf_out=cf),
+                    sym_cuda.launch_solve(s_in, v_in, eps, 1, cf_out=cf))
             for got, want in zip(part, whole):
                 assert torch.equal(_bits(got), _bits(want[:b])), (b, cf)
 

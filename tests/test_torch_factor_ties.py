@@ -2,10 +2,11 @@
 whose pivot columns tie: the port's plain versions of the determinant,
 log-determinant, inverse, compact determinant, compact inverse and solve
 (``det_plain``, ``logdet_plain``, ``inv_plain``, ``sym_det_plain``,
-``invert_plain``, ``solve_full_plain``, which the lane-group CUDA kernels
-of ``csrc/lu_groups.cuh`` mirror) against the reference's Pallas kernels
-run in interpret mode, at n = 9 and 16; the solve with k = 1 and 3
-right-hand-side columns.
+``invert_plain``, ``solve_full_plain``, ``solve_plain``, which the
+lane-group CUDA kernels of ``csrc/lu_groups.cuh`` mirror) against the
+reference's Pallas kernels run in interpret mode, at n = 9 and 16; the
+solve with k = 1 and 3 right-hand-side columns, the compact solve with
+``refine`` 0 and 1.
 
 The pivot of column k is the first largest |a[i][k]| in the order left by
 the earlier swaps. On ties a wrong rule shows as a flipped determinant
@@ -114,4 +115,22 @@ def test_rolled_solve_on_ties_match_pallas(n, k, rng):
     want = np.asarray(PK.solve_full_cf(jnp.asarray(mat), jnp.asarray(rhs), k, block=BLOCK,
                                        interpret=True))
     assert got.shape == want.shape == (n * k, b)
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("refine", [0, 1])
+@pytest.mark.parametrize("n", [9, 16])
+def test_rolled_compact_solve_on_ties_match_pallas(n, refine, rng):
+    # the compact solve's elimination of [A | v] (with refine, of [A | v | I],
+    # then the residual step through the explicit inverse) on symmetric
+    # tie-heavy input: the plain version, which the lane-group kernel
+    # mirrors, against the reference kernel
+    full = _tie_heavy(rng, n, sym=True)
+    b = len(full)
+    mat = np.ascontiguousarray(_compact(full).T)
+    vec = rng.standard_normal((n, b))
+    got = K.sym_solve_cf(torch.from_numpy(mat), torch.from_numpy(vec), refine=refine).numpy()
+    want = np.asarray(PK.sym_solve_cf(jnp.asarray(mat), jnp.asarray(vec), block=BLOCK,
+                                      interpret=True, refine=refine))
+    assert got.shape == want.shape == (n, b)
     np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12 * np.abs(want).max())

@@ -27,6 +27,7 @@ import fastmath_tpu_torch as T
 from fastmath_tpu_torch.kernels import (batched_cuda, matmul_cf, matvec_full_cf, sym_iterate,
                                         sym_matvec_chain_cf, sym_maxeig_cf)
 from fastmath_tpu_torch.layouts import full_to_sym, sym_to_full
+from fastmath_tpu_torch.ops.batched import MATMUL_KERNEL_MAX
 
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 B = 4099  # a ragged last block
@@ -148,8 +149,10 @@ def test_matvec_full_kernel_matches_plain(n, dtype, rng):
             assert _rel(got, want, terms) <= TOL[dtype], (trans, layout)
 
 
-MKN = [(1, 1, 1), (2, 3, 4), (4, 4, 4), (6, 6, 6), (7, 3, 5), (1, 32, 1), (16, 16, 16),
-       (32, 32, 32)]
+# the entry tier's and each tile tier's edges: ragged tiles (13 x 5 x 17),
+# k = 1 beside the largest C (32 x 1 x 32), square n = 8, 12, 17
+MKN = [(1, 1, 1), (2, 3, 4), (4, 4, 4), (6, 6, 6), (7, 3, 5), (1, 32, 1), (8, 8, 8),
+       (12, 12, 12), (13, 5, 17), (16, 16, 16), (17, 17, 17), (32, 1, 32), (32, 32, 32)]
 
 
 @pytest.mark.cuda
@@ -206,6 +209,7 @@ def _launches():
 @pytest.mark.cuda
 def test_public_ops_route_to_kernels(rng):
     dev = "cuda"
+    K = MATMUL_KERNEL_MAX
     mat = torch.tensor(_contraction(rng, 64, 4), device=dev)
     vec = torch.tensor(rng.standard_normal((64, 4)), device=dev)
     full = torch.tensor(rng.standard_normal((64, 4, 4)), device=dev)
@@ -224,6 +228,12 @@ def test_public_ops_route_to_kernels(rng):
         (lambda: T.batchmatmul(torch.ones(5, 7, 7, device=dev), torch.ones(5, 7, 7, device=dev),
                                backend="cuda"), 3, True),
         (lambda: T.batchmatmul(full, full, backend="torch"), 3, False),
+        # auto takes the kernel at every dim up to MATMUL_KERNEL_MAX (the
+        # kernel's whole domain, 32), torch.matmul beyond
+        (lambda: T.batchmatmul(torch.ones(5, K, 3, device=dev), torch.ones(5, 3, K, device=dev)),
+         3, True),
+        (lambda: T.batchmatmul(torch.ones(5, 2, K + 1, device=dev),
+                               torch.ones(5, K + 1, 2, device=dev)), 3, False),
     ]
     for i, (call, idx, moves) in enumerate(cases):
         before = _launches()

@@ -50,7 +50,7 @@ def _normwise(got, want, add=None):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 8, 9, 16, 32])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 8, 9, 12, 16, 17, 24, 32])
 def test_kernels_match_plain(n, dtype, rng):
     mat, vec, add = _inputs(rng, 1029, n, dtype)  # ragged last block
     mat_cf, vec_cf = mat.t().contiguous().t(), vec.t().contiguous().t()
