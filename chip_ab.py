@@ -1,26 +1,32 @@
 #!/usr/bin/env python3
 """Time one source tree's full-storage solve, Cholesky, inverse, compact
-solve and product kernels on one NVIDIA GPU, to compare two versions of a
-kernel in one call.
+solve, product, matrix logarithm and rolled eig kernels on one NVIDIA GPU,
+to compare two versions of a kernel in one call.
 
-    python3 /path/to/chip_ab.py TAG [--library]
+    python3 /path/to/chip_ab.py TAG [--library] [--only GROUP[,GROUP...]]
 
 Run it from the root of the tree to time (its ``chip_smoke.py`` and
 ``fastmath_tpu_torch`` are imported from the working directory), once for
-each tree in turns (old, new, new, old). It builds ``csrc/batched.cu``,
-``csrc/sym_solve.cu`` and ``csrc/batched_products.cu``, times each kernel
-three times with ``chip_smoke.device_ms`` at the bench suite's shapes (the
-solve 16x16 on 500k, 24x24 on 200k, 32x32 on 100k with one column and
-16x16 with 16; Cholesky 16x16, 24x24, 32x32; the inverse 16x16 and 32x32;
-the compact solve at N = 16 on 262,144 (also with ``refine=1``), N = 24
-on 131,072 and N = 32 on 65,536; the product 4x4 on 1M, 16x16 on 500k and
-32x32 on 100k), holds each result against its plain version, and prints
-one JSON line: ``tag``, each shape's three times and normwise error, and
-the registers and spills (``-Xptxas -v``) of every kernel but the
-unrolled tiers. ``--library`` also times ``torch.linalg.solve_ex`` /
-``cholesky_ex`` (the compact solve's on the densified batch) and
-``torch.matmul`` on the same inputs. It imports neither JAX nor
-``fastmath_tpu``.
+each tree in turns (old, new, new, old). It builds the sources of the
+groups it times, times each kernel three times with
+``chip_smoke.device_ms`` at the bench suite's shapes, holds each result
+against its plain version, and prints one JSON line: ``tag``, each
+shape's three times and error, and the registers and spills (``-Xptxas
+-v``) of every kernel of those sources but the unrolled tiers. The groups
+(all by default): ``solve`` (``csrc/batched.cu``: the solve 16x16 on
+500k, 24x24 on 200k, 32x32 on 100k with one column and 16x16 with 16;
+the inverse 16x16 and 32x32), ``chol`` (16x16, 24x24, 32x32), ``sym_solve``
+(``csrc/sym_solve.cu``: N = 16 on 262,144, also with ``refine=1``, N = 24
+on 131,072, N = 32 on 65,536), ``matmul`` (``csrc/batched_products.cu``:
+4x4 on 1M, 16x16 on 500k, 32x32 on 100k), ``logm`` (``csrc/logm.cu``:
+``logm_warp`` at every ``chip_smoke.LIE_SHAPES`` d and 17x17 on 15,625, on
+expm of the bench input, and 32x32 holding those 17x17 problems padded
+with the identity; normwise error) and ``eig`` (``csrc/eig.cu``: ``eig_rolled`` at
+12, 16 on 200k and 24, 32 on 100k, values and vectors, the largest
+eigenvalue difference). ``--library`` also times ``torch.linalg.solve_ex``
+/ ``cholesky_ex`` (the compact solve's on the densified batch),
+``torch.matmul`` and ``eigvalsh`` / ``eigh`` on the same inputs. It imports
+neither JAX nor ``fastmath_tpu``.
 """
 import json
 import pathlib
@@ -37,24 +43,38 @@ def main():
     import chip_smoke as C
     from fastmath_tpu_torch.kernels import _build
     from fastmath_tpu_torch.kernels import batched_cuda as BC
+    from fastmath_tpu_torch.kernels import eig as KEIG
+    from fastmath_tpu_torch.kernels import expm as KE
+    from fastmath_tpu_torch.kernels import logm as KL
     from fastmath_tpu_torch.kernels import sym_cuda as SC
     from fastmath_tpu_torch.layouts import full_to_sym
 
     tag, library = sys.argv[1], "--library" in sys.argv[2:]
-    libs = ["batched", "sym_solve", "batched_products"]
-    _build.build_all(libs)
+    groups = {"solve", "chol", "sym_solve", "matmul", "logm", "eig"}
+    if "--only" in sys.argv:
+        groups = set(sys.argv[sys.argv.index("--only") + 1].split(","))
+    sources = {"solve": "batched", "chol": "batched", "sym_solve": "sym_solve",
+               "matmul": "batched_products", "logm": "logm", "eig": "eig"}
+    libs = sorted({sources[g] for g in groups})
+    _build.build_all(libs + (["expm"] if "logm" in groups else []))
     res = {"tag": tag}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
 
-    def timed(key, launch, plain, lib):
+    def timed(key, launch, plain, lib, error=None):
         got, want = launch(), plain()
-        err = ((got - want).norm(dim=1) / want.norm(dim=1)).max().item()
+        if error is None:
+            err = ((got - want).norm(dim=1) / want.norm(dim=1)).max().item()
+        else:
+            err = error(got, want)
+        del got, want
         res[key] = [C.device_ms(torch, launch, reps=10) for _ in range(3)] + [err]
-        if library:
+        if library and lib is not None:
             res[f"{key} library"] = C.yardstick_ms(torch, lib, key)
 
     for n, b, k in ((16, 500_000, 1), (24, 200_000, 1), (32, 100_000, 1), (16, 500_000, 16)):
+        if "solve" not in groups:
+            break
         a = C.spd_on_card(torch, gen, b, n)
         f = a.reshape(b, n * n)
         r = torch.randn(b, n * k, generator=gen, device="cuda")
@@ -66,6 +86,8 @@ def main():
                                           for _ in range(3)]
         del a, f, r
     for n, b in ((16, 500_000), (24, 200_000), (32, 100_000)):
+        if "chol" not in groups:
+            break
         a = C.spd_on_card(torch, gen, b, n)
         m = full_to_sym(a).contiguous()
         timed(f"chol {n}x{n} on {b}", lambda: BC.launch_chol(m), lambda: BC.chol_plain(m),
@@ -73,6 +95,8 @@ def main():
         del a, m
     for n, b, refine in ((16, 262_144, 0), (16, 262_144, 1), (24, 131_072, 0),
                          (32, 65_536, 0)):
+        if "sym_solve" not in groups:
+            break
         a = C.spd_on_card(torch, gen, b, n)
         m = full_to_sym(a).contiguous()
         v = torch.randn(b, n, generator=gen, device="cuda")
@@ -82,11 +106,43 @@ def main():
               lambda: torch.linalg.solve_ex(a, v[..., None]))
         del a, m, v
     for n, b in ((4, 1_000_000), (16, 500_000), (32, 100_000)):
+        if "matmul" not in groups:
+            break
         x, y = (torch.randn(b, n, n, generator=gen, device="cuda") for _ in range(2))
         xf, yf = x.reshape(b, -1), y.reshape(b, -1)
         timed(f"matmul {n}x{n} on {b}", lambda: BC.launch_matmul(xf, yf, n, n, n),
               lambda: BC.matmul_plain(xf, yf, n, n, n), lambda: torch.matmul(x, y))
         del x, y, xf, yf
+    logm_err = lambda got, want: C.lie_normwise(torch, got, want).max().item()  # noqa: E731
+    for d, b in C.LIE_SHAPES:
+        if "logm" not in groups:
+            break
+        e = KE.launch_expm(torch.randn(b, d, d, generator=gen, device="cuda") * (0.5 / d ** 0.5))
+        timed(f"logm {d}x{d} on {b}", lambda: KL.launch_logm(e), lambda: KL.logm_plain(e), None,
+              logm_err)
+        del e
+    if "logm" in groups:
+        # 17x17 problems, and the same padded with I to 32x32: G = 32 lanes on both
+        e17 = KE.launch_expm(torch.randn(15_625, 17, 17, generator=gen, device="cuda")
+                             * (0.5 / 17 ** 0.5))
+        e32 = torch.eye(32, device="cuda").repeat(15_625, 1, 1)
+        e32[:, :17, :17] = e17
+        for key, e in (("logm 17x17 on 15625", e17),
+                       ("logm 32x32 on 15625 holding the 17x17 problems", e32)):
+            timed(key, lambda: KL.launch_logm(e), lambda: KL.logm_plain(e), None, logm_err)
+        del e17, e32
+    for n, b in ((12, 200_000), (16, 200_000), (24, 100_000), (32, 100_000)):
+        if "eig" not in groups:
+            break
+        a = C.spd_on_card(torch, gen, b, n)
+        s = KEIG.sweeps_for(n)
+        for vec in (False, True):
+            timed(f"eig {n}x{n} on {b}{' vectors' if vec else ''}",
+                  lambda: KEIG.launch_eig_full(a, True, vec, s)[0],
+                  lambda: KEIG.eig_plain(a, vec, s)[0],
+                  lambda: (torch.linalg.eigh if vec else torch.linalg.eigvalsh)(a),
+                  lambda got, want: (got.sort(-1).values - want.sort(-1).values).abs().max().item())
+        del a
     res["ptxas"] = [row for lib in libs
                     for row in C.ptxas_summary(_build.build_log(lib).read_text())
                     if "unrolled" not in row]

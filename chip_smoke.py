@@ -1978,7 +1978,7 @@ def phase_iterate(torch, rng):
 # float32 Jacobi sits at 4e-6..9e-6 ||A||_F at n = 32 before any polish (in
 # the kernel and the plain version alike); float64 at round-off
 TOL_EIG = {"float32": 2e-5, "float64": 1e-12}
-EIG_CHECK_NS = (4, 5, 8, 9, 16, 17, 32)
+EIG_CHECK_NS = (4, 5, 8, 9, 12, 16, 17, 24, 25, 32)
 
 
 def eig_errors(torch, w, u, sym, w_ref):
@@ -2287,7 +2287,7 @@ TOL_EXPM = {"float32": 1e-5, "float64": 1e-12}
 TOL_EXPM_DEEP = {"float32": 2e-4, "float64": 1e-11}
 TOL_LOGM = {"float32": 5e-5, "float64": 1e-11}
 # every d phase 10 runs, and each tier's edges
-LIE_CHECK_DS = (1, 2, 3, 4, 5, 8, 9, 16, 17, 24, 25, 28, 32)
+LIE_CHECK_DS = (1, 2, 3, 4, 5, 8, 9, 12, 16, 17, 24, 25, 28, 32)
 LIE_ORACLE = 64  # problems held against float64 scipy in phase 2
 
 
@@ -2460,7 +2460,8 @@ def phase_lie_gradients(torch, rng):
 # max_iter 64 (here on float64 input, so the mean stays float64)
 LIE_MAIN = (4, 1_000_000)
 LIE_SHAPES = ((8, 250_000), (16, 62_500), (24, 27_777), (28, 20_408), (32, 15_625))
-LIE_SPD = ((5, 15_625), (8, 15_625), (12, 15_625), (16, 15_625), (28, 15_625), (32, 15_625))
+LIE_SPD = ((5, 15_625), (8, 15_625), (12, 15_625), (16, 15_625), (17, 15_625), (24, 15_625),
+           (28, 15_625), (32, 15_625))
 MEANM_SHAPE = (4096, 8, 4)
 # the shape of each kernel row of the kernels line
 LIE_ROWS = {"expm_unrolled": (4, 1_000_000), "expm_warp": (16, 62_500),

@@ -22,14 +22,23 @@
 //     compile-time constant: the upper triangle (n(n+1)/2 values; the
 //     rotated matrix stays exactly symmetric) and V (n^2) in registers.
 //     a_pq is set to 0 after its rotation, as the reference does.
-//   eig_rolled: the round-robin order of _round_robin (n - 1 rounds, n
-//     for odd n, of floor(n/2) disjoint rotations), one warp per problem,
-//     A and V in shared memory (row stride n | 1, so a column walk hits
-//     distinct banks). Lane k computes rotation k of a round from the
-//     matrix as the round found it; then each lane updates one column
-//     (the row pass), and after a __syncwarp one row of A and of V (the
-//     column pass). The rolled reference does not zero a_pq; neither
-//     does this tier.
+//   eig_rolled<T, M, U>: the round-robin order of _round_robin (n - 1
+//     rounds, n for odd n, of floor(n/2) disjoint rotations), a group of
+//     16 lanes a problem to n = 16 (two a warp), 32 above; one kernel for
+//     each even M = n + n % 2 (odd n adds a zero row and column, whose
+//     rotations are exactly the identity). Lane i holds a row of A and row
+//     i of V in registers; A is kept in the seat order of the circle
+//     method, so each round's pairs are the seats (k, M - 1 - k), every
+//     register index a constant, and the round is compiled once (the
+//     rounds unrolled from a table took 230 s to build and about 140 KB of
+//     instructions at n = 32, which ran slower with vectors). A round: one
+//     store of each row to shared memory, the rotations computed by the
+//     pairs' lower lanes from the rows as the round found them (oriented
+//     by player, as the reference's p < q) and stored as vectors of (c,
+//     s), then each lane's row pass against its facing row and the column
+//     pass and V J on its own registers, then each row stored at its
+//     player's next seat and reloaded. The rolled reference does not zero
+//     a_pq; neither does this tier.
 //
 // The sweep loop of each problem exits on its own test, before each
 // sweep: off^2 <= 16 eps^2 |A|_F^2, the squares summed over both
@@ -41,7 +50,7 @@
 //
 // Term order: the unrolled tier sums |A|_F^2 and off^2 row by row from
 // the first term, as the plain PyTorch version does; the rolled tier
-// sums each column in a lane and the lanes by a butterfly. Multiply-adds
+// sums each row in a lane and the lanes by a butterfly. Multiply-adds
 // contract into FMAs, so results move a few ulp from the plain version.
 //
 // What bounds them: a problem reads n^2 values (the full matrix, or
@@ -52,8 +61,10 @@
 // through shared memory, so device memory sees coalesced runs (a thread
 // storing its own rows reached 10-28% of the byte bound in the other
 // kernels of this package, staged rows 76-98%). The rolled tier spreads
-// one problem's n^3 work over a warp instead of keeping 8 KB of matrix in
-// one thread's local memory, as the other rolled tiers do.
+// one problem's n^3 work over a lane group: per round each lane does about
+// 4 n multiply-adds (6 n with vectors) for 3 n / 4 vector accesses of
+// shared memory (n / 2 in float64), two barriers and its share of the
+// rotations' divisions and square roots.
 //
 // Every launch goes on the caller's stream, allocates nothing and does
 // not synchronize; the entry point returns cudaGetLastError().
@@ -62,7 +73,7 @@
 
 #include <cuda_runtime.h>
 
-#include "sym_common.cuh"
+#include "lu_groups.cuh"
 
 namespace fm {
 
@@ -70,11 +81,6 @@ namespace fm {
 // of n^2 doubles (33 KB at n = 8) in static shared memory.
 constexpr int kEigThreads = 64;
 constexpr int kEigUnrollMax = 8;
-constexpr int kWarpSize = 32;
-constexpr unsigned kFullMask = 0xffffffffu;
-// Dynamic shared memory a block of the rolled tier may take without an
-// opt-in; it gets as many problems (warps, up to 8) as fit.
-constexpr int kEigSmem = 48 * 1024;
 
 __device__ __forceinline__ float eps_of(float) { return FLT_EPSILON; }
 __device__ __forceinline__ double eps_of(double) { return DBL_EPSILON; }
@@ -251,107 +257,223 @@ eig_unrolled(long long nb, int sweeps, SymIn<T> in, View<T> w, View<T> u) {
 }
 
 // ---------------------------------------------------------------------------
-// rolled tier: 9 <= n <= 32, one warp per problem
+// rolled tier: 9 <= n <= 32, a group of G lanes a problem
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__device__ __forceinline__ T warp_sum(T x) {
-  // a butterfly: every lane ends with the same bits
-#pragma unroll
-  for (int o = kWarpSize / 2; o > 0; o >>= 1) x = x + __shfl_xor_sync(kFullMask, x, o);
-  return x;
+// Lanes a problem of the rolled tier takes at M = n + (n & 1) players:
+// two problems a warp to n = 16.
+template <int M>
+__host__ __device__ constexpr int eig_group() {
+  return M <= 16 ? 16 : kLieWarp;
 }
 
-// Player at seat k of round r of the circle method (_round_robin): seat 0
-// keeps player 0, the others rotate by one seat a round.
-__device__ __forceinline__ int seat(int k, int r, int m) {
-  if (k == 0) return 0;
-  const int z = ((k - 1 - r) % (m - 1) + (m - 1)) % (m - 1);
-  return z + 1;
+// Row stride of the group's shared rows: whole vectors, an odd number of
+// them, so that eight lanes reading eight rows' vectors hit distinct
+// banks.
+template <typename T, int M>
+__host__ __device__ constexpr int eig_ld() {
+  return ((M + LuVec<T>::width - 1) / LuVec<T>::width | 1) * LuVec<T>::width;
 }
 
-template <typename T>
-__global__ void eig_rolled(long long nb, int n, int sweeps, int compute_u, SymIn<T> in,
-                           View<T> w, View<T> u) {
+// Values of one turn of rotations: M / 2 pairs' (c, s), whole vectors.
+template <typename T, int M>
+__host__ __device__ constexpr int eig_rot_len() {
+  return (M + LuVec<T>::width - 1) / LuVec<T>::width * LuVec<T>::width;
+}
+
+// Shared memory of one group: the rows of A in two turns (M rows each; the
+// first also stages the input, and V for the stores) and each turn's
+// rotations.
+template <typename T, int M>
+__host__ __device__ constexpr int eig_group_bytes() {
+  return (2 * M * eig_ld<T, M>() + 2 * eig_rot_len<T, M>()) * (int)sizeof(T);
+}
+
+// The player at seat k in round r of the circle method over M players
+// (round_robin): seat 0 keeps player 0, and every other player moves up
+// one seat a round (seat M - 1 to seat 1), so seat k > 0 holds player
+// (k - 1 - r) mod (M - 1) + 1. Seat k faces seat M - 1 - k.
+template <int M>
+__device__ __forceinline__ int eig_player(int k, int r) {
+  const int x = k - 1 - r;
+  return k == 0 ? 0 : (x < 0 ? x + (M - 1) : x) + 1;
+}
+
+// A group of G = eig_group<M>() lanes a problem (32 / G problems a warp,
+// every lane of the warp in every collective: a group past the batch runs
+// a copy of the last problem and stores nothing), M = n + (n & 1); for odd
+// n the last player is a zero row and column, whose rotations are exactly
+// the identity (the pairs round_robin leaves out). The matrix is kept in
+// seat order: lane k holds the row of A of the player at seat k, its
+// columns in the same order, so every round rotates the pairs (k, M - 1 -
+// k) and every register index is a compile-time constant. Lane i holds
+// row i of V (its columns in seat order too). Each round: the seat's lower
+// lane k < M / 2 computes the rotation of its pair from the rows as the
+// round found them, oriented as round_robin's (p, q) by player, and stores
+// (c, s) as seat k's; then each lane takes its facing row, r_k <- c r_k +
+// s' r_(M-1-k) (s' = s at seat k, -s at seat M - 1 - k: the row pass),
+// and applies every pair's (c, s) to its own columns (the column pass and
+// V J). Between rounds the players move up one seat: each lane stores its
+// row, columns moved, at its player's next seat, V's columns move in
+// registers, and each lane reloads its seat's row; that store is also the
+// next round's row exchange. M - 1 rounds bring every player back to its
+// own seat, so each sweep starts and ends in the natural order. Each group
+// tests its own convergence before each sweep; the warp sweeps while a
+// group of it does, and a group that does not changes nothing.
+template <typename T, int M, bool U>
+__global__ void eig_rolled(long long nb, int n, int sweeps, SymIn<T> in, View<T> w, View<T> u) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = threadIdx.x % kWarpSize, warp = threadIdx.x / kWarpSize;
-  const int ld = odd_stride(n);
-  T* A = reinterpret_cast<T*>(smem_raw) + (long long)warp * (compute_u ? 2 : 1) * n * ld;
-  T* V = A + n * ld;
-  const long long b = blockIdx.x * (long long)(blockDim.x / kWarpSize) + warp;
-  if (b >= nb) return;  // the whole warp; no block-wide barrier follows
-  const T* base = in.p + b * in.sb;
-  if (lane < n) {
-    for (int i = 0; i <= lane; ++i) {
-      const T x = sym_in(in, base, i, lane, n);
-      A[i * ld + lane] = x;
-      A[lane * ld + i] = x;
-    }
-    if (compute_u)
-      for (int i = 0; i < n; ++i) V[i * ld + lane] = i == lane ? T(1) : T(0);
+  using V = typename LuVec<T>::type;
+  constexpr int G = eig_group<M>(), kW = LuVec<T>::width, LD = eig_ld<T, M>();
+  constexpr int kNV = (M + kW - 1) / kW;  // vectors a row
+  constexpr int H = M / 2;                // pairs a round
+  const int lane = threadIdx.x % kLieWarp, gl = lane % G;
+  const long long slot = blockIdx.x * (long long)(blockDim.x / G) + threadIdx.x / G;
+  const long long b = slot < nb ? slot : nb - 1;
+  T* rows = reinterpret_cast<T*>(smem_raw + (threadIdx.x / G) * eig_group_bytes<T, M>());
+  T* rots = rows + 2 * M * LD;
+  // stage the triangle that is read into both triangles, then take row gl
+  {
+    const T* base = in.p + b * in.sb;
+    LuWalk e(gl, G, n);
+    for (int t = gl; t < n * n; t += G, e.next())
+      if (e.i <= e.c) {
+        const T x = sym_in(in, base, e.i, e.c, n);
+        rows[e.i * LD + e.c] = x;
+        rows[e.c * LD + e.i] = x;
+      }
   }
-  __syncwarp();
-  T col2 = T(0);
-  if (lane < n)
-    for (int i = 0; i < n; ++i) col2 = col2 + A[i * ld + lane] * A[i * ld + lane];
+  __syncwarp(kLieMask);
+  T a[kNV * kW], v[U ? kNV * kW : 1];
+#pragma unroll
+  for (int q = 0; q < kNV; ++q) {
+    const V x = gl < n ? reinterpret_cast<const V*>(rows + gl * LD)[q] : V{};
+#pragma unroll
+    for (int c = 0; c < kW; ++c) a[q * kW + c] = gl < n && q * kW + c < n ? lu_get(x, c) : T(0);
+  }
+  if constexpr (U) {
+#pragma unroll
+    for (int j = 0; j < kNV * kW; ++j) v[j] = j == gl ? T(1) : T(0);
+  }
+  T tot = T(0);
+#pragma unroll
+  for (int j = 0; j < M; ++j) tot = tot + a[j] * a[j];
   const T eps = eps_of(T(0));
-  const T tol = warp_sum(col2) * (T(16) * eps * eps);
-  const int m = n + (n & 1), half = m / 2;
+  const T tol = lie_grp_sum<T, G>(tot, kLieMask) * (T(16) * eps * eps);
+  if (gl < M) {  // round 0's rows (the stage read its own row only)
+#pragma unroll
+    for (int q = 0; q < kNV; ++q) reinterpret_cast<V*>(rows + gl * LD)[q] = lu_pack<kNV * kW>(a, q);
+  }
+  __syncwarp(kLieMask);
+  bool on = true;
+  int turn = 0;  // which of the two turns of rows and rotations is the round's
   for (int sweep = 0; sweep < sweeps; ++sweep) {
     T off = T(0);
-    if (lane < n)
-      for (int i = 0; i < n; ++i)
-        if (i != lane) off = off + A[i * ld + lane] * A[i * ld + lane];
-    if (!(warp_sum(off) > tol)) break;
-    for (int r = 0; r < m - 1; ++r) {
-      // lane k < half: rotation k of round r, from the matrix as the
-      // round found it (the pairs are disjoint, so none sees another's)
-      int p = -1, q = -1;
-      T c = T(1), s = T(0);
-      if (lane < half) {
-        const int x = seat(lane, r, m), y = seat(m - 1 - lane, r, m);
-        if (x < n && y < n) {
-          p = x < y ? x : y;
-          q = x < y ? y : x;
-          jacobi_rotation(A[p * ld + p], A[q * ld + q], A[p * ld + q], c, s);
+#pragma unroll
+    for (int j = 0; j < M; ++j)
+      if (j != gl) off = off + a[j] * a[j];
+    off = lie_grp_sum<T, G>(off, kLieMask);  // every lane: a butterfly
+    on = on && off > tol;
+    if (!__any_sync(kLieMask, on)) break;
+    for (int r = 0; r < M - 1; ++r, ++turn) {
+      const T* buf = rows + (turn & 1) * M * LD;
+      T* nxt = rows + ((turn + 1) & 1) * M * LD;
+      T* rot = rots + (turn & 1) * eig_rot_len<T, M>();
+      const int f = M - 1 - gl;  // the facing seat
+      if (on && gl < H) {
+        T c, s;
+        if (eig_player<M>(gl, r) < eig_player<M>(f, r)) {
+          jacobi_rotation(buf[gl * LD + gl], buf[f * LD + f], buf[gl * LD + f], c, s);
+        } else {
+          jacobi_rotation(buf[f * LD + f], buf[gl * LD + gl], buf[f * LD + gl], c, s);
+          s = -s;
         }
+        rot[2 * gl] = c;
+        rot[2 * gl + 1] = s;
       }
-      __syncwarp();
-      // rows p, q of every pair: lane j owns column j
-      for (int k = 0; k < half; ++k) {
-        const int pk = __shfl_sync(kFullMask, p, k), qk = __shfl_sync(kFullMask, q, k);
-        const T ck = __shfl_sync(kFullMask, c, k), sk = __shfl_sync(kFullMask, s, k);
-        if (pk >= 0 && lane < n) {
-          const T xp = A[pk * ld + lane], xq = A[qk * ld + lane];
-          A[pk * ld + lane] = ck * xp + sk * xq;
-          A[qk * ld + lane] = ck * xq - sk * xp;
-        }
-      }
-      __syncwarp();
-      // columns p, q of A and of V: lane i owns row i
-      for (int k = 0; k < half; ++k) {
-        const int pk = __shfl_sync(kFullMask, p, k), qk = __shfl_sync(kFullMask, q, k);
-        const T ck = __shfl_sync(kFullMask, c, k), sk = __shfl_sync(kFullMask, s, k);
-        if (pk >= 0 && lane < n) {
-          T* a = A + lane * ld;
-          const T xp = a[pk], xq = a[qk];
-          a[pk] = ck * xp + sk * xq;
-          a[qk] = ck * xq - sk * xp;
-          if (compute_u) {
-            T* v = V + lane * ld;
-            const T vp = v[pk], vq = v[qk];
-            v[pk] = ck * vp + sk * vq;
-            v[qk] = ck * vq - sk * vp;
+      __syncwarp(kLieMask);
+      if (on) {
+        if (gl < M) {  // the row pass
+          const int h = gl < H ? gl : f;
+          const T c = rot[2 * h], s = gl < H ? rot[2 * h + 1] : -rot[2 * h + 1];
+          const V* x = reinterpret_cast<const V*>(buf + f * LD);
+#pragma unroll
+          for (int q = 0; q < kNV; ++q) {
+            const V y = x[q];
+#pragma unroll
+            for (int e = 0; e < kW; ++e) a[q * kW + e] = c * a[q * kW + e] + s * lu_get(y, e);
           }
         }
+        // the column pass, and V J: columns k and M - 1 - k of every pair
+        const V* cs = reinterpret_cast<const V*>(rot);
+#pragma unroll
+        for (int q = 0; q < (2 * H + kW - 1) / kW; ++q) {
+          const V y = cs[q];
+#pragma unroll
+          for (int e = 0; e < kW; e += 2) {
+            const int k = (q * kW + e) / 2, l = M - 1 - k;
+            if (k >= H) break;
+            const T c = lu_get(y, e), s = lu_get(y, e + 1);
+            const T ak = a[k], al = a[l];
+            a[k] = c * ak + s * al;
+            a[l] = c * al + (-s) * ak;
+            if constexpr (U) {
+              const T vk = v[k], vl = v[l];
+              v[k] = c * vk + s * vl;
+              v[l] = c * vl + (-s) * vk;
+            }
+          }
+        }
+        // every player up one seat: seat 0 stays, seat M - 1 goes to 1
+        if (gl < M) {
+          T* dst = nxt + (gl == 0 ? 0 : (gl == M - 1 ? 1 : gl + 1)) * LD;
+#pragma unroll
+          for (int q = 0; q < kNV; ++q) {
+            T y[kW];
+#pragma unroll
+            for (int e = 0; e < kW; ++e) {
+              const int j = q * kW + e;
+              y[e] = j == 0 ? a[0] : (j == 1 ? a[M - 1] : (j < M ? a[j - 1] : T(0)));
+            }
+            reinterpret_cast<V*>(dst)[q] = lu_pack<kW>(y, 0);
+          }
+        }
+        if constexpr (U) {
+          const T last = v[M - 1];
+#pragma unroll
+          for (int j = M - 1; j > 1; --j) v[j] = v[j - 1];
+          v[1] = last;
+        }
       }
-      __syncwarp();
+      __syncwarp(kLieMask);
+      if (on && gl < M) {
+#pragma unroll
+        for (int q = 0; q < kNV; ++q) {
+          const V y = reinterpret_cast<const V*>(nxt + gl * LD)[q];
+#pragma unroll
+          for (int e = 0; e < kW; ++e) a[q * kW + e] = lu_get(y, e);
+        }
+      }
     }
   }
-  if (lane < n) {
-    w.p[b * w.sb + lane * w.sc] = A[lane * ld + lane];
-    if (compute_u)
-      for (int i = 0; i < n; ++i) u.p[b * u.sb + (i * n + lane) * u.sc] = V[i * ld + lane];
+  T dg = T(0);
+#pragma unroll
+  for (int j = 0; j < M; ++j)
+    if (j == gl) dg = a[j];
+  if (slot < nb && gl < n) w.p[slot * w.sb + gl * w.sc] = dg;
+  if constexpr (U) {
+    // V's rows through shared memory, stored in channel order
+    __syncwarp(kLieMask);
+    if (gl < M) {
+#pragma unroll
+      for (int q = 0; q < kNV; ++q) reinterpret_cast<V*>(rows + gl * LD)[q] = lu_pack<kNV * kW>(v, q);
+    }
+    __syncwarp(kLieMask);
+    if (slot < nb) {
+      T* dst = u.p + slot * u.sb;
+      LuWalk e(gl, G, n);
+      for (int t = gl; t < n * n; t += G, e.next()) dst[t * u.sc] = rows[e.i * LD + e.c];
+    }
   }
 }
 
@@ -375,12 +497,18 @@ cudaError_t launch_eig(int n, int sweeps, int compute_u, long long nb, SymIn<T> 
       default: return cudaErrorInvalidValue;
     }
   } else {
-    const int per_warp = (compute_u ? 2 : 1) * n * odd_stride(n) * (int)sizeof(T);
-    int warps = kEigSmem / per_warp;
-    warps = warps > 8 ? 8 : warps;
-    const unsigned g = (unsigned)((nb + warps - 1) / warps);
-    eig_rolled<T><<<g, warps * kWarpSize, warps * per_warp, s>>>(nb, n, sweeps, compute_u, in,
-                                                                 w, u);
+    switch (n + (n & 1) + (compute_u ? 1 : 0)) {
+#define FM_EIG_ROLLED(M)                                                                      \
+  case M: lu_launch<eig_group<M>()>(eig_rolled<T, M, false>, eig_group_bytes<T, M>(), nb, s, n, \
+                                    sweeps, in, w, u); break;                                   \
+  case M + 1: lu_launch<eig_group<M>()>(eig_rolled<T, M, true>, eig_group_bytes<T, M>(), nb, s, \
+                                        n, sweeps, in, w, u); break;
+      FM_EIG_ROLLED(10) FM_EIG_ROLLED(12) FM_EIG_ROLLED(14) FM_EIG_ROLLED(16)
+      FM_EIG_ROLLED(18) FM_EIG_ROLLED(20) FM_EIG_ROLLED(22) FM_EIG_ROLLED(24)
+      FM_EIG_ROLLED(26) FM_EIG_ROLLED(28) FM_EIG_ROLLED(30) FM_EIG_ROLLED(32)
+#undef FM_EIG_ROLLED
+      default: return cudaErrorInvalidValue;
+    }
   }
   return cudaGetLastError();
 }

@@ -1,11 +1,12 @@
 // Code shared by the matrix exponential and logarithm kernels (expm.cu,
-// logm.cu), whose group sizes and launch shapes (lie_group, lie_warps) the
-// lane-group LU (lu_groups.cuh) takes too: the staged row loads and stores
-// of the one-thread-a-problem
-// tiers, their unrolled products and squared distance to I, and the
-// lane-group tiers' products, distance and Gauss-Jordan inverse on
-// row-major d x d matrices in shared memory (a group of 8, 16 or 32 lanes
-// a problem).
+// logm.cu), whose group sizes and launch shapes (lie_group, lie_warps) and
+// 16-byte vectors (LuVec) the lane-group LU (lu_groups.cuh) and the rolled
+// eig tier (eig.cu) take too: the staged row loads and stores of the
+// one-thread-a-problem tiers, their unrolled products and squared
+// distance to I; expm_warp's products on row-major d x d matrices in
+// shared memory; logm_warp's columns in registers, its column-major
+// shared matrices and their products (a group of 8, 16 or 32 lanes a
+// problem).
 //
 // Operands: the input is a MatView (entry (i, j) of problem b at
 // p[b * sb + i * rs + j * cs]: the public ops' batch-major (B, d, d) of any
@@ -130,8 +131,9 @@ __device__ __forceinline__ T lie_dist2(const T (&x)[D * D]) {
 
 // ---------------------------------------------------------------------------
 // a group of G lanes a problem (G = 8, 16 or 32, G >= d; 32 / G problems a
-// warp): row-major d x d matrices in shared memory with row stride G, the
-// columns d..G-1 zero, lane j of the group owning column j
+// warp; expm.cu's expm_warp): row-major d x d matrices in shared memory
+// with row stride G, the columns d..G-1 zero, lane j of the group owning
+// column j
 // ---------------------------------------------------------------------------
 
 // The group's lanes within the warp, for the *_sync intrinsics.
@@ -207,87 +209,6 @@ __device__ __forceinline__ void lie_grp_mm(const T* a, const T* b, T* c, int d, 
   __syncwarp(mask);
 }
 
-// dst = src + add I (column j by lane j). Ends synchronized.
-template <typename T, int G>
-__device__ __forceinline__ void lie_grp_copy(const T* src, T* dst, int d, int gl, unsigned mask,
-                                             T add = T(0)) {
-  if (gl < d)
-    for (int i = 0; i < d; ++i) dst[i * G + gl] = src[i * G + gl] + (i == gl ? add : T(0));
-  __syncwarp(mask);
-}
-
-// x = v I (column j by lane j). Ends synchronized.
-template <typename T, int G>
-__device__ __forceinline__ void lie_grp_eye(T* x, int d, int gl, unsigned mask, T v) {
-  if (gl < d)
-    for (int i = 0; i < d; ++i) x[i * G + gl] = i == gl ? v : T(0);
-  __syncwarp(mask);
-}
-
-// sum of (x - I)^2: each lane sums its column over i in order, the lanes
-// add by a butterfly (every lane of the group gets the same bits).
-template <typename T, int G>
-__device__ __forceinline__ T lie_grp_dist2(const T* x, int d, int gl, unsigned mask) {
-  T acc = T(0);
-  if (gl < d)
-    for (int i = 0; i < d; ++i) {
-      const T v = x[i * G + gl] - (i == gl ? T(1) : T(0));
-      acc = acc + v * v;
-    }
-  return lie_grp_sum<T, G>(acc, mask);
-}
-
-// r = w^-1 by Gauss-Jordan elimination with partial pivoting: w is
-// destroyed, r holds the identity on entry. The pivot of column k is the
-// lowest row i >= k whose |w[i][k]| is the largest (found by a butterfly
-// over the group, then its first lane's choice broadcast); rows k and p
-// swap exactly, each lane its own column of w and r. Then the pivot row is
-// divided by the pivot and its multiple subtracted from every other row
-// (lane j: columns j > k of w, column j of r; column k of w is not written,
-// so every lane reads the multipliers w[i][k] unchanged). A zero pivot
-// gives inf/NaN, which propagates. Ends synchronized.
-template <typename T, int G>
-__device__ void lie_grp_inverse(T* w, T* r, int d, int gl, unsigned mask) {
-  for (int k = 0; k < d; ++k) {
-    T v = (gl >= k && gl < d) ? fm_abs(w[gl * G + k]) : T(-1);
-    int p = gl;
-#pragma unroll
-    for (int o = G / 2; o > 0; o >>= 1) {
-      const T v2 = __shfl_xor_sync(mask, v, o, G);
-      const int p2 = __shfl_xor_sync(mask, p, o, G);
-      if (v2 > v || (v2 == v && p2 < p)) {
-        v = v2;
-        p = p2;
-      }
-    }
-    p = __shfl_sync(mask, p, 0, G);
-    if (p < k || p >= d) p = k;  // every candidate NaN
-    if (p != k && gl < d) {
-      T t = w[k * G + gl];
-      w[k * G + gl] = w[p * G + gl];
-      w[p * G + gl] = t;
-      t = r[k * G + gl];
-      r[k * G + gl] = r[p * G + gl];
-      r[p * G + gl] = t;
-    }
-    __syncwarp(mask);
-    if (gl < d) {
-      const T piv = w[k * G + k];
-      const T wk = w[k * G + gl] / piv;
-      const T rk = r[k * G + gl] / piv;
-      for (int i = 0; i < d; ++i) {
-        if (i == k) continue;
-        const T f = w[i * G + k];
-        if (gl > k) w[i * G + gl] = w[i * G + gl] - f * wk;
-        r[i * G + gl] = r[i * G + gl] - f * rk;
-      }
-      if (gl > k) w[k * G + gl] = wk;
-      r[k * G + gl] = rk;
-    }
-    __syncwarp(mask);
-  }
-}
-
 // Column j of x times `scale` to problem b of out, from lane j (j < d).
 template <typename T, int G>
 __device__ __forceinline__ void lie_grp_store(const T* x, View<T> out, long long b, int d,
@@ -302,6 +223,154 @@ template <typename T, int G>
 __device__ __forceinline__ void lie_grp_zero(T* x, int n, int gl, unsigned mask) {
   for (int e = gl; e < n; e += G) x[e] = T(0);
   __syncwarp(mask);
+}
+
+// 16-byte vectors of T (float4, double2), as the lane groups' shared
+// matrices are read and written.
+template <typename T>
+struct LuVec;
+template <>
+struct LuVec<float> {
+  using type = float4;
+  static constexpr int width = 4;
+};
+template <>
+struct LuVec<double> {
+  using type = double2;
+  static constexpr int width = 2;
+};
+
+// Component c (a compile-time constant after unrolling) of a vector.
+__device__ __forceinline__ float lu_get(const float4& v, int c) {
+  return c == 0 ? v.x : (c == 1 ? v.y : (c == 2 ? v.z : v.w));
+}
+__device__ __forceinline__ double lu_get(const double2& v, int c) { return c == 0 ? v.x : v.y; }
+
+// Vector q of a register row.
+template <int G>
+__device__ __forceinline__ float4 lu_pack(const float (&r)[G], int q) {
+  return make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]);
+}
+template <int G>
+__device__ __forceinline__ double2 lu_pack(const double (&r)[G], int q) {
+  return make_double2(r[2 * q], r[2 * q + 1]);
+}
+
+// ---------------------------------------------------------------------------
+// a group of G lanes a problem, every lane of the warp in every call
+// (logm.cu's logm_warp): lane j holds column j of a G x G matrix in
+// registers (x[i] = X[i][j]); a matrix that every lane reads is kept
+// column-major in shared memory, column k at a + k * lie_cm_ld, 16-byte
+// aligned. A d x d problem is padded to G x G with the identity, so every
+// loop runs to G with constant register indices and no runtime bound.
+// ---------------------------------------------------------------------------
+
+// n, opaque to the compiler. The lane-group loops are unrolled to G and
+// test a runtime bound at every step; with the bound a constant they lose
+// the tests, and ptxas hoists later steps' loads: logm_warp<float, 32>
+// took 255 registers and spilled 3.5 KB (against 167 and none).
+__device__ __forceinline__ int lie_opaque(int n) {
+  asm volatile("" : "+r"(n));
+  return n;
+}
+
+// Row stride of a column-major shared matrix: G plus one vector, so that
+// the group's lanes writing or reading their own columns as vectors hit
+// distinct banks.
+template <typename T, int G>
+__host__ __device__ constexpr int lie_cm_ld() {
+  return G + LuVec<T>::width;
+}
+
+// Column gl of x to column gl of a.
+template <typename T, int G>
+__device__ __forceinline__ void lie_col_put(T* a, int gl, const T (&x)[G]) {
+  using V = typename LuVec<T>::type;
+  V* dst = reinterpret_cast<V*>(a + gl * lie_cm_ld<T, G>());
+#pragma unroll
+  for (int q = 0; q < G / LuVec<T>::width; ++q) dst[q] = lu_pack<G>(x, q);
+}
+
+// Column gl of a into x.
+template <typename T, int G>
+__device__ __forceinline__ void lie_col_get(const T* a, int gl, T (&x)[G]) {
+  using V = typename LuVec<T>::type;
+  constexpr int kW = LuVec<T>::width;
+  const V* src = reinterpret_cast<const V*>(a + gl * lie_cm_ld<T, G>());
+#pragma unroll
+  for (int q = 0; q < G / kW; ++q) {
+    const V v = src[q];
+#pragma unroll
+    for (int c = 0; c < kW; ++c) x[q * kW + c] = lu_get(v, c);
+  }
+}
+
+// Row gl of a + add I into x: the row layout of lu_group_factor.
+template <typename T, int G>
+__device__ __forceinline__ void lie_row_get(const T* a, int gl, T (&x)[G], T add = T(0)) {
+#pragma unroll
+  for (int c = 0; c < G; ++c) {
+    const T v = a[c * lie_cm_ld<T, G>() + gl];
+    x[c] = c == gl ? v + add : v;
+  }
+}
+
+// Problem b's column gl into x, padded with the identity past d: the
+// group reads each row i in order (coalesced in a batch-major layout).
+template <typename T, int G>
+__device__ __forceinline__ void lie_col_load(const MatView<T>& in, long long b, int d, int gl,
+                                             T (&x)[G]) {
+  const T* base = in.p + b * in.sb + gl * in.cs;
+#pragma unroll
+  for (int i = 0; i < G; ++i)
+    x[i] = gl < d && i < d ? base[i * in.rs] : (i == gl ? T(1) : T(0));
+}
+
+// c = add I + scale ((a + kPlusI I) b): a column-major in shared memory, b
+// and c columns in registers (c may be b). Entry i of the column sums a[i][k]
+// b[k] over k in order from the first term, as lie_row_dot does, the G rows
+// at once: G independent sums in flight, each column of a read as
+// broadcast vectors; k runs to n (G, lie_opaque). On identity-padded
+// operands the terms past d are exact zeros.
+template <typename T, int G, bool kPlusI = false>
+__device__ __forceinline__ void lie_col_mm(const T* a, const T (&b)[G], T (&c)[G], int n, int gl,
+                                           T add = T(0), T scale = T(1)) {
+  using V = typename LuVec<T>::type;
+  constexpr int kW = LuVec<T>::width;
+  T acc[G];
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    if (k >= n) break;
+    const T bk = b[k];
+    const V* col = reinterpret_cast<const V*>(a + k * lie_cm_ld<T, G>());
+#pragma unroll
+    for (int q = 0; q < G / kW; ++q) {
+      const V v = col[q];
+#pragma unroll
+      for (int e = 0; e < kW; ++e) {
+        const int i = q * kW + e;
+        T x = lu_get(v, e);
+        if (kPlusI && i == k) x = x + T(1);
+        acc[i] = k == 0 ? x * bk : acc[i] + x * bk;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < G; ++i) c[i] = (i == gl ? add : T(0)) + acc[i] * scale;
+}
+
+// |X - I|_F^2 of the matrix whose column gl is x: each lane sums its
+// column in order, the group's lanes add by a butterfly (every lane of the
+// group gets the same bits). The identity padding adds exact zeros.
+template <typename T, int G>
+__device__ __forceinline__ T lie_col_dist2(const T (&x)[G], int gl) {
+  T acc = T(0);
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    const T v = x[i] - (i == gl ? T(1) : T(0));
+    acc = acc + v * v;
+  }
+  return lie_grp_sum<T, G>(acc, kLieMask);
 }
 
 // Lanes a problem takes at size d.

@@ -40,8 +40,8 @@
 // it the float32 roundtrip chain expm(0.999 logm(e)), k = 4, exceeds
 // 1e-5 normwise on some 4x4 problems where the TPU kernel's algebra does
 // not (tests/test_torch_lie_kernels.py). Inverses: cofactors times 1/det for
-// d <= 4 (batched_adjugate.cuh's full_inverse), Gauss-Jordan with
-// partial pivoting and exact row swaps in the warp tier.
+// d <= 4 (batched_adjugate.cuh's full_inverse), the lane-group LU of
+// lu_groups.cuh and a column solve against the identity in the warp tier.
 //
 // Tiers, split where the state stops fitting in registers (set from
 // -Xptxas -v on the card; the square root holds D, M, Y, M^-1, T and a
@@ -50,27 +50,49 @@
 //     constant, the matrices in registers, staged loads and stores as in
 //     expm.cu.
 //   logm_warp<T, G>: a group of G = 8, 16 or 32 lanes a problem (the
-//     least G >= d; 32 / G problems a warp), seven d x d matrices row-major
-//     in shared memory with row stride G, the columns past d zero (A, D, M,
-//     Y, T or the inverse's work matrix, M^-1 and a product scratch: 28 KB
-//     at d = 32 in float32, 57 KB in float64, above 48 KB with an opt-in).
-//     Lane j forms column j of each product from column j of its right
-//     factor held in registers against the rows of the left (broadcasts,
-//     read as 16-byte vectors), and column j of each Gauss-Jordan step.
+//     least G >= d; 32 / G problems a warp), the problem padded to G x G
+//     with the identity (the padding stays exactly I in M and Y, 0 in D
+//     and Z, and adds exact zeros to every sum), so every loop runs to G
+//     with constant register indices. Lane j holds column j of M, of M^-1
+//     and of each product in registers; what every lane reads lives
+//     column-major in shared memory (lie_cm_ld): D and Y, M's rows in
+//     transit to the LU, and each product's left factor (M^-1, Y M^-1,
+//     M + I, Z, Z^2), 4 G (G + 4) values and the LU's perm a group: 18 KB
+//     a warp at G = 32 in float32, 34 KB in float64, 10 KB at G = 16.
+//     Each inverse is lu_group_factor (rows in registers and never moved,
+//     first-max pivots by REDUX, the pivot row broadcast as vectors) and
+//     lu_group_solve against the identity, lane c solving column c: M^-1
+//     comes out in the layout a right factor needs (Y M^-1, D (Y + I)^-1,
+//     D (A + I)^-1) and goes to shared memory once where it is the left
+//     one (M^-1 (T T)). A product forms lane j's column from its right
+//     factor's column against the left factor's columns read as broadcast
+//     vectors, the G rows' sums in flight at once, each summed over k in
+//     order from the first term. Every lane of the warp takes part in
+//     every step: the warp runs a Denman-Beavers step, a commit or a root
+//     while any of its problems takes it, and a problem that does not
+//     keeps its state; a group past the batch runs a copy of the last
+//     problem and stores nothing. G = 8 keeps four problems a warp for 5 <=
+//     d <= 8: at G = 16 each would cost what a padded 16 x 16 problem
+//     costs, about 62 ns a problem against 6 (chip_ab.py on an NVIDIA H100
+//     at 700 W: 16 x 16 on 62,500 in 3.90 ms, 8 x 8 on 250k in 1.51 ms).
 //
 // What bounds them: a problem reads and writes d^2 values and needs
 // about (10 d^3 per Denman-Beavers step, 4 d^3 per square-root commit,
 // 2 d^3 (o + 5) / 2 for the series) operations: tens of operations per
-// byte at every d, so every tier is bound by operations. Multiply-adds
-// contract into FMAs, so results move a few ulp from the plain PyTorch
-// version (fastmath_tpu_torch/kernels/logm.py, logm_plain), which repeats
-// this arithmetic.
+// byte at every d, so every tier is bound by operations. The warp tier
+// issues (G / d)^3 times the multiply-adds a problem needs (the padding),
+// and each LU step's REDUX, division and barrier cost more than its
+// multiply-adds; at d < G a step also takes longer than at d = G, on the
+// same instructions (PERF.md, open questions). Multiply-adds contract into FMAs, so results
+// move a few ulp from the plain PyTorch version
+// (fastmath_tpu_torch/kernels/logm.py, logm_plain), which repeats this
+// arithmetic.
 //
 // Every launch goes on the caller's stream, allocates nothing and does
 // not synchronize; the entry point returns cudaGetLastError().
 
 #include "batched_adjugate.cuh"
-#include "lie_common.cuh"
+#include "lu_groups.cuh"
 
 namespace fm {
 
@@ -196,111 +218,145 @@ logm_unrolled(long long nb, MatView<T> in, View<T> out) {
   lie_store<T, W>(tile, out, nb, l);
 }
 
+// Shared memory of one group of logm_warp: D, Y, a scratch matrix (M's
+// rows in transit, then M^-1 or Z) and U (the LU's rows, then a product's
+// left factor), each column-major at lie_cm_ld, then the LU's perm.
+template <typename T, int G>
+__host__ __device__ constexpr int logm_group_bytes() {
+  return 4 * G * lie_cm_ld<T, G>() * (int)sizeof(T) + G * (int)sizeof(int);
+}
+
+// The inverse of the group's identity-padded G x G matrix whose rows row
+// hold (row gl in lane gl; n = G through lie_opaque): lu_group_factor's LU
+// at U and perm, then lane c solves for column c against the identity's
+// (lu_group_solve), into x: on the d x d block the operations of
+// rolled_factor on [M | I] and rolled_backsub, in their order, plus exact
+// zeros (the padding's columns pivot on their own 1, their multipliers
+// are 0). Every lane of the warp takes part. Ends synchronized.
+template <typename T, int G>
+__device__ __forceinline__ void logm_inverse(T (&row)[G], int n, int lane, T* U, int* perm,
+                                             T (&x)[G]) {
+  const int gl = lane % G;
+  lu_group_factor<T, G, true>(row, n, lane, U, perm);
+  lu_group_solve<T, G>(U, perm, n, [gl](int r) { return r == gl ? T(1) : T(0); }, x);
+}
+
 template <typename T, int G>
 __global__ void logm_warp(long long nb, int d, MatView<T> in, View<T> out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kOrder = logm_order<T>();
+  constexpr int kMat = G * lie_cm_ld<T, G>();
   const T thresh2 = T(kThresh2);
   const T tol = lie_eps(T(0)) * T(8 * d);
   const T tol2 = tol * tol, conv2 = (T(8) * tol) * (T(8) * tol);
-  const int lane = threadIdx.x % kLieWarp, gl = lane % G;
-  const unsigned mask = lie_group_mask<G>(lane);
+  const int lane = threadIdx.x % kLieWarp, gl = lane % G, n = lie_opaque(G);
   const long long slot = blockIdx.x * (long long)(blockDim.x / G) + threadIdx.x / G;
-  const int dg = d * G;
-  T* a = reinterpret_cast<T*>(smem_raw) + (threadIdx.x / G) * 7 * dg;
-  T* dm = a + dg;
-  T* m = dm + dg;
-  T* y = m + dg;
-  T* w = y + dg;   // T = M + I, or the matrix an inverse destroys
-  T* r = w + dg;   // an inverse
-  T* s = r + dg;   // product scratch
-  if (slot >= nb) return;  // the whole group; no block-wide barrier follows
-  lie_grp_zero<T, G>(a, 7 * dg, gl, mask);
-  lie_grp_load<T, G>(in, slot, d, gl, a);
-  __syncwarp(mask);
-  lie_grp_copy<T, G>(a, dm, d, gl, mask, T(-1));
+  // a group past the batch runs a copy of the last problem and stores nothing
+  const long long b = slot < nb ? slot : nb - 1;
+  T* Ds = reinterpret_cast<T*>(smem_raw + (threadIdx.x / G) * logm_group_bytes<T, G>());
+  T* Ys = Ds + kMat;
+  T* Ls = Ys + kMat;
+  T* Us = Ls + kMat;
+  int* perm = reinterpret_cast<int*>(Us + kMat);
+  T m[G], x[G], p[G];
+  lie_col_load<T, G>(in, b, d, gl, m);
+  lie_col_put<T, G>(Ys, gl, m);  // A, which each square root's Y starts from
+#pragma unroll
+  for (int i = 0; i < G; ++i) m[i] = i == gl ? m[i] - T(1) : m[i];
+  lie_col_put<T, G>(Ds, gl, m);
+  __syncwarp(kLieMask);
+  // Each group keeps its own tests; the warp runs a step while any of its
+  // groups takes it, and a group that does not stores nothing of it.
   int k = 0;
-  bool cut = false;
+  bool on = true, cut = false;
   for (int it = 0; it < kIssMax; ++it) {
-    const T d2 = lie_grp_dist2<T, G>(a, d, gl, mask);
-    if (!(lie_finite(d2) && d2 > thresh2)) break;
-    lie_grp_copy<T, G>(a, m, d, gl, mask);
-    lie_grp_copy<T, G>(a, y, d, gl, mask);
-    bool polished = false;  // the one step past the test (see the header)
+    lie_col_get<T, G>(Ys, gl, m);  // M = Y = A
+    const T d2 = lie_col_dist2<T, G>(m, gl);
+    on = on && lie_finite(d2) && d2 > thresh2;
+    if (!__any_sync(kLieMask, on)) break;
+    bool db_on = on, polished = false;  // the one step past the test (see the header)
     for (int j = 0; j <= kDbIters; ++j) {
-      const T e2 = lie_grp_dist2<T, G>(m, d, gl, mask);
-      if (!lie_finite(e2)) break;
-      if (e2 <= tol2) {
-        if (polished) break;
+      const T e2 = lie_col_dist2<T, G>(m, gl);
+      bool step = db_on && lie_finite(e2);
+      if (step && e2 <= tol2) {
+        step = !polished;
         polished = true;
       } else if (j == kDbIters) {
-        break;
+        step = false;
       }
-      lie_grp_copy<T, G>(m, w, d, gl, mask);
-      lie_grp_eye<T, G>(r, d, gl, mask, T(1));
-      lie_grp_inverse<T, G>(w, r, d, gl, mask);
-      lie_grp_copy<T, G>(m, w, d, gl, mask, T(1));
-      lie_grp_mm<T, G>(y, r, s, d, gl, mask);
-      lie_grp_mm<T, G>(s, w, y, d, gl, mask, T(0), T(0.5));
-      lie_grp_mm<T, G>(w, w, s, d, gl, mask);
-      lie_grp_mm<T, G>(r, s, m, d, gl, mask, T(0), T(0.25));
+      db_on = step;
+      if (!__any_sync(kLieMask, step)) break;
+      // M^-1: M's rows through Ls, the LU at Us
+      lie_col_put<T, G>(Ls, gl, m);
+      __syncwarp(kLieMask);
+      T row[G];
+      lie_row_get<T, G>(Ls, gl, row);
+      logm_inverse<T, G>(row, n, lane, Us, perm, x);
+      // Y M^-1 (Y is read by every lane: it stays in Ys)
+      lie_col_mm<T, G>(Ys, x, p, n, gl);
+      __syncwarp(kLieMask);  // the solve has read U
+      lie_col_put<T, G>(Ls, gl, x);
+      lie_col_put<T, G>(Us, gl, p);
+      __syncwarp(kLieMask);
+      // T = M + I; Y = (Y M^-1) T / 2
+#pragma unroll
+      for (int i = 0; i < G; ++i) x[i] = i == gl ? m[i] + T(1) : m[i];
+      lie_col_mm<T, G>(Us, x, p, n, gl, T(0), T(0.5));
+      if (step) lie_col_put<T, G>(Ys, gl, p);
+      __syncwarp(kLieMask);  // Us's Y M^-1 is read
+      // M = M^-1 (T T) / 4, T the left factor as M + I
+      lie_col_put<T, G>(Us, gl, m);
+      __syncwarp(kLieMask);
+      lie_col_mm<T, G, true>(Us, x, p, n, gl);
+      lie_col_mm<T, G>(Ls, p, p, n, gl, T(0), T(0.25));
+      if (step) {
+#pragma unroll
+        for (int i = 0; i < G; ++i) m[i] = p[i];
+      }
+      __syncwarp(kLieMask);  // Ls's M^-1 and Us's M are read
     }
-    ++k;
-    const T e2 = lie_grp_dist2<T, G>(m, d, gl, mask);
-    if (!(lie_finite(e2) && e2 <= conv2)) {  // no principal square root chain
-      cut = true;
-      break;
+    const T e2 = lie_col_dist2<T, G>(m, gl);  // every lane: a butterfly
+    if (on) {
+      ++k;
+      if (!(lie_finite(e2) && e2 <= conv2)) {  // no principal square root chain
+        cut = true;
+        on = false;
+      }
     }
-    lie_grp_copy<T, G>(y, w, d, gl, mask, T(1));
-    lie_grp_eye<T, G>(r, d, gl, mask, T(1));
-    lie_grp_inverse<T, G>(w, r, d, gl, mask);
-    lie_grp_mm<T, G>(dm, r, s, d, gl, mask);
-    T* u = dm;
-    dm = s;
-    s = u;
-    u = a;
-    a = y;
-    y = u;
+    if (!__any_sync(kLieMask, on)) break;
+    // D = D (Y + I)^-1; A = Y (Ys)
+    T row[G];
+    lie_row_get<T, G>(Ys, gl, row, T(1));
+    logm_inverse<T, G>(row, n, lane, Us, perm, x);
+    lie_col_mm<T, G>(Ds, x, p, n, gl);
+    __syncwarp(kLieMask);  // Ds is read
+    if (on) lie_col_put<T, G>(Ds, gl, p);
+    __syncwarp(kLieMask);
   }
-  const T d2 = lie_grp_dist2<T, G>(a, d, gl, mask);
-  if (cut || !(lie_finite(d2) && d2 <= thresh2)) {
-    if (gl < d)
-      for (int i = 0; i < d; ++i) out.p[slot * out.sb + (i * d + gl) * out.sc] = lie_nan(T(0));
-    return;
-  }
-  lie_grp_copy<T, G>(a, w, d, gl, mask, T(1));
-  lie_grp_eye<T, G>(r, d, gl, mask, T(1));
-  lie_grp_inverse<T, G>(w, r, d, gl, mask);
-  T* z = m;
-  T* z2 = y;
-  T* acc = w;
-  lie_grp_mm<T, G>(dm, r, z, d, gl, mask);
-  lie_grp_mm<T, G>(z, z, z2, d, gl, mask);
-  lie_grp_eye<T, G>(acc, d, gl, mask, T(1) / T(kOrder));
-  for (int o = kOrder - 2; o > 0; o -= 2) {
-    lie_grp_mm<T, G>(z2, acc, s, d, gl, mask, T(1) / T(o));
-    T* u = acc;
-    acc = s;
-    s = u;
-  }
-  lie_grp_mm<T, G>(z, acc, s, d, gl, mask);
-  lie_grp_store<T, G>(s, out, slot, d, gl, T(2) * lie_ldexp(T(1), k));
-}
-
-template <typename T, int G>
-cudaError_t launch_logm_group(int d, long long nb, MatView<T> in, View<T> out, cudaStream_t s) {
-  const int per_warp = (kLieWarp / G) * 7 * d * G * (int)sizeof(T);
-  const int warps = lie_warps(per_warp);
-  const int bytes = warps * per_warp;
-  if (bytes > kLieSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        logm_warp<T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-  }
-  const int per_block = warps * (kLieWarp / G);
-  const unsigned g = (unsigned)((nb + per_block - 1) / per_block);
-  logm_warp<T, G><<<g, warps * kLieWarp, bytes, s>>>(nb, d, in, out);
-  return cudaSuccess;
+  // the series: Z = D (A + I)^-1, log A = 2^(k+1) Z (I/1 + Z^2/3 + ...)
+  lie_col_get<T, G>(Ys, gl, m);
+  const T d2 = lie_col_dist2<T, G>(m, gl);
+  const bool ok = !cut && lie_finite(d2) && d2 <= thresh2;
+  T row[G];
+  lie_row_get<T, G>(Ys, gl, row, T(1));
+  logm_inverse<T, G>(row, n, lane, Us, perm, x);
+  lie_col_mm<T, G>(Ds, x, m, n, gl);  // Z
+  __syncwarp(kLieMask);  // the solve has read U
+  lie_col_put<T, G>(Ls, gl, m);
+  __syncwarp(kLieMask);
+  lie_col_mm<T, G>(Ls, m, p, n, gl);  // Z^2
+  lie_col_put<T, G>(Us, gl, p);
+  __syncwarp(kLieMask);
+#pragma unroll
+  for (int i = 0; i < G; ++i) x[i] = i == gl ? T(1) / T(kOrder) : T(0);
+#pragma unroll 1
+  for (int o = kOrder - 2; o > 0; o -= 2) lie_col_mm<T, G>(Us, x, x, n, gl, T(1) / T(o));
+  lie_col_mm<T, G>(Ls, x, p, n, gl, T(0), T(2) * lie_ldexp(T(1), k));
+  if (slot >= nb || gl >= d) return;
+  T* o = out.p + slot * out.sb + gl * out.sc;
+#pragma unroll
+  for (int i = 0; i < G; ++i)
+    if (i < d) o[i * d * out.sc] = ok ? p[i] : lie_nan(T(0));
 }
 
 template <typename T>
@@ -317,10 +373,9 @@ cudaError_t launch_logm(int d, long long nb, MatView<T> in, View<T> out, cudaStr
     }
   } else {
     const int g = lie_group(d);
-    const cudaError_t e = g == 8    ? launch_logm_group<T, 8>(d, nb, in, out, s)
-                          : g == 16 ? launch_logm_group<T, 16>(d, nb, in, out, s)
-                                    : launch_logm_group<T, kLieWarp>(d, nb, in, out, s);
-    if (e != cudaSuccess) return e;
+    if (g == 8) lu_launch<8>(logm_warp<T, 8>, logm_group_bytes<T, 8>(), nb, s, d, in, out);
+    else if (g == 16) lu_launch<16>(logm_warp<T, 16>, logm_group_bytes<T, 16>(), nb, s, d, in, out);
+    else lu_launch<kLieWarp>(logm_warp<T, kLieWarp>, logm_group_bytes<T, kLieWarp>(), nb, s, d, in, out);
   }
   return cudaGetLastError();
 }

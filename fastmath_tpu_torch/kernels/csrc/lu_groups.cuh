@@ -2,8 +2,9 @@
 // the determinant / log-determinant, inverse and solve kernels (batched.cu,
 // det_groups, inv_groups, solve_groups, solve1_groups), the compact
 // determinant and inverse (sym_factor.cu, sym_det_groups,
-// sym_invert_groups) and the compact solve (sym_solve.cu,
-// sym_solve_groups); the Cholesky
+// sym_invert_groups), the compact solve (sym_solve.cu,
+// sym_solve_groups) and the matrix logarithm's inverses (logm.cu,
+// logm_warp, also at G = 8 for 5 <= d <= 8); the Cholesky
 // factor (batched.cu, chol_groups) takes its row layout and compact load.
 //
 // A group of G lanes owns one problem (G = 16 for n <= 16, 32 above:
@@ -53,55 +54,30 @@
 
 namespace fm {
 
-template <typename T>
-struct LuVec;
-template <>
-struct LuVec<float> {
-  using type = float4;
-  static constexpr int width = 4;
-};
-template <>
-struct LuVec<double> {
-  using type = double2;
-  static constexpr int width = 2;
-};
-
-// Component c (a compile-time constant after unrolling) of a vector.
-__device__ __forceinline__ float lu_get(const float4& v, int c) {
-  return c == 0 ? v.x : (c == 1 ? v.y : (c == 2 ? v.z : v.w));
-}
-__device__ __forceinline__ double lu_get(const double2& v, int c) { return c == 0 ? v.x : v.y; }
-
-// Vector q of a register row.
-template <int G>
-__device__ __forceinline__ float4 lu_pack(const float (&r)[G], int q) {
-  return make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]);
-}
-template <int G>
-__device__ __forceinline__ double2 lu_pack(const double (&r)[G], int q) {
-  return make_double2(r[2 * q], r[2 * q + 1]);
-}
-
-// The group's largest x: one REDUX over the warp, at G = 16 one for each
+// The group's largest x: one REDUX over the warp, at G < 32 one for each
 // group, every lane offering x in its own group's turn and 0 in the
-// other's. The mask stays the whole warp: a REDUX whose mask differs
+// others'. The mask stays the whole warp: a REDUX whose mask differs
 // between the lanes of a warp compiles to a loop over the distinct masks.
+// (G = 8, four groups a warp, serves only the logm kernel's 5 <= d <= 8.)
 template <int G>
 __device__ __forceinline__ unsigned lu_grp_max(unsigned x, int lane) {
   if constexpr (G == kLieWarp) {
     return __reduce_max_sync(kLieMask, x);
   } else {
-    static_assert(G == 16, "two groups a warp");
-    const bool upper = lane >= 16;
-    const unsigned lo = __reduce_max_sync(kLieMask, upper ? 0u : x);
-    const unsigned hi = __reduce_max_sync(kLieMask, upper ? x : 0u);
-    return upper ? hi : lo;
+    static_assert(G == 8 || G == 16, "two or four groups a warp");
+    unsigned r = 0u;
+#pragma unroll
+    for (int g = 0; g < kLieWarp / G; ++g) {
+      const unsigned t = __reduce_max_sync(kLieMask, lane / G == g ? x : 0u);
+      if (lane / G == g) r = t;
+    }
+    return r;
   }
 }
 
 // The least position pos < G over the group's lanes with `hit`: one REDUX
-// over the warp; at G = 16 one OR of the bits 1 << pos, each group's in
-// its own 16 bits, for both groups.
+// over the warp; at G < 32 one OR of the bits 1 << pos, each group's in
+// its own G bits, for every group.
 template <int G>
 __device__ __forceinline__ int lu_grp_first(bool hit, int pos, int lane) {
   if constexpr (G == kLieWarp) {

@@ -4,11 +4,13 @@ PyTorch versions and autograd.
 Two kernels of ``csrc/eig.cu`` replace the Pallas ``_eig_kernel`` (n <= 8,
 cyclic Jacobi in registers) and ``_eig_rolled_kernel`` (9 <= n <= 32,
 round-robin Jacobi) of ``fastmath_tpu/kernels/eig_pallas.py``: the first
-runs one thread per problem, the second one warp per problem; the
-source's header gives the design and what bounds it. Each problem stops
-sweeping on its own Frobenius-relative test (off^2 <= 16 eps^2 |A|_F^2)
-or after ``sweeps`` sweeps; the TPU kernels test a whole block of
-problems at once (``ROADMAP.md``, faults of the reference).
+runs one thread per problem, the second a group of 16 lanes a problem to
+n = 16 and 32 above, the matrix in the circle method's seat order so that
+each round's pairs are constant; the source's header gives the design and
+what bounds it. Each problem stops sweeping on its own Frobenius-relative
+test (off^2 <= 16 eps^2 |A|_F^2) or after ``sweeps`` sweeps; the TPU
+kernels test a whole block of problems at once (``ROADMAP.md``, faults of
+the reference).
 
 Entry points:
 

@@ -7,11 +7,13 @@ Two kernels of ``csrc/logm.cu`` replace the Pallas ``_logm_kernel``
 (25 <= d <= 32) of ``fastmath_tpu/kernels/logm_pallas.py``, whose three
 tiers differ only in how their loops nest: ``logm_unrolled`` runs one
 thread a problem with the matrices in registers up to :data:`UNROLL_MAX`
-(by dtype), ``logm_warp`` a group of 8, 16 or 32 lanes a problem with the
-matrices in shared memory above, both the nested algebra; the source's
-header gives the design and what bounds it. Each problem runs its own iterations and stops
-on its own tests. A problem whose square-root chain never reaches the
-series region (eigenvalues on the negative real axis) comes back NaN.
+(by dtype), ``logm_warp`` a group of 8, 16 or 32 lanes a problem above
+(columns in registers, left factors in shared memory, inverses by the
+lane-group LU of ``csrc/lu_groups.cuh``), both the nested algebra; the
+source's header gives the design and what bounds it. Each problem runs
+its own iterations and stops on its own tests. A problem whose square-root
+chain never reaches the series region (eigenvalues on the negative real
+axis) comes back NaN.
 
 Entry points: :func:`logm_cf`, the counterpart's channel-first contract
 (``(d*d, ...)`` in and out, real d <= 32, forward only, as the
@@ -33,9 +35,9 @@ import types
 import torch
 
 from ..core.dtypes import downcast, upcast_half
-from ._launch import MAX_N, _pivot, _swap_rows, cf_flat, empty, launch, require_domain
+from ._launch import MAX_N, cf_flat, empty, launch, require_domain, rolled_solve
 
-__all__ = ["logm_cf", "logm_plain", "launch_logm", "iss_log", "sqrt_db", "gj_inverse",
+__all__ = ["logm_cf", "logm_plain", "launch_logm", "iss_log", "sqrt_db", "lu_inverse",
            "logm_unrolled", "logm_warp", "tier", "iteration_counts", "UNROLL_MAX",
            "ISS_MAX", "DB_ITERS"]
 
@@ -68,27 +70,14 @@ def _real_dtype(x):
 # ---------------------------------------------------------------------------
 
 
-def gj_inverse(M: torch.Tensor) -> torch.Tensor:
-    """Inverse of (B, d, d) by the warp tier's Gauss-Jordan elimination:
-    first-max partial pivoting with exact row swaps, the pivot row divided
-    by the pivot, its multiple subtracted from every other row."""
-    W = M.clone()
-    d = W.shape[-1]
-    R = torch.eye(d, dtype=M.dtype, device=M.device).expand_as(W).clone()
-    for k in range(d):
-        p = _pivot(W, k)
-        _swap_rows(W, k, p, k)
-        _swap_rows(R, k, p, 0)
-        piv = W[:, k, k, None]
-        wk = W[:, k, k + 1:] / piv
-        rk = R[:, k, :] / piv
-        f = W[:, :, k].clone()
-        f[:, k] = 0
-        W[:, :, k + 1:] -= f[:, :, None] * wk[:, None, :]
-        R -= f[:, :, None] * rk[:, None, :]
-        W[:, k, k + 1:] = wk
-        R[:, k, :] = rk
-    return R
+def lu_inverse(M: torch.Tensor) -> torch.Tensor:
+    """Inverse of (B, d, d) as the warp tier takes it (``csrc/lu_groups.cuh``:
+    ``lu_group_factor``, then ``lu_group_solve`` against each column of
+    the identity): first-max partial pivoting on [M | I], multipliers by
+    division, then the back-substitution, each column's operations in
+    their order (``_launch.rolled_solve``)."""
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device).expand_as(M)
+    return rolled_solve(M, eye)
 
 
 def _inv_closed(M: torch.Tensor) -> torch.Tensor:
@@ -213,8 +202,10 @@ def iss_log(A, db_tol, inv, det=None, ordered=False, counts=None):
 def logm_plain(a: torch.Tensor) -> torch.Tensor:
     """Plain version of the kernels: ``logm`` of real (B, d, d), NaN where
     the square-root chain never reached the series region. The tier's
-    inverses (cofactors to the unrolled bound, Gauss-Jordan above) and
-    tolerance db_tol = 8 eps d."""
+    inverses (cofactors to the unrolled bound, :func:`lu_inverse` above)
+    and tolerance db_tol = 8 eps d. The products are ``torch.matmul``'s;
+    the warp tier sums each entry over k in order from the first term (the
+    identity padding adds exact zeros), so the two differ by rounding."""
     L, k, ok = _run(a)
     scale = torch.where(ok, torch.exp2(k), torch.full_like(k, math.nan))
     return L * scale[:, None, None]
@@ -223,7 +214,7 @@ def logm_plain(a: torch.Tensor) -> torch.Tensor:
 def _run(a, counts=None):
     d = a.shape[-1]
     unrolled = tier(d, a.dtype) == "logm_unrolled"
-    return iss_log(a, torch.finfo(a.dtype).eps * 8 * d, _inv_closed if unrolled else gj_inverse,
+    return iss_log(a, torch.finfo(a.dtype).eps * 8 * d, _inv_closed if unrolled else lu_inverse,
                    ordered=unrolled, counts=counts)
 
 

@@ -54,12 +54,13 @@ from .sym import _use_kernel
 __all__ = ["expm", "logm", "meanm", "expm_derivatives"]
 
 _LOGM_SYM_EIG_MAX_D = 32  # symmetric eig route cap = rolled Jacobi tier
-#: lower bound of the symmetric eig route on the card: on an H100, the
-#: public logm per call on SPD input on 15,625, the route and the kernel
-#: route tie at d = 12 (1.9326 and 1.9607 ms), the route is 1.43x faster at
-#: 16 and the kernel route 2.5x faster at 8 (chip_smoke.py phase 10; the
-#: reference's 12 was measured on a TPU)
-_LOGM_SYM_EIG_MIN_D = 12
+#: lower bound of the symmetric eig route on the card: on an NVIDIA H100
+#: 80GB HBM3 at 700 W, the public logm per call on SPD input on 15,625
+#: (chip_smoke.py phase 10), the kernel route is faster up to d = 16 (1.1492
+#: against 2.3740 ms at 16, groups of 16 lanes) and the route from 17 on
+#: (2.1025 against 9.5420 ms at 17, where the kernel takes groups of 32;
+#: 5.3380 against 9.6069 at 32). The reference's 12 was measured on a TPU.
+_LOGM_SYM_EIG_MIN_D = 17
 
 
 def _as_float(x):

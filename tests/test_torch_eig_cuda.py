@@ -25,7 +25,10 @@ from fastmath_tpu_torch.layouts.sym import sym_from_triangle
 
 TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
 B = 4099  # ragged against both tiers' blocks
-NS = [1, 2, 3, 4, 5, 8, 9, 16, 17, 24, 32]
+NS = [1, 2, 3, 4, 5, 8, 9, 12, 16, 17, 24, 25, 32]
+# the edges of eig_rolled's lane groups (G = 16 to n = 16, 32 above) and of
+# its instantiations (one for each even M = n + n % 2)
+EDGES = [9, 12, 16, 17, 24, 25, 32]
 
 
 @pytest.fixture(autouse=True)
@@ -82,7 +85,7 @@ def test_full_storage_matches_plain(n, dtype, rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [3, 4, 8, 9, 32])
+@pytest.mark.parametrize("n", [3, 4, 8, 9, 32, 12, 16, 17, 24, 25])
 def test_strided_and_broadcast_batches(n, dtype, rng):
     """A strided batch (every other matrix), a transposed view (the other
     triangle through swapped strides) and a broadcast batch (stride 0)."""
@@ -136,6 +139,36 @@ def test_mixed_scale_block(n, rng):
     want = np.sort(np.linalg.eigvalsh(full), -1)
     got = np.sort(w.double().cpu().numpy(), -1)
     assert (np.abs(got - want).max(-1) / np.abs(want).max(-1)).max() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", EDGES)
+def test_groups_exit_on_their_own(n, dtype, rng):
+    """Problems that share a warp (two a warp up to n = 16) and stop at
+    different sweeps: zero and diagonal matrices (no sweep), a 1e6-scale
+    diagonal-dominant one beside O(1) ones, in an odd batch. Each comes
+    back bit for bit as it does alone; the O(1) problems agree with the
+    plain version and with float64 eigvalsh."""
+    x = rng.standard_normal((4, n, n))
+    sym = x + x.swapaxes(-1, -2)
+    big = 1e6 * np.diag(np.arange(1.0, n + 1)) + sym[3]
+    full = np.stack([np.zeros((n, n)), sym[0], np.diag(np.arange(1.0, n + 1)), big, sym[1],
+                     sym[2], big.T, np.zeros((n, n)), sym[3]])
+    a = torch.tensor(full, dtype=dtype, device="cuda")
+    sweeps = KE.sweeps_for(n)
+    for vec in (False, True):
+        w, u = KE.launch_eig_full(a, True, vec, sweeps)
+        outs = [KE.launch_eig_full(a[i:i + 1], True, vec, sweeps) for i in range(len(full))]
+        torch.cuda.synchronize()
+        assert torch.equal(w, torch.cat([o[0] for o in outs]))
+        if vec:
+            assert torch.equal(u, torch.cat([o[1] for o in outs]))
+        wp, _ = KE.eig_plain(a, False, sweeps)
+        small = [1, 4, 5, 8]
+        _check(w[small], u[small] if vec else None, a[small], wp[small], TOL[dtype])
+        _check(w[small], None, a[small], torch.linalg.eigvalsh(a[small].double()), TOL[dtype])
+        assert torch.equal(w[[0, 7]], torch.zeros(2, n, dtype=dtype, device="cuda"))
 
 
 @pytest.mark.cuda

@@ -98,6 +98,37 @@ def test_round_robin_schedule():
         assert sorted(pairs) == [(p, q) for p in range(n) for q in range(p + 1, n)]
 
 
+@pytest.mark.parametrize("n", range(9, 33))
+def test_kernel_seat_schedule_is_round_robin(n):
+    """The rolled kernel's schedule (``csrc/eig.cu``, ``eig_rolled``),
+    restated: M = n + n % 2 players, seat 0 keeps player 0 and seat k > 0
+    holds player (k - 1 - r) mod (M - 1) + 1 in round r, seat k faces seat
+    M - 1 - k, the pair oriented by player. Its rounds are
+    ``round_robin(n)``'s, pair for pair in order, once the pairs with the
+    zero player n of odd n are left out; moving every player up one seat
+    (seat M - 1 to 1) takes each round's seating to the next one's, and
+    M - 1 moves bring every player back to its own seat."""
+    m = n + n % 2
+
+    def player(k, r):
+        return 0 if k == 0 else (k - 1 - r) % (m - 1) + 1
+
+    rounds = []
+    for r in range(m - 1):
+        pairs = [(player(k, r), player(m - 1 - k, r)) for k in range(m // 2)]
+        rounds.append([(min(x, y), max(x, y)) for x, y in pairs if x < n and y < n])
+    assert rounds == K.round_robin(n)
+    up = [0, *range(2, m), 1]  # seat k's player goes to seat up[k]
+    seats = list(range(m))
+    for r in range(m - 1):
+        assert seats == [player(k, r) for k in range(m)]
+        nxt = [0] * m
+        for k in range(m):
+            nxt[up[k]] = seats[k]
+        seats = nxt
+    assert seats == list(range(m))
+
+
 def test_sweeps_for():
     assert [K.sweeps_for(n) for n in (1, 4, 5, 8, 9, 32)] == [8, 8, 10, 10, 14, 14]
 

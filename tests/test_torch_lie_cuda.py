@@ -27,7 +27,9 @@ from fastmath_tpu_torch.kernels import expm as KE
 from fastmath_tpu_torch.kernels import logm as KL
 
 B = 4099  # ragged against both tiers' blocks
-DS = [1, 2, 3, 4, 5, 8, 9, 16, 17, 24, 25, 32]
+DS = [1, 2, 3, 4, 5, 8, 9, 12, 16, 17, 24, 25, 32]
+# the edges of logm_warp's lane groups (G = 8 to d = 8, 16 to 16, 32 above)
+EDGES = [5, 8, 9, 12, 16, 17, 24, 25, 32]
 TOL_EXPM = {torch.float32: 1e-5, torch.float64: 1e-12}
 TOL_DEEP = {torch.float32: 2e-4, torch.float64: 1e-11}
 TOL_LOGM = {torch.float32: 5e-5, torch.float64: 1e-11}
@@ -110,7 +112,7 @@ def test_logm_matches_plain(d, dtype, rng):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [3, 4, 9, 16])
+@pytest.mark.parametrize("d", [3, 4, 9, 16, 5, 8, 17, 32])
 def test_strided_and_broadcast_batches(d, rng):
     """A strided batch (every other matrix), a transposed view and a
     broadcast batch (stride 0), against the same matrices made contiguous."""
@@ -125,7 +127,7 @@ def test_strided_and_broadcast_batches(d, rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("d", [3, 4, 9])
+@pytest.mark.parametrize("d", [3, 4, 9, 5, 8, 12, 16, 17, 32])
 def test_branch_cut_lanes(d, dtype, rng):
     """A reflection and a rotation by pi among regular matrices: exactly
     those come back NaN, and every other problem is bit for bit what it is
@@ -152,6 +154,80 @@ def test_branch_cut_lanes(d, dtype, rng):
     assert torch.equal(pub[keep.cuda()], alone)
     # both real-cast logs are 0: diag(i pi, 0, ..) and i pi on the 2 x 2 block
     assert pub[[10, 41]].abs().max() <= 1e-5
+
+
+def _expm64_batch(rng, b, d):
+    return KE.expm_plain(torch.tensor(gauss(rng, b, d))).numpy()
+
+
+def _rotation_cube(d):
+    """R (x) R (x) R for the rotation R by pi/4 (every nonzero entry of
+    magnitude 2^-1.5: ties in every column), then I; at d < 8 R (x) R, then
+    I. Eigenvalues e^(i k pi/4), |k| <= 3: off the branch cut."""
+    c = math.sqrt(0.5)
+    r = np.array([[c, -c], [c, c]])
+    k = np.kron(r, r) if d < 8 else np.kron(np.kron(r, r), r)
+    out = np.eye(d)
+    out[:len(k), :len(k)] = k
+    return out
+
+
+def _half_cycles(d):
+    """0.5 (I + P), P a product of 3-cycles (fixed points past the last
+    whole one): two equal entries in a column, eigenvalues 1 and e^(+-i
+    pi/3) / 2."""
+    idx = list(range(d))
+    for s in range(0, d - d % 3, 3):
+        idx[s:s + 3] = [s + 1, s + 2, s]
+    return 0.5 * (np.eye(d) + np.eye(d)[idx])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", EDGES)
+def test_logm_pivot_ties(d, dtype):
+    """Inputs whose first inverse meets pivot ties (the first largest row
+    wins, in the kernel and in the plain version) against the plain
+    version, among the bench input."""
+    rng = np.random.default_rng(d)
+    ties = np.stack([_rotation_cube(d), _half_cycles(d)])
+    x = np.concatenate([ties, _expm64_batch(rng, 5, d), ties[::-1]])
+    a = torch.tensor(x, dtype=dtype, device="cuda")
+    got = KL.launch_logm(a)
+    want = KL.logm_plain(a)
+    torch.cuda.synchronize()
+    assert torch.isfinite(want).all() and torch.isfinite(got).all()
+    assert normwise(got, want) <= TOL_LOGM[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", EDGES)
+def test_neighbours_exit_on_their_own(d, dtype):
+    """Problems that share a warp (two or four a warp up to d = 16) and
+    stop at different points: I (no square root), expm of a small input
+    (one or two), a rotation by 0.9 pi (five or six) and a reflection (on
+    the cut: NaN), side by side in an odd batch. Each comes back bit for bit
+    as it does alone, and the finite ones agree with the plain version."""
+    rng = np.random.default_rng(100 + d)
+    eye = np.eye(d)
+    refl = np.eye(d)
+    refl[0, 0] = -1.0
+    near = KE.expm_plain(torch.tensor(gauss(rng, 3, d) * 0.05)).numpy()
+    far = KE.expm_plain(torch.tensor(skew(rng, 3, d, 0.9 * math.pi))).numpy()
+    x = np.stack([eye, far[0], near[0], refl, far[1], eye, near[1], far[2], refl, near[2], eye])
+    a = torch.tensor(x, dtype=dtype, device="cuda")
+    got = KL.launch_logm(a)
+    alone = torch.cat([KL.launch_logm(a[i:i + 1]) for i in range(len(x))])
+    want = KL.logm_plain(a)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(alone))
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(alone))
+    cut = torch.isnan(got).flatten(1).any(1).cpu()
+    assert cut.nonzero()[:, 0].tolist() == [3, 8] and torch.isnan(got[[3, 8]]).all()
+    keep = ~cut
+    assert normwise(got[keep.cuda()], want[keep.cuda()]) <= TOL_LOGM[dtype]
+    assert (got[[0, 5, 10]] == 0).all()
 
 
 @pytest.mark.cuda

@@ -2,16 +2,17 @@
 kernels (``kernels/expm.py``, ``kernels/logm.py``) against the Pallas
 kernels they replace, ``fastmath_tpu.kernels.expm_cf`` / ``logm_cf``, run in
 interpret mode on the CPU as ``tests/test_expm_pallas.py`` runs them
-(small batches at d <= 5, ``expm_cf`` at d = 9 and 12 on 8 problems), and
-against float64 scipy at d = 12..32, where interpret mode would take
-minutes.
+(small batches at d <= 5, ``expm_cf`` at d = 9 and 12 on 8 problems,
+``logm_cf`` at d = 9 and 16 on a few), and against float64 scipy at d =
+12..32, where interpret mode would take minutes.
 
 The port's wrappers run the plain versions on CPU tensors; the plain
 versions repeat the kernels' arithmetic (the same tiers, inverses and
 per-problem exits). Float64, 1e-10 relative to the largest entry: the
 algorithms are the reference's, but the port's one-thread tier inverts by
 cofactors where the reference's d = 5..8 tier uses a pivoted LU, its warp
-tier by Gauss-Jordan, and each problem stops on its own tests (one
+tier by an LU and column solves (``lu_inverse``), and each problem stops
+on its own tests (one
 Denman-Beavers step past the test) where the reference iterates a block
 of problems together.
 """
@@ -61,10 +62,11 @@ def test_expm_cf_matches_interpret(d, b, rng):
     _close(got.numpy().T.reshape(b, d, d), _expm64(x))
 
 
-@pytest.mark.parametrize("d,b", [(2, 16), (3, 16), (4, 16), (5, 8)])
+@pytest.mark.parametrize("d,b", [(2, 16), (3, 16), (4, 16), (5, 8), (9, 4), (16, 2)])
 def test_logm_cf_matches_interpret(d, b, rng):
     """logm of expm of the bench input: the one-thread tier's cofactor
-    inverses at d <= 4, the warp tier's Gauss-Jordan at 5."""
+    inverses at d <= 4, the warp tier's LU inverses at 5 (four problems a
+    warp on the card), 9 and 16 (two)."""
     e = _expm64(rng.standard_normal((b, d, d)) * 0.5)
     cf = _cf(e)
     want = np.asarray(jax_logm_cf(jnp.asarray(cf), block=128, interpret=True))
@@ -142,26 +144,42 @@ def test_plain_versions_against_scipy(d, rng):
 @pytest.mark.parametrize("d", [2, 3, 4])
 def test_tiers_agree(d, rng):
     """The one-thread tier's algebra (cofactor inverses, squares summed in
-    order) and the warp tier's (Gauss-Jordan, summed as a whole) on the
+    order) and the warp tier's (LU inverses, summed as a whole) on the
     same problems."""
     a = torch.from_numpy(_expm64(rng.standard_normal((20, d, d)) * 0.5))
     tol = torch.finfo(a.dtype).eps * 8 * d
     closed = KL.iss_log(a, tol, KL._inv_closed, ordered=True)
-    gj = KL.iss_log(a, tol, KL.gj_inverse)
+    gj = KL.iss_log(a, tol, KL.lu_inverse)
     assert torch.equal(closed[1], gj[1]) and torch.equal(closed[2], gj[2])
     _close(closed[0].numpy(), gj[0].numpy(), 1e-12)
 
 
-def test_gj_inverse(rng):
-    """The warp tier's inverse against numpy, and exact row swaps on rows of
-    very different scales (an arithmetic swap would lose the small entries)."""
+def test_lu_inverse_ties_and_nan_pivots(rng):
+    """The warp tier's inverse against numpy; rows of very different
+    scales, which never move (the pivot row is read where it lies); pivot
+    ties, which take the first largest row: a Hadamard matrix (every
+    column a tie) and 0.5 (I + P) for a product of 3-cycles P (two equal
+    entries a column) come back exact; a NaN anywhere in a column, at the
+    pivot's position or below it, leaves no finite entry."""
     a = torch.from_numpy(rng.standard_normal((10, 7, 7)))
-    _close(KL.gj_inverse(a).numpy(), np.linalg.inv(a.numpy()), 1e-12)
+    _close(KL.lu_inverse(a).numpy(), np.linalg.inv(a.numpy()), 1e-12)
     m = np.eye(5)
     m[0, :2] = [1e-20, 1e20]
     m[1, :2] = [1.0, 1.0]
-    inv = KL.gj_inverse(torch.from_numpy(m[None])).numpy()[0]
+    inv = KL.lu_inverse(torch.from_numpy(m[None])).numpy()[0]
     np.testing.assert_allclose(inv @ m, np.eye(5), atol=1e-12)
+    h = np.array([[1.0, 1.0], [1.0, -1.0]])
+    had = np.kron(np.kron(h, h), np.kron(h, h))
+    np.testing.assert_array_equal(KL.lu_inverse(torch.from_numpy(had[None])).numpy()[0],
+                                  had.T / 16)
+    perm = np.eye(9)[[1, 2, 0, 4, 5, 3, 7, 8, 6]]
+    half = 0.5 * (np.eye(9) + perm)
+    np.testing.assert_array_equal(
+        KL.lu_inverse(torch.from_numpy(half[None])).numpy()[0] @ half, np.eye(9))
+    for i in (0, 3):
+        bad = np.eye(6)
+        bad[i, 0] = np.nan
+        assert np.isnan(KL.lu_inverse(torch.from_numpy(bad[None])).numpy()).all()
 
 
 def test_iteration_counts(rng):
