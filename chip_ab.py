@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Time one source tree's full-storage solve, Cholesky, inverse, compact
-solve, product, matrix logarithm and rolled eig kernels on one NVIDIA GPU,
+solve, product, matrix logarithm, rolled eig and chain kernels on one NVIDIA GPU,
 to compare two versions of a kernel in one call.
 
     python3 /path/to/chip_ab.py TAG [--library] [--only GROUP[,GROUP...]]
@@ -19,11 +19,16 @@ the inverse 16x16 and 32x32), ``chol`` (16x16, 24x24, 32x32), ``sym_solve``
 (``csrc/sym_solve.cu``: N = 16 on 262,144, also with ``refine=1``, N = 24
 on 131,072, N = 32 on 65,536), ``matmul`` (``csrc/batched_products.cu``:
 4x4 on 1M, 16x16 on 500k, 32x32 on 100k), ``logm`` (``csrc/logm.cu``:
-``logm_warp`` at every ``chip_smoke.LIE_SHAPES`` d and 17x17 on 15,625, on
+``logm_warp`` at every ``chip_smoke.LIE_SHAPES`` d and 17x17, 20x20 and
+21x21 on 15,625, on
 expm of the bench input, and 32x32 holding those 17x17 problems padded
 with the identity; normwise error) and ``eig`` (``csrc/eig.cu``: ``eig_rolled`` at
 12, 16 on 200k and 24, 32 on 100k, values and vectors, the largest
-eigenvalue difference). ``--library`` also times ``torch.linalg.solve_ex``
+eigenvalue difference) and ``chain`` (``csrc/sym_iterate.cu`` and
+``csrc/sym_solve.cu``: the matvec chain k = 32 at n = 9, 12, 16, 17, 24,
+32 and the compact chain solve k = 128 at N = 9, 16, 24, 32, on the bytes
+of 16x16 on 1M and of N = 16 on 262,144; normwise over the terms, as
+``chip_smoke.py``). ``--library`` also times ``torch.linalg.solve_ex``
 / ``cholesky_ex`` (the compact solve's on the densified batch),
 ``torch.matmul`` and ``eigvalsh`` / ``eigh`` on the same inputs. It imports
 neither JAX nor ``fastmath_tpu``.
@@ -47,15 +52,18 @@ def main():
     from fastmath_tpu_torch.kernels import expm as KE
     from fastmath_tpu_torch.kernels import logm as KL
     from fastmath_tpu_torch.kernels import sym_cuda as SC
+    from fastmath_tpu_torch.kernels import sym_iterate as SI
     from fastmath_tpu_torch.layouts import full_to_sym
 
     tag, library = sys.argv[1], "--library" in sys.argv[2:]
-    groups = {"solve", "chol", "sym_solve", "matmul", "logm", "eig"}
+    groups = {"solve", "chol", "sym_solve", "matmul", "logm", "eig", "chain"}
     if "--only" in sys.argv:
         groups = set(sys.argv[sys.argv.index("--only") + 1].split(","))
     sources = {"solve": "batched", "chol": "batched", "sym_solve": "sym_solve",
-               "matmul": "batched_products", "logm": "logm", "eig": "eig"}
-    libs = sorted({sources[g] for g in groups})
+               "matmul": "batched_products", "logm": "logm", "eig": "eig",
+               "chain": ("sym_iterate", "sym_solve")}
+    libs = sorted({lib for g in groups for lib in
+                   ((sources[g],) if isinstance(sources[g], str) else sources[g])})
     _build.build_all(libs + (["expm"] if "logm" in groups else []))
     res = {"tag": tag}
     gen = torch.Generator(device="cuda")
@@ -113,6 +121,33 @@ def main():
         timed(f"matmul {n}x{n} on {b}", lambda: BC.launch_matmul(xf, yf, n, n, n),
               lambda: BC.matmul_plain(xf, yf, n, n, n), lambda: torch.matmul(x, y))
         del x, y, xf, yf
+    def chain_err(add):  # normwise over the terms: ||x - x_plain|| / (||x_plain|| + ||c||)
+        return lambda got, want: ((got - want).norm(dim=1)
+                                  / (want.norm(dim=1) + add.norm(dim=1))).max().item()
+
+    for n in (9, 12, 16, 17, 24, 32):
+        if "chain" not in groups:
+            break
+        b = 1_000_000 * 136 // (n * (n + 1) // 2)  # the bytes of 16 x 16 on 1M
+        # chip_smoke.chain_input's contractions, restated for trees that predate it
+        a = C.spd_on_card(torch, gen, b, n)
+        m = full_to_sym(a / torch.clamp(a.abs().sum(dim=-1).amax(dim=-1) / 0.95,
+                                        min=6.0 * n)[:, None, None]).contiguous()
+        del a
+        k = 32
+        v, c = (torch.randn(b, n, generator=gen, device="cuda") for _ in range(2))
+        timed(f"matvec_chain {n}x{n} k={k} on {b}", lambda: SI.launch_matvec_chain(m, v, c, k),
+              lambda: SI.matvec_chain_plain(m, v, c, k), None, chain_err(c))
+        del m, v, c
+    for n in (9, 16, 24, 32):
+        if "chain" not in groups:
+            break
+        b = 262_144 * 136 // (n * (n + 1) // 2)  # the bytes of N = 16 on 262,144
+        m = full_to_sym(C.spd_on_card(torch, gen, b, n)).contiguous()
+        v, c = (torch.randn(b, n, generator=gen, device="cuda") for _ in range(2))
+        timed(f"sym_chain N={n} k=128 on {b}", lambda: SC.launch_chain(m, v, c, None, 128),
+              lambda: SC.chain_plain(m, v, c, None, 128), None, chain_err(c))
+        del m, v, c
     logm_err = lambda got, want: C.lie_normwise(torch, got, want).max().item()  # noqa: E731
     for d, b in C.LIE_SHAPES:
         if "logm" not in groups:
@@ -120,6 +155,14 @@ def main():
         e = KE.launch_expm(torch.randn(b, d, d, generator=gen, device="cuda") * (0.5 / d ** 0.5))
         timed(f"logm {d}x{d} on {b}", lambda: KL.launch_logm(e), lambda: KL.logm_plain(e), None,
               logm_err)
+        del e
+    for d in (20, 21):
+        if "logm" not in groups:
+            break
+        e = KE.launch_expm(torch.randn(15_625, d, d, generator=gen, device="cuda")
+                           * (0.5 / d ** 0.5))
+        timed(f"logm {d}x{d} on 15625", lambda: KL.launch_logm(e), lambda: KL.logm_plain(e),
+              None, logm_err)
         del e
     if "logm" in groups:
         # 17x17 problems, and the same padded with I to 32x32: G = 32 lanes on both

@@ -1033,14 +1033,14 @@ def phase_main_path(torch, rng):
 
 
 def ops_chain_rolled(n, iters):
-    """Arithmetic operations of the rolled chain kernel's ``iters`` steps
-    x <- A^-1 x + c: the explicit inverse once (the solve against the
+    """Arithmetic operations of the chain kernel's ``iters`` steps x <-
+    A^-1 x + c at N >= 5: the explicit inverse once (the solve against the
     identity's n columns), then n^2 multiply-adds and n adds a step."""
     return ops_plu(n, n) + iters * 2 * n * n
 
 
 # the compact solve beyond the main path: (N, batch, refine); the chain is
-# timed beside the unrefined solve at N <= 16
+# timed beside the unrefined solve
 WIDE_SHAPES = ((8, B_WIDE, 0), (16, B_WIDE, 0), (16, B_WIDE, 1), (32, 65_536, 0))
 
 
@@ -1057,14 +1057,15 @@ def phase_wide(torch, rng):
     """The compact solve at N = 8 (unrolled PLU), N = 16 (lane groups, also
     with ``refine=1``) and N = 32 (lane groups of 32), each beside its
     bound, its plain version and ``torch.linalg.solve_ex`` on the densified
-    batch, and the chain at N = 8 and 16 beside its bound. Returns the
-    solve's timed shapes for the kernels line."""
+    batch, and the chain k = 128 at N = 8, 16 and 32 beside its bound and
+    its plain version. Returns the solve's and the chain's timed shapes
+    for the kernels line."""
     import fastmath_tpu_torch as T
     from fastmath_tpu_torch.kernels import sym_cuda
     from fastmath_tpu_torch.layouts import full_to_sym
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = []
+    rows, chain_rows = [], []
     for n, b, refine in WIDE_SHAPES:
         a = torch.from_numpy(rng.standard_normal((b, n, n)).astype(np.float32)).to(DEV)
         dense = a @ a.mT + n * torch.eye(n, device=DEV)
@@ -1097,17 +1098,25 @@ def phase_wide(torch, rng):
             f"({b / t_s * 1e3:.4e} solves/s, normwise max {nw.max():.3e}, vs plain {d:.3e}; "
             f"bound {b_s:.4f} ms by {by_s}, {b_s / t_s * 100:.1f}% of it; plain "
             f"{t_plain:.4f} ms; solve_ex {t_lib:.4f} ms)")
-        if refine == 0 and n <= 16:
-            t_c = device_ms(torch, lambda: sym_cuda.launch_chain(mat, vec, vec, None, CHAIN_K),
-                            reps=5)
-            if t_c is None:
-                fail(f"N={n}: the chain kernel could not be queued ahead of the card")
+        if refine == 0:
+            c_k = sym_cuda.launch_chain(mat[:4096], vec[:4096], vec[:4096], None, CHAIN_K)
+            c_p = sym_cuda.chain_plain(mat[:4096], vec[:4096], vec[:4096], None, CHAIN_K)
+            d_c = normwise(c_k.cpu().numpy(), c_p.cpu().numpy(), vec[:4096].cpu().numpy()).max()
+            if not d_c <= 1e-3:  # the main path's chain gate
+                fail(f"N={n}: chain k={CHAIN_K} kernel vs plain {d_c:.3e}")
+            t_c = kernel_ms(torch, lambda: sym_cuda.launch_chain(mat, vec, vec, None, CHAIN_K),
+                            f"chain N={n}", reps=5)
+            t_cp = call_ms(torch, lambda: sym_cuda.chain_plain(mat, vec, vec, None, CHAIN_K),
+                           reps=3, warmup=1)
             b_c, by_c = bound(b * (nn + 2 * n) * 4, b * ops_chain_rolled(n, CHAIN_K),
                               "float32")
+            chain_rows.append(shape_row(f"N = {n}, k = {CHAIN_K} on {b}", t_c, t_cp, b_c, by_c,
+                                        None))
             log(f"  N={n} B={b} f32 chain k={CHAIN_K} kernel {t_c:.4f} ms "
-                f"({b * CHAIN_K / t_c * 1e3:.4e} solves/s; bound {b_c:.4f} ms by {by_c})")
+                f"({b * CHAIN_K / t_c * 1e3:.4e} solves/s; bound {b_c:.4f} ms by {by_c}, "
+                f"{b_c / t_c * 100:.1f}% of it; plain {t_cp:.4f} ms; vs plain {d_c:.3e})")
         del dense, mat, vec, x
-    return rows
+    return rows, chain_rows
 
 
 # --- phase 5 -----------------------------------------------------------------
@@ -1712,7 +1721,11 @@ def phase_factor(torch, rng, mat4):
 # iteration at 4 x 4 and 8 x 8 on 1M, iters 32, gap-boosted (:715-740);
 # batchmatmul 16 x 16 on 500k (:478-496) and 4 x 4 on 1M
 CHAIN_SHAPES = ((4, 128, 1_000_000), (16, 32, 1_000_000))
+# timed beside the path: the chain's group of 32 lanes, the power
+# iteration's rolled tier
+CHAIN_WIDE = (32, 32, 262_144)
 MAXEIG_SHAPES = ((4, 1_000_000), (8, 1_000_000))
+MAXEIG_ROLLED = (16, 1_000_000)
 MAXEIG_ITERS, MAXEIG_RENORM = 32, 8
 MATMUL_SHAPES = ((16, 500_000), (4, 1_000_000), (32, 100_000))
 # batch of each size in the routing sweeps: 256 MB or less per operand
@@ -1747,6 +1760,35 @@ def ops_maxeig(n, iters, r):
     return mv + n - 1 + n * n + (iters + 1) * mv + (iters // r + 2) * (3 * n) + 2 * n
 
 
+def chain_input(torch, gen, n, k, b):
+    """(k, mat, vec, add) of the matvec chain: bench/suite.py's 1/(6n)
+    scale, capped so that every matrix's Gershgorin bound stays at or under
+    0.95 (a 1M batch of a a^T + n I holds matrices whose spectral radius
+    exceeds 1 at 1/(6n), and their recurrence overflows within 128 steps)."""
+    from fastmath_tpu_torch.layouts import full_to_sym
+
+    a = spd_on_card(torch, gen, b, n)
+    scale = 1.0 / torch.clamp(a.abs().sum(dim=-1).amax(dim=-1) / 0.95, min=6.0 * n)
+    mat = full_to_sym(a * scale[:, None, None]).contiguous()
+    del a, scale
+    return (k, mat, torch.randn(b, n, generator=gen, device=DEV),
+            torch.randn(b, n, generator=gen, device=DEV))
+
+
+def maxeig_input(torch, gen, n, b):
+    """bench/suite.py's gap-boosted power-iteration input, and start
+    vectors u + r / 2 for the kernels alone (a start vector nearly
+    orthogonal to the dominant eigenvector, which a 1M batch of random
+    ones holds, makes the first steps amplify every rounding)."""
+    from fastmath_tpu_torch.layouts import full_to_sym
+
+    u, r = (x / x.norm(dim=-1, keepdim=True)
+            for x in (torch.randn(b, n, generator=gen, device=DEV) for _ in range(2)))
+    mat = full_to_sym(spd_on_card(torch, gen, b, n)
+                      + 8.0 * n * u[:, :, None] * u[:, None, :]).contiguous()
+    return mat, u + r / 2
+
+
 def phase_iterate(torch, rng):
     """The iterations and the full-storage products at the bench suite's
     shapes, through the public ops; launch counts, gated errors, per-call,
@@ -1755,35 +1797,15 @@ def phase_iterate(torch, rng):
     import fastmath_tpu_torch as T
     from fastmath_tpu_torch.kernels import batched_cuda as BC
     from fastmath_tpu_torch.kernels import sym_iterate as SI
-    from fastmath_tpu_torch.layouts import full_to_sym, sym_to_full
+    from fastmath_tpu_torch.layouts import sym_to_full
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=DEV)
     gen.manual_seed(int(rng.integers(2 ** 31)))
-    # bench/suite.py's 1/(6n) scale, capped so that every matrix's
-    # Gershgorin bound stays at or under 0.95: a 1M batch of a a^T + n I
-    # holds matrices whose spectral radius exceeds 1 at 1/(6n), and their
-    # recurrence overflows within 128 steps
-    chain_in = {}
-    for n, k, b in CHAIN_SHAPES:
-        a = spd_on_card(torch, gen, b, n)
-        scale = 1.0 / torch.clamp(a.abs().sum(dim=-1).amax(dim=-1) / 0.95, min=6.0 * n)
-        mat = full_to_sym(a * scale[:, None, None]).contiguous()
-        del a, scale
-        chain_in[n] = (k, mat, torch.randn(b, n, generator=gen, device=DEV),
-                       torch.randn(b, n, generator=gen, device=DEV))
-    # bench/suite.py's gap-boosted input, and start vectors u + r / 2 for
-    # the kernels alone (gapped's reason: a start vector nearly orthogonal
-    # to the dominant eigenvector, which a 1M batch of random ones holds,
-    # makes the first steps amplify every rounding)
+    chain_in = {n: chain_input(torch, gen, n, k, b) for n, k, b in CHAIN_SHAPES}
     eig_in, eig_start = {}, {}
     for n, b in MAXEIG_SHAPES:
-        u, r = (x / x.norm(dim=-1, keepdim=True)
-                for x in (torch.randn(b, n, generator=gen, device=DEV) for _ in range(2)))
-        eig_in[n] = full_to_sym(spd_on_card(torch, gen, b, n)
-                                + 8.0 * n * u[:, :, None] * u[:, None, :]).contiguous()
-        eig_start[n] = u + r / 2
-        del u, r
+        eig_in[n], eig_start[n] = maxeig_input(torch, gen, n, b)
     mm_in = {n: (torch.randn(b, n, n, generator=gen, device=DEV),
                  torch.randn(b, n, n, generator=gen, device=DEV)) for n, b in MATMUL_SHAPES}
     m4 = spd_on_card(torch, gen, B_MAIN, N_MAIN)
@@ -1924,21 +1946,47 @@ def phase_iterate(torch, rng):
             "replaces": f"fastmath_tpu/kernels/{replaces}", "launches": launches[counted],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms})
-    # the other shapes of the path, kernel alone
-    k16, mat16, vec16, add16 = chain_in[16]
-    b16c = CHAIN_SHAPES[1][2]
-    t = kernel_ms(torch, lambda: SI.launch_matvec_chain(mat16, vec16, add16, k16), "chain 16",
-                  reps=5)
-    b_ms, b_by = bound(b16c * (136 + 48) * 4, b16c * ops_chain_mv(16, k16), "float32")
-    log(f"  sym_matvec_chain_cf 16x16 k={k16} on {b16c} kernel: {t:.4f} ms (bound {b_ms:.4f} "
-        f"ms by {b_by}, {b_ms / t * 100:.1f}% of it)")
-    b8 = MAXEIG_SHAPES[1][1]
-    t = kernel_ms(torch, lambda: SI.launch_maxeig(eig_in[8], eig_start[8], MAXEIG_ITERS,
-                                                  MAXEIG_RENORM), "maxeig 8")
-    b_ms, b_by = bound(b8 * (36 + 25) * 4, b8 * ops_maxeig(8, MAXEIG_ITERS, MAXEIG_RENORM),
-                       "float32")
-    log(f"  sym_maxeig_cf 8x8 on {b8} kernel: {t:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
-        f"{b_ms / t * 100:.1f}% of it)")
+    # the other shapes of the path, and the lane-group chain's widest group
+    # (n = 32 on about the bytes of 16 x 16 on 1M) and the power
+    # iteration's rolled tier (16 x 16), kernel alone beside its plain
+    # version, for the kernels' rows
+    chain_in[32] = chain_input(torch, gen, *CHAIN_WIDE)
+    eig_in[16], eig_start[16] = maxeig_input(torch, gen, *MAXEIG_ROLLED)
+    chain_rows, maxeig_rows = [], []
+    for n in (16, 32):
+        k, mat, vec, add = chain_in[n]
+        b = mat.shape[0]
+        d = (SI.launch_matvec_chain(mat[:4096], vec[:4096], add[:4096], k)
+             - SI.matvec_chain_plain(mat[:4096], vec[:4096], add[:4096], k))
+        rel = (d.norm(dim=-1) / (SI.matvec_chain_plain(mat[:4096], vec[:4096], add[:4096], k)
+                                 .norm(dim=-1) + add[:4096].norm(dim=-1))).max().item()
+        if not rel <= TOL_PLAIN["float32"]:
+            fail(f"sym_matvec_chain_cf {n}x{n}: kernel vs plain {rel:.3e}")
+        t = kernel_ms(torch, lambda: SI.launch_matvec_chain(mat, vec, add, k), f"chain {n}",
+                      reps=5)
+        t_plain = call_ms(torch, lambda: SI.matvec_chain_plain(mat, vec, add, k), reps=3,
+                          warmup=1)
+        nn = n * (n + 1) // 2
+        b_ms, b_by = bound(b * (nn + 3 * n) * 4, b * ops_chain_mv(n, k), "float32")
+        chain_rows.append(shape_row(f"{n}x{n}, k = {k} on {b}", t, t_plain, b_ms, b_by, None))
+        log(f"  sym_matvec_chain_cf {n}x{n} k={k} on {b} kernel: {t:.4f} ms (bound {b_ms:.4f} "
+            f"ms by {b_by}, {b_ms / t * 100:.1f}% of it), plain {t_plain:.4f} ms, vs plain "
+            f"{rel:.3e}")
+    for n in (8, 16):
+        b = eig_in[n].shape[0]
+        t = kernel_ms(torch, lambda: SI.launch_maxeig(eig_in[n], eig_start[n], MAXEIG_ITERS,
+                                                      MAXEIG_RENORM), f"maxeig {n}")
+        t_plain = call_ms(torch, lambda: SI.maxeig_plain(eig_in[n], eig_start[n], MAXEIG_ITERS,
+                                                         MAXEIG_RENORM), reps=3, warmup=1)
+        nn = n * (n + 1) // 2
+        b_ms, b_by = bound(b * (nn + 2 * n + 1) * 4,
+                           b * ops_maxeig(n, MAXEIG_ITERS, MAXEIG_RENORM), "float32")
+        maxeig_rows.append(shape_row(f"{n}x{n}, iters = {MAXEIG_ITERS} on {b}", t, t_plain,
+                                     b_ms, b_by, None))
+        log(f"  sym_maxeig_cf {n}x{n} on {b} kernel: {t:.4f} ms (bound {b_ms:.4f} ms by "
+            f"{b_by}, {b_ms / t * 100:.1f}% of it), plain {t_plain:.4f} ms")
+    next(k for k in kernels if k["name"] == "sym_matvec_chain_cf")["shapes"] = chain_rows
+    next(k for k in kernels if k["name"] == "sym_maxeig_cf")["shapes"] = maxeig_rows
     # the product at each shape of the path, kernel alone, for its row
     mm_rows = []
     for n, b in MATMUL_SHAPES:
@@ -2741,7 +2789,7 @@ def main():
     phase_lie_gradients(torch, rng)
     log("== phase 4: main path at full size")
     kernels, batch = phase_main_path(torch, rng)
-    kernels[0]["shapes"] = phase_wide(torch, rng)
+    kernels[0]["shapes"], kernels[1]["shapes"] = phase_wide(torch, rng)
     log("== phase 5: the products' path at full size")
     kernels += phase_products(torch, rng, *batch)
     mat4 = batch[2]

@@ -30,10 +30,11 @@
 //   solve and inverse, 9..32
 //                   the lane-group LU (lu_groups.cuh, solve_groups,
 //                   inv_groups): G = 16 lanes a problem to n = 16, 32
-//                   above, rolled_factor's pivots on [A | B] without
-//                   moving a row, U kept in shared memory, then lane c
-//                   solves for column c (the operations of rolled_factor
-//                   and rolled_backsub on that column, in their order).
+//                   above, the plain rolled_solve's pivots on [A | B]
+//                   (kernels/_launch.py) without moving a row, U kept in
+//                   shared memory, then lane c solves for column c (the
+//                   operations of rolled_solve on that column, in their
+//                   order).
 //                   The solve stages B in blocks of G columns through
 //                   shared memory, so k is any width; at k = 1 each lane
 //                   carries its row's entry of B through the factor
@@ -47,7 +48,7 @@
 //   det, 5..8       the unrolled LU, sign * prod U_ii, or sum log|U_ii|;
 //   det, 9..32      the lane-group LU (lu_groups.cuh, det_groups): G = 16
 //                   lanes a problem to n = 16, 32 above, row i in lane i's
-//                   registers, rolled_factor's pivots and multipliers
+//                   registers, the plain rolled_factor's pivots and multipliers
 //                   without moving a row. log|det| sums the per-pivot logs
 //                   and never takes the log of the product, which
 //                   saturates float32 (an 8 x 8 with pivots ~7e4).

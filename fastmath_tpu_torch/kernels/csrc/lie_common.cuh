@@ -258,11 +258,13 @@ __device__ __forceinline__ double2 lu_pack(const double (&r)[G], int q) {
 
 // ---------------------------------------------------------------------------
 // a group of G lanes a problem, every lane of the warp in every call
-// (logm.cu's logm_warp): lane j holds column j of a G x G matrix in
-// registers (x[i] = X[i][j]); a matrix that every lane reads is kept
+// (logm.cu's logm_warp): lane j holds column j of a W x W matrix in
+// registers (x[i] = X[i][j]; W = G, or 24 in a group of 32, whose lanes
+// past W hold zero columns); a matrix that every lane reads is kept
 // column-major in shared memory, column k at a + k * lie_cm_ld, 16-byte
-// aligned. A d x d problem is padded to G x G with the identity, so every
-// loop runs to G with constant register indices and no runtime bound.
+// aligned. A d x d problem is padded to W x W with the identity, so every
+// loop runs to W with constant register indices and no runtime bound. The
+// helpers below take the width W as their G.
 // ---------------------------------------------------------------------------
 
 // n, opaque to the compiler. The lane-group loops are unrolled to G and
@@ -326,32 +328,35 @@ __device__ __forceinline__ void lie_col_load(const MatView<T>& in, long long b, 
     x[i] = gl < d && i < d ? base[i * in.rs] : (i == gl ? T(1) : T(0));
 }
 
-// c = add I + scale ((a + kPlusI I) b): a column-major in shared memory, b
-// and c columns in registers (c may be b). Entry i of the column sums a[i][k]
-// b[k] over k in order from the first term, as lie_row_dot does, the G rows
-// at once: G independent sums in flight, each column of a read as
-// broadcast vectors; k runs to n (G, lie_opaque). On identity-padded
-// operands the terms past d are exact zeros.
-template <typename T, int G, bool kPlusI = false>
-__device__ __forceinline__ void lie_col_mm(const T* a, const T (&b)[G], T (&c)[G], int n, int gl,
-                                           T add = T(0), T scale = T(1)) {
+// c = add I + scale (a b): a and b column-major in shared memory (b may be
+// a), c a column in registers. Lane gl forms column gl of the product:
+// entry i sums a[i][k] b[k][gl] over k in order from the first term, the G
+// rows at once (G independent sums in flight), each column of a read as
+// broadcast vectors and the lane's own column of b a vector at a time. k
+// runs to n (G, lie_opaque) in a loop that is not unrolled: a product
+// costs a few hundred bytes of code instead of tens of kilobytes. On
+// identity-padded operands the terms past d are exact zeros.
+template <typename T, int G>
+__device__ __forceinline__ void lie_cm_mm(const T* a, const T* b, T (&c)[G], int n, int gl,
+                                          T add = T(0), T scale = T(1)) {
   using V = typename LuVec<T>::type;
-  constexpr int kW = LuVec<T>::width;
+  constexpr int kW = LuVec<T>::width, kLd = lie_cm_ld<T, G>();
   T acc[G];
 #pragma unroll
-  for (int k = 0; k < G; ++k) {
-    if (k >= n) break;
-    const T bk = b[k];
-    const V* col = reinterpret_cast<const V*>(a + k * lie_cm_ld<T, G>());
+  for (int i = 0; i < G; ++i) acc[i] = T(0);
+  const V* bc = reinterpret_cast<const V*>(b + gl * kLd);
+#pragma unroll 1
+  for (int k0 = 0; k0 < n; k0 += kW) {
+    const V bv = bc[k0 / kW];
 #pragma unroll
-    for (int q = 0; q < G / kW; ++q) {
-      const V v = col[q];
+    for (int e = 0; e < kW; ++e) {
+      const T bk = lu_get(bv, e);
+      const V* col = reinterpret_cast<const V*>(a + (k0 + e) * kLd);
 #pragma unroll
-      for (int e = 0; e < kW; ++e) {
-        const int i = q * kW + e;
-        T x = lu_get(v, e);
-        if (kPlusI && i == k) x = x + T(1);
-        acc[i] = k == 0 ? x * bk : acc[i] + x * bk;
+      for (int q = 0; q < G / kW; ++q) {
+        const V v = col[q];
+#pragma unroll
+        for (int f = 0; f < kW; ++f) acc[q * kW + f] = acc[q * kW + f] + lu_get(v, f) * bk;
       }
     }
   }
@@ -359,14 +364,15 @@ __device__ __forceinline__ void lie_col_mm(const T* a, const T (&b)[G], T (&c)[G
   for (int i = 0; i < G; ++i) c[i] = (i == gl ? add : T(0)) + acc[i] * scale;
 }
 
-// |X - I|_F^2 of the matrix whose column gl is x: each lane sums its
-// column in order, the group's lanes add by a butterfly (every lane of the
-// group gets the same bits). The identity padding adds exact zeros.
-template <typename T, int G>
-__device__ __forceinline__ T lie_col_dist2(const T (&x)[G], int gl) {
+// |X - I|_F^2 of the matrix whose column gl is x (W rows; the group's
+// lanes past W hold zero columns): each lane sums its column in order, the
+// group's G lanes add by a butterfly (every lane of the group gets the
+// same bits). The identity padding adds exact zeros.
+template <typename T, int G, int W = G>
+__device__ __forceinline__ T lie_col_dist2(const T (&x)[W], int gl) {
   T acc = T(0);
 #pragma unroll
-  for (int i = 0; i < G; ++i) {
+  for (int i = 0; i < W; ++i) {
     const T v = x[i] - (i == gl ? T(1) : T(0));
     acc = acc + v * v;
   }

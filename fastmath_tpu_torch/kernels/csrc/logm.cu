@@ -49,28 +49,39 @@
 //   logm_unrolled<T, D>: one thread a problem, every index a compile-time
 //     constant, the matrices in registers, staged loads and stores as in
 //     expm.cu.
-//   logm_warp<T, G>: a group of G = 8, 16 or 32 lanes a problem (the
-//     least G >= d; 32 / G problems a warp), the problem padded to G x G
+//   logm_warp<T, G, W>: a group of G = 8, 16 or 32 lanes a problem (the
+//     least G >= d; 32 / G problems a warp), the problem padded to W x W
 //     with the identity (the padding stays exactly I in M and Y, 0 in D
-//     and Z, and adds exact zeros to every sum), so every loop runs to G
-//     with constant register indices. Lane j holds column j of M, of M^-1
-//     and of each product in registers; what every lane reads lives
-//     column-major in shared memory (lie_cm_ld): D and Y, M's rows in
-//     transit to the LU, and each product's left factor (M^-1, Y M^-1,
-//     M + I, Z, Z^2), 4 G (G + 4) values and the LU's perm a group: 18 KB
-//     a warp at G = 32 in float32, 34 KB in float64, 10 KB at G = 16.
-//     Each inverse is lu_group_factor (rows in registers and never moved,
-//     first-max pivots by REDUX, the pivot row broadcast as vectors) and
-//     lu_group_solve against the identity, lane c solving column c: M^-1
-//     comes out in the layout a right factor needs (Y M^-1, D (Y + I)^-1,
-//     D (A + I)^-1) and goes to shared memory once where it is the left
-//     one (M^-1 (T T)). A product forms lane j's column from its right
-//     factor's column against the left factor's columns read as broadcast
-//     vectors, the G rows' sums in flight at once, each summed over k in
-//     order from the first term. Every lane of the warp takes part in
-//     every step: the warp runs a Denman-Beavers step, a commit or a root
-//     while any of its problems takes it, and a problem that does not
-//     keeps its state; a group past the batch runs a copy of the last
+//     and Z, and adds exact zeros to every sum), so every loop runs to W
+//     with constant register indices. W = G, except for 17 <= d <= 24,
+//     which run at W = 24 in a group of 32 (lanes 24..31 hold zero columns
+//     and take part only in the collectives): about 0.6 of the work of
+//     W = 32 a step. Lane j holds column j of M, of M^-1
+//     and of each product in registers; the operands of the products live
+//     column-major in shared memory (lie_cm_ld): D and Y, and two scratch
+//     matrices (M's rows in transit to the LU, then M^-1 or (Y + I)^-1;
+//     the LU's rows, then T = M + I, T T, Z), 4 G (G + 4) values and the
+//     LU's perm a group: 18 KB a warp at G = 32 in float32, 34 KB in
+//     float64, 10 KB at G = 16. Each inverse is lu_group_factor (rows in
+//     registers and never moved, first-max pivots by REDUX, the pivot row
+//     broadcast as vectors) and lu_group_solve against the identity, lane
+//     c solving column c. A product (lie_cm_mm) forms lane j's column from
+//     its own column of the right factor against the left factor's
+//     columns, all read as vectors, the G rows' sums in flight at once,
+//     each summed over k in order from the first term, k in a loop that is
+//     not unrolled. The phases (a Denman-Beavers step, a square root's
+//     commit, the series) each end in one inverse and share one loop, so
+//     the kernel holds one copy of the inverse's unrolled code. Code, not
+//     arithmetic, set the time at d < G: with the products unrolled over k
+//     and three inverses the kernel was hundreds of kilobytes of
+//     instructions, and warps at different points of it share no
+//     instruction fetches. At d = 32 nearly every problem takes the same
+//     steps and the warps of an SM stay together; at d = 17 the counts
+//     spread, and the same problems forced to equal counts (more steps)
+//     ran faster (PERF.md, open questions, with the counts and clocks).
+//     Every lane of the warp takes part in every phase: the warp runs a
+//     phase while any of its problems takes it, and a problem that does
+//     not keeps its state; a group past the batch runs a copy of the last
 //     problem and stores nothing. G = 8 keeps four problems a warp for 5 <=
 //     d <= 8: at G = 16 each would cost what a padded 16 x 16 problem
 //     costs, about 62 ns a problem against 6 (chip_ab.py on an NVIDIA H100
@@ -82,9 +93,8 @@
 // byte at every d, so every tier is bound by operations. The warp tier
 // issues (G / d)^3 times the multiply-adds a problem needs (the padding),
 // and each LU step's REDUX, division and barrier cost more than its
-// multiply-adds; at d < G a step also takes longer than at d = G, on the
-// same instructions (PERF.md, open questions). Multiply-adds contract into FMAs, so results
-// move a few ulp from the plain PyTorch version
+// multiply-adds. Multiply-adds contract into FMAs, so results move a few
+// ulp from the plain PyTorch version
 // (fastmath_tpu_torch/kernels/logm.py, logm_plain), which repeats this
 // arithmetic.
 //
@@ -100,6 +110,9 @@ constexpr int kIssMax = 12;
 constexpr int kDbIters = 36;
 // |A - I|_F^2 below which the series runs
 constexpr double kThresh2 = 0.0625;
+// the width of logm_warp's narrow tier: 17 <= d <= 24 in a group of 32
+// lanes, padded to 24 x 24 (see above)
+constexpr int kLogmNarrow = 24;
 // the largest d of the one-thread tier, by dtype (registers, see above)
 template <typename T>
 constexpr int logm_unroll_max();
@@ -221,141 +234,169 @@ logm_unrolled(long long nb, MatView<T> in, View<T> out) {
 // Shared memory of one group of logm_warp: D, Y, a scratch matrix (M's
 // rows in transit, then M^-1 or Z) and U (the LU's rows, then a product's
 // left factor), each column-major at lie_cm_ld, then the LU's perm.
-template <typename T, int G>
+template <typename T, int G, int W = G>
 __host__ __device__ constexpr int logm_group_bytes() {
-  return 4 * G * lie_cm_ld<T, G>() * (int)sizeof(T) + G * (int)sizeof(int);
+  return 4 * G * lie_cm_ld<T, W>() * (int)sizeof(T) + W * (int)sizeof(int);
 }
 
 // The inverse of the group's identity-padded G x G matrix whose rows row
 // hold (row gl in lane gl; n = G through lie_opaque): lu_group_factor's LU
 // at U and perm, then lane c solves for column c against the identity's
 // (lu_group_solve), into x: on the d x d block the operations of
-// rolled_factor on [M | I] and rolled_backsub, in their order, plus exact
+// the plain rolled_solve on [M | I] (kernels/_launch.py), in its order, plus exact
 // zeros (the padding's columns pivot on their own 1, their multipliers
 // are 0). Every lane of the warp takes part. Ends synchronized.
-template <typename T, int G>
-__device__ __forceinline__ void logm_inverse(T (&row)[G], int n, int lane, T* U, int* perm,
-                                             T (&x)[G]) {
+template <typename T, int G, int W>
+__device__ __forceinline__ void logm_inverse(T (&row)[W], int n, int lane, T* U, int* perm,
+                                             T (&x)[W]) {
   const int gl = lane % G;
-  lu_group_factor<T, G, true>(row, n, lane, U, perm);
-  lu_group_solve<T, G>(U, perm, n, [gl](int r) { return r == gl ? T(1) : T(0); }, x);
+  lu_group_factor<T, G, true, W>(row, n, lane, U, perm);
+  lu_group_solve<T, W>(U, perm, n, [gl](int r) { return r == gl ? T(1) : T(0); }, x);
 }
 
-template <typename T, int G>
+// The phases of logm_warp, each ending in one inverse: a Denman-Beavers
+// step (M^-1), a square root's commit ((Y + I)^-1), the series ((A + I)^-1).
+enum LogmPhase { kLogmRoot, kLogmStep, kLogmCommit, kLogmSeries };
+
+template <typename T, int G, int W>
 __global__ void logm_warp(long long nb, int d, MatView<T> in, View<T> out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kOrder = logm_order<T>();
-  constexpr int kMat = G * lie_cm_ld<T, G>();
+  constexpr int kMat = G * lie_cm_ld<T, W>();
   const T thresh2 = T(kThresh2);
   const T tol = lie_eps(T(0)) * T(8 * d);
   const T tol2 = tol * tol, conv2 = (T(8) * tol) * (T(8) * tol);
-  const int lane = threadIdx.x % kLieWarp, gl = lane % G, n = lie_opaque(G);
+  const int lane = threadIdx.x % kLieWarp, gl = lane % G, n = lie_opaque(W);
   const long long slot = blockIdx.x * (long long)(blockDim.x / G) + threadIdx.x / G;
   // a group past the batch runs a copy of the last problem and stores nothing
   const long long b = slot < nb ? slot : nb - 1;
-  T* Ds = reinterpret_cast<T*>(smem_raw + (threadIdx.x / G) * logm_group_bytes<T, G>());
+  T* Ds = reinterpret_cast<T*>(smem_raw + (threadIdx.x / G) * logm_group_bytes<T, G, W>());
   T* Ys = Ds + kMat;
   T* Ls = Ys + kMat;
   T* Us = Ls + kMat;
   int* perm = reinterpret_cast<int*>(Us + kMat);
-  T m[G], x[G], p[G];
-  lie_col_load<T, G>(in, b, d, gl, m);
-  lie_col_put<T, G>(Ys, gl, m);  // A, which each square root's Y starts from
+  T m[W], x[W], p[W];
+  lie_col_load<T, W>(in, b, d, gl, m);
+  lie_col_put<T, W>(Ys, gl, m);  // A, which each square root's Y starts from
 #pragma unroll
-  for (int i = 0; i < G; ++i) m[i] = i == gl ? m[i] - T(1) : m[i];
-  lie_col_put<T, G>(Ds, gl, m);
+  for (int i = 0; i < W; ++i) m[i] = i == gl ? m[i] - T(1) : m[i];
+  lie_col_put<T, W>(Ds, gl, m);
   __syncwarp(kLieMask);
-  // Each group keeps its own tests; the warp runs a step while any of its
-  // groups takes it, and a group that does not stores nothing of it.
-  int k = 0;
-  bool on = true, cut = false;
-  for (int it = 0; it < kIssMax; ++it) {
-    lie_col_get<T, G>(Ys, gl, m);  // M = Y = A
-    const T d2 = lie_col_dist2<T, G>(m, gl);
-    on = on && lie_finite(d2) && d2 > thresh2;
-    if (!__any_sync(kLieMask, on)) break;
-    bool db_on = on, polished = false;  // the one step past the test (see the header)
-    for (int j = 0; j <= kDbIters; ++j) {
-      const T e2 = lie_col_dist2<T, G>(m, gl);
-      bool step = db_on && lie_finite(e2);
-      if (step && e2 <= tol2) {
+  // Each group keeps its own tests; the warp runs a phase while any of its
+  // groups takes it, and a group that does not stores nothing of it. The
+  // phases share one loop, so that the kernel holds one copy of the inverse
+  // (see the header: its code, not its arithmetic, set the time at d < G).
+  int k = 0, it = 0, j = 0, phase = kLogmRoot;
+  bool on = true, cut = false, ok = false, db_on = false, polished = false, step = false;
+#pragma unroll 1
+  for (;;) {
+    if (phase == kLogmRoot) {  // a square root starts: M = Y = A
+      lie_col_get<T, W>(Ys, gl, m);
+      const T d2 = lie_col_dist2<T, G, W>(m, gl);
+      on = on && lie_finite(d2) && d2 > thresh2;
+      phase = it < kIssMax && __any_sync(kLieMask, on) ? kLogmStep : kLogmSeries;
+      ++it;
+      j = 0;
+      db_on = on;
+      polished = false;
+    }
+    if (phase == kLogmStep) {
+      const T e2 = lie_col_dist2<T, G, W>(m, gl);
+      step = db_on && lie_finite(e2);
+      if (step && e2 <= tol2) {  // the one step past the test (see the header)
         step = !polished;
         polished = true;
       } else if (j == kDbIters) {
         step = false;
       }
       db_on = step;
-      if (!__any_sync(kLieMask, step)) break;
-      // M^-1: M's rows through Ls, the LU at Us
-      lie_col_put<T, G>(Ls, gl, m);
+      if (!__any_sync(kLieMask, step)) {  // the square root is done
+        if (on) {
+          ++k;
+          if (!(lie_finite(e2) && e2 <= conv2)) {  // no principal square root chain
+            cut = true;
+            on = false;
+          }
+        }
+        phase = __any_sync(kLieMask, on) ? kLogmCommit : kLogmSeries;
+      }
+    }
+    if (phase == kLogmSeries) {
+      lie_col_get<T, W>(Ys, gl, m);
+      const T d2 = lie_col_dist2<T, G, W>(m, gl);
+      ok = !cut && lie_finite(d2) && d2 <= thresh2;
+    }
+    // the phase's inverse, into x: of M (its rows through Ls), else of Y + I
+    T row[W];
+    if (phase == kLogmStep) {
+      lie_col_put<T, W>(Ls, gl, m);
       __syncwarp(kLieMask);
-      T row[G];
-      lie_row_get<T, G>(Ls, gl, row);
-      logm_inverse<T, G>(row, n, lane, Us, perm, x);
-      // Y M^-1 (Y is read by every lane: it stays in Ys)
-      lie_col_mm<T, G>(Ys, x, p, n, gl);
-      __syncwarp(kLieMask);  // the solve has read U
-      lie_col_put<T, G>(Ls, gl, x);
-      lie_col_put<T, G>(Us, gl, p);
-      __syncwarp(kLieMask);
-      // T = M + I; Y = (Y M^-1) T / 2
+      lie_row_get<T, W>(Ls, gl, row);
+    } else {
+      lie_row_get<T, W>(Ys, gl, row, T(1));
+    }
+    logm_inverse<T, G, W>(row, n, lane, Us, perm, x);
+    __syncwarp(kLieMask);  // the LU has read its rows, the solve U
+    lie_col_put<T, W>(Ls, gl, x);
+    if (phase == kLogmStep) {
+      // T = M + I to Us; Y = (Y M^-1) T / 2; M = M^-1 (T T) / 4
 #pragma unroll
-      for (int i = 0; i < G; ++i) x[i] = i == gl ? m[i] + T(1) : m[i];
-      lie_col_mm<T, G>(Us, x, p, n, gl, T(0), T(0.5));
-      if (step) lie_col_put<T, G>(Ys, gl, p);
-      __syncwarp(kLieMask);  // Us's Y M^-1 is read
-      // M = M^-1 (T T) / 4, T the left factor as M + I
-      lie_col_put<T, G>(Us, gl, m);
+      for (int i = 0; i < W; ++i) p[i] = i == gl ? m[i] + T(1) : m[i];
+      lie_col_put<T, W>(Us, gl, p);
       __syncwarp(kLieMask);
-      lie_col_mm<T, G, true>(Us, x, p, n, gl);
-      lie_col_mm<T, G>(Ls, p, p, n, gl, T(0), T(0.25));
+      lie_cm_mm<T, W>(Ys, Ls, p, n, gl);
+      __syncwarp(kLieMask);  // Ys is read
+      if (step) lie_col_put<T, W>(Ys, gl, p);  // Y M^-1 (a group that waits keeps Y)
+      __syncwarp(kLieMask);
+      lie_cm_mm<T, W>(Ys, Us, p, n, gl, T(0), T(0.5));
+      __syncwarp(kLieMask);  // Ys is read
+      if (step) lie_col_put<T, W>(Ys, gl, p);
+      lie_cm_mm<T, W>(Us, Us, p, n, gl);
+      __syncwarp(kLieMask);  // Us's T is read
+      lie_col_put<T, W>(Us, gl, p);
+      __syncwarp(kLieMask);
+      lie_cm_mm<T, W>(Ls, Us, p, n, gl, T(0), T(0.25));
       if (step) {
 #pragma unroll
-        for (int i = 0; i < G; ++i) m[i] = p[i];
+        for (int i = 0; i < W; ++i) m[i] = p[i];
       }
-      __syncwarp(kLieMask);  // Ls's M^-1 and Us's M are read
+      __syncwarp(kLieMask);  // Ls and Us are read
+      ++j;
+      continue;
     }
-    const T e2 = lie_col_dist2<T, G>(m, gl);  // every lane: a butterfly
-    if (on) {
-      ++k;
-      if (!(lie_finite(e2) && e2 <= conv2)) {  // no principal square root chain
-        cut = true;
-        on = false;
-      }
-    }
-    if (!__any_sync(kLieMask, on)) break;
-    // D = D (Y + I)^-1; A = Y (Ys)
-    T row[G];
-    lie_row_get<T, G>(Ys, gl, row, T(1));
-    logm_inverse<T, G>(row, n, lane, Us, perm, x);
-    lie_col_mm<T, G>(Ds, x, p, n, gl);
-    __syncwarp(kLieMask);  // Ds is read
-    if (on) lie_col_put<T, G>(Ds, gl, p);
     __syncwarp(kLieMask);
-  }
-  // the series: Z = D (A + I)^-1, log A = 2^(k+1) Z (I/1 + Z^2/3 + ...)
-  lie_col_get<T, G>(Ys, gl, m);
-  const T d2 = lie_col_dist2<T, G>(m, gl);
-  const bool ok = !cut && lie_finite(d2) && d2 <= thresh2;
-  T row[G];
-  lie_row_get<T, G>(Ys, gl, row, T(1));
-  logm_inverse<T, G>(row, n, lane, Us, perm, x);
-  lie_col_mm<T, G>(Ds, x, m, n, gl);  // Z
-  __syncwarp(kLieMask);  // the solve has read U
-  lie_col_put<T, G>(Ls, gl, m);
-  __syncwarp(kLieMask);
-  lie_col_mm<T, G>(Ls, m, p, n, gl);  // Z^2
-  lie_col_put<T, G>(Us, gl, p);
-  __syncwarp(kLieMask);
+    lie_cm_mm<T, W>(Ds, Ls, p, n, gl);  // D (Y + I)^-1: the commit's D, or the series' Z
+    __syncwarp(kLieMask);  // Ds and Ls are read
+    if (phase == kLogmCommit) {
+      if (on) lie_col_put<T, W>(Ds, gl, p);
+      __syncwarp(kLieMask);
+      phase = kLogmRoot;
+      continue;
+    }
+    // the series: log A = 2^(k+1) Z (I/1 + Z^2/3 + ...), Z in Us, Z^2 in Ls,
+    // Horner's sum in Ys
+    lie_col_put<T, W>(Us, gl, p);
+    __syncwarp(kLieMask);
+    lie_cm_mm<T, W>(Us, Us, p, n, gl);
+    lie_col_put<T, W>(Ls, gl, p);
 #pragma unroll
-  for (int i = 0; i < G; ++i) x[i] = i == gl ? T(1) / T(kOrder) : T(0);
+    for (int i = 0; i < W; ++i) x[i] = i == gl ? T(1) / T(kOrder) : T(0);
+    lie_col_put<T, W>(Ys, gl, x);
+    __syncwarp(kLieMask);
 #pragma unroll 1
-  for (int o = kOrder - 2; o > 0; o -= 2) lie_col_mm<T, G>(Us, x, x, n, gl, T(1) / T(o));
-  lie_col_mm<T, G>(Ls, x, p, n, gl, T(0), T(2) * lie_ldexp(T(1), k));
+    for (int o = kOrder - 2; o > 0; o -= 2) {
+      lie_cm_mm<T, W>(Ls, Ys, x, n, gl, T(1) / T(o));
+      __syncwarp(kLieMask);
+      lie_col_put<T, W>(Ys, gl, x);
+      __syncwarp(kLieMask);
+    }
+    lie_cm_mm<T, W>(Us, Ys, p, n, gl, T(0), T(2) * lie_ldexp(T(1), k));
+    break;
+  }
   if (slot >= nb || gl >= d) return;
   T* o = out.p + slot * out.sb + gl * out.sc;
 #pragma unroll
-  for (int i = 0; i < G; ++i)
+  for (int i = 0; i < W; ++i)
     if (i < d) o[i * d * out.sc] = ok ? p[i] : lie_nan(T(0));
 }
 
@@ -373,9 +414,16 @@ cudaError_t launch_logm(int d, long long nb, MatView<T> in, View<T> out, cudaStr
     }
   } else {
     const int g = lie_group(d);
-    if (g == 8) lu_launch<8>(logm_warp<T, 8>, logm_group_bytes<T, 8>(), nb, s, d, in, out);
-    else if (g == 16) lu_launch<16>(logm_warp<T, 16>, logm_group_bytes<T, 16>(), nb, s, d, in, out);
-    else lu_launch<kLieWarp>(logm_warp<T, kLieWarp>, logm_group_bytes<T, kLieWarp>(), nb, s, d, in, out);
+    if (g == 8)
+      lu_launch<8>(logm_warp<T, 8, 8>, logm_group_bytes<T, 8>(), nb, s, d, in, out);
+    else if (g == 16)
+      lu_launch<16>(logm_warp<T, 16, 16>, logm_group_bytes<T, 16>(), nb, s, d, in, out);
+    else if (d <= kLogmNarrow)
+      lu_launch<kLieWarp>(logm_warp<T, kLieWarp, kLogmNarrow>,
+                          logm_group_bytes<T, kLieWarp, kLogmNarrow>(), nb, s, d, in, out);
+    else
+      lu_launch<kLieWarp>(logm_warp<T, kLieWarp, kLieWarp>, logm_group_bytes<T, kLieWarp>(), nb,
+                          s, d, in, out);
   }
   return cudaGetLastError();
 }

@@ -3,9 +3,12 @@
 // det_groups, inv_groups, solve_groups, solve1_groups), the compact
 // determinant and inverse (sym_factor.cu, sym_det_groups,
 // sym_invert_groups), the compact solve (sym_solve.cu,
-// sym_solve_groups) and the matrix logarithm's inverses (logm.cu,
-// logm_warp, also at G = 8 for 5 <= d <= 8); the Cholesky
-// factor (batched.cu, chol_groups) takes its row layout and compact load.
+// sym_solve_groups), the compact chain solve's inverse (sym_solve.cu,
+// chain_groups) and the matrix logarithm's inverses (logm.cu, logm_warp,
+// also at G = 8 for 5 <= d <= 8); the Cholesky factor (batched.cu,
+// chol_groups) takes its row layout and compact load, the matvec chain
+// (sym_iterate.cu, matvec_chain_groups) its compact load and the chain
+// step (lu_group_chain), which chain_groups shares.
 //
 // A group of G lanes owns one problem (G = 16 for n <= 16, 32 above:
 // lie_group; 32 / G problems a warp, lie_common.cuh). Lane i holds row i
@@ -18,7 +21,8 @@
 // goes inf or NaN never reaches its neighbour.
 //
 // Rows never move. Each lane keeps in a register the position its row would
-// hold after rolled_factor's whole-row swaps (sym_common.cuh): at step k the
+// hold after whole-row swaps (the plain versions' rolled_factor and
+// rolled_solve, kernels/_launch.py): at step k the
 // pivot is the first largest |a[i][k]| over the positions >= k, found by
 // warp reductions (REDUX) of |a[i][k]|'s bits, then of position; the row at
 // position k takes the pivot's position p, and the parity flips where
@@ -37,7 +41,7 @@
 // column (lu_group_solve): forward substitution against the pivoted
 // column of the right-hand side (the identity's column c, or column c of
 // B staged in shared memory), which is what eliminating [A | B] does to
-// it, then rolled_backsub's back-substitution. Every U and L read is a
+// it, then rolled_solve's back-substitution. Every U and L read is a
 // broadcast, and a lane holds about n live values instead of 2n. With one
 // right-hand side, each lane carries its row's entry of B through the
 // factor instead (eliminated in the same step as the row, so the forward
@@ -132,10 +136,11 @@ struct LuLane {
   T pivot;
 };
 
-// Factor the n x n matrix whose row gl is `row` (zero past n; lanes >= n
-// hold zeros and take part only in the collectives). Step k's
-// pivot row goes to shared memory at `rows` (16-byte aligned, row stride
-// G): with kSolve to row k, whole, with the multipliers of its steps, and
+// Factor the n x n matrix whose row gl is `row` (W values, W = G unless a
+// narrower problem leaves lanes W.. of the group idle; zero past n; lanes
+// >= n hold zeros and take part only in the collectives). Step k's pivot
+// row goes to shared memory at `rows` (16-byte aligned, row stride W):
+// with kSolve to row k, whole, with the multipliers of its steps, and
 // perm[k] names the lane it came from; otherwise to row k % 2 from the
 // vector holding column k on (two rows in turn suffice: one __syncwarp a
 // step orders a row's readers before its next writer). Given `b` (the
@@ -143,8 +148,8 @@ struct LuLane {
 // memory), b is eliminated with the row, b -= l * y[k], and the pivot
 // row's goes to y[k]: y ends as the forward substitution's result, in
 // step order. Ends synchronized.
-template <typename T, int G, bool kSolve>
-__device__ __forceinline__ LuLane<T> lu_group_factor(T (&row)[G], int n, int lane, T* rows,
+template <typename T, int G, bool kSolve, int W = G>
+__device__ __forceinline__ LuLane<T> lu_group_factor(T (&row)[W], int n, int lane, T* rows,
                                                      int* perm, T* b = nullptr,
                                                      T* y = nullptr) {
   const int gl = lane % G;
@@ -154,14 +159,14 @@ __device__ __forceinline__ LuLane<T> lu_group_factor(T (&row)[G], int n, int lan
   bool live = gl < n;
   LuLane<T> me{0, -1, T(0)};
 #pragma unroll
-  for (int k = 0; k < G; ++k) {
+  for (int k = 0; k < W; ++k) {
     if (k >= n) break;
     const int p = lu_pivot<G>(row[k], live, pos == k, pos, lane);
-    T* pr = rows + (kSolve ? k : (k & 1)) * G;
+    T* pr = rows + (kSolve ? k : (k & 1)) * W;
     if (live && pos == p) {
 #pragma unroll
-      for (int q = 0; q < G / kW; ++q)
-        if (kSolve || q >= k / kW) reinterpret_cast<V*>(pr)[q] = lu_pack<G>(row, q);
+      for (int q = 0; q < W / kW; ++q)
+        if (kSolve || q >= k / kW) reinterpret_cast<V*>(pr)[q] = lu_pack<W>(row, q);
       if constexpr (kSolve) perm[k] = gl;
       if (y != nullptr) y[k] = *b;
       me.step = k;
@@ -177,7 +182,7 @@ __device__ __forceinline__ LuLane<T> lu_group_factor(T (&row)[G], int n, int lan
       if constexpr (kSolve) row[k] = l;
       if (y != nullptr) *b = *b - l * y[k];
 #pragma unroll
-      for (int q = 0; q < G / kW; ++q) {
+      for (int q = 0; q < W / kW; ++q) {
         if (q < (k + 1) / kW) continue;
         const V x = reinterpret_cast<const V*>(pr)[q];
 #pragma unroll
@@ -191,21 +196,21 @@ __device__ __forceinline__ LuLane<T> lu_group_factor(T (&row)[G], int n, int lan
   return me;
 }
 
-// Back-substitution with lu_group_factor<T, G, true>'s rows U (row
-// stride G), in place on x[0..n) (zero past n), which holds y: x_i = (y_i
+// Back-substitution with lu_group_factor<T, G, true, W>'s rows U (row
+// stride W), in place on x[0..n) (zero past n), which holds y: x_i = (y_i
 // - s_i) / U_ii for i from n - 1 down, s_i = sum over j > i, ascending
-// from 0, of U_ij x_j: rolled_backsub's operations in its order.
-template <typename T, int G>
-__device__ __forceinline__ void lu_group_backsub(const T* U, int n, T (&x)[G]) {
+// from 0, of U_ij x_j: rolled_solve's back-substitution in its order.
+template <typename T, int W>
+__device__ __forceinline__ void lu_group_backsub(const T* U, int n, T (&x)[W]) {
   using V = typename LuVec<T>::type;
   constexpr int kW = LuVec<T>::width;
 #pragma unroll
-  for (int i = G - 1; i >= 0; --i) {
+  for (int i = W - 1; i >= 0; --i) {
     if (i < n) {
-      const V* u = reinterpret_cast<const V*>(U + i * G);
+      const V* u = reinterpret_cast<const V*>(U + i * W);
       T acc = T(0);
 #pragma unroll
-      for (int q = 0; q < G / kW; ++q) {
+      for (int q = 0; q < W / kW; ++q) {
         if (q < (i + 1) / kW) continue;
         const V v = u[q];
 #pragma unroll
@@ -214,30 +219,30 @@ __device__ __forceinline__ void lu_group_backsub(const T* U, int n, T (&x)[G]) {
           if (j > i && j < n) acc = acc + lu_get(v, cc) * x[j];
         }
       }
-      x[i] = (x[i] - acc) / U[i * G + i];
+      x[i] = (x[i] - acc) / U[i * W + i];
     }
   }
 }
 
 // One column of the solution into x[0..n) (zero past n) from
-// lu_group_factor<T, G, true>'s rows U (row stride G) and perm, where
+// lu_group_factor<T, G, true, W>'s rows U (row stride W) and perm, where
 // rhs(r) is the column's right-hand side in row r (the identity's column
 // c: r == c): y_s = rhs(perm[s]) - sum over k < s, ascending, of L_sk
 // y_k, then lu_group_backsub. The same operations, in the same order, as
-// rolled_factor on [A | B] followed by rolled_backsub.
-template <typename T, int G, typename Rhs>
+// rolled_solve on [A | B].
+template <typename T, int W, typename Rhs>
 __device__ __forceinline__ void lu_group_solve(const T* U, const int* perm, int n, Rhs rhs,
-                                               T (&x)[G]) {
+                                               T (&x)[W]) {
   using V = typename LuVec<T>::type;
   constexpr int kW = LuVec<T>::width;
 #pragma unroll
-  for (int s = 0; s < G; ++s) {
+  for (int s = 0; s < W; ++s) {
     T y = T(0);
     if (s < n) {
       y = rhs(perm[s]);
-      const V* l = reinterpret_cast<const V*>(U + s * G);
+      const V* l = reinterpret_cast<const V*>(U + s * W);
 #pragma unroll
-      for (int q = 0; q < G / kW; ++q) {
+      for (int q = 0; q < W / kW; ++q) {
         if (q * kW >= s) continue;
         const V v = l[q];
 #pragma unroll
@@ -249,7 +254,7 @@ __device__ __forceinline__ void lu_group_solve(const T* U, const int* perm, int 
     }
     x[s] = y;
   }
-  lu_group_backsub<T, G>(U, n, x);
+  lu_group_backsub<T, W>(U, n, x);
 }
 
 // The determinant (kLog: log|det|) of the matrix whose row gl is `row`:
@@ -269,6 +274,45 @@ __device__ __forceinline__ T lu_group_det(T (&row)[G], int n, int lane, T* rows,
     for (int i = 1; i < n; ++i) r = kLog ? r + terms[i] : r * terms[i];
   }
   return !kLog && me.odd ? -r : r;
+}
+
+// The chain step of the matvec chain (sym_iterate.cu, matvec_chain_groups)
+// and the compact chain solve (sym_solve.cu, chain_groups): x <- M x + c,
+// `iters` times. Lane i holds row i of M in `row` (a zero row for lanes
+// >= n) and c = c_i; x lives in shared memory at xs, double buffered (G
+// values each, 16-byte aligned), and starts in the first buffer. Step t
+// reads buffer t % 2 and writes into the other, so one __syncwarp a step
+// orders both. Every lane of the group reads the same x: broadcast
+// vectors, G / width loads for G multiply-adds (the vectors wholly past n
+// are skipped; the rest add exact zeros, since lanes >= n write 0). Row i
+// sums m_i0 x_0, then j ascending, then adds c_i: the plain versions'
+// order (a chain without c adds 0, which changes no value but the sign of
+// a zero sum). Returns the lane's final x_i. Every lane of the warp takes
+// part.
+template <typename T, int G>
+__device__ __forceinline__ T lu_group_chain(const T (&row)[G], T c, int n, int iters, int gl,
+                                            T* xs) {
+  using V = typename LuVec<T>::type;
+  constexpr int kW = LuVec<T>::width;
+  T xi = xs[gl];
+  for (int t = 0; t < iters; ++t) {
+    const V* x = reinterpret_cast<const V*>(xs + (t & 1) * G);
+    T acc = T(0);
+#pragma unroll
+    for (int q = 0; q < G / kW; ++q) {
+      if (q * kW >= n) break;
+      const V v = x[q];
+#pragma unroll
+      for (int e = 0; e < kW; ++e) {
+        const int j = q * kW + e;
+        acc = j == 0 ? row[0] * lu_get(v, 0) : acc + row[j] * lu_get(v, e);
+      }
+    }
+    xi = gl < n ? acc + c : T(0);
+    xs[((t + 1) & 1) * G + gl] = xi;
+    __syncwarp(kLieMask);
+  }
+  return xi;
 }
 
 // Row gl of problem b of a full n x n operand into `row` (zero past n).
@@ -427,6 +471,16 @@ __host__ __device__ constexpr int lu_sym_refine_bytes() {
 template <typename T, int G>
 __host__ __device__ constexpr int lu_chol_bytes() {
   return (2 * G + G * (G + 1) / 2) * (int)sizeof(T);
+}
+
+template <typename T, int G>
+__host__ __device__ constexpr int lu_chain_bytes() {
+  return (G * (G + 1) / 2 + 2 * G) * (int)sizeof(T);
+}
+
+template <typename T, int G>
+__host__ __device__ constexpr int lu_chain_solve_bytes() {
+  return (G * (G + 1) + 2 * G) * (int)sizeof(T) + G * (int)sizeof(int);
 }
 
 template <typename T, int G>

@@ -2,10 +2,8 @@
 // sym_factor.cu, sym_iterate.cu, batched.cu, batched_products.cu):
 // strided operands (compact rows and full matrices) and launch helpers, the
 // compact index map, entry loads, residuals, and the partial-pivoting LU
-// in two forms (unrolled in registers for N <= 8, rolled over a
-// per-thread local array for the compact chain's 9 <= N <= 32 tier; the
-// other 9..32 tiers are lane groups, lu_groups.cuh, which mirror its
-// pivots).
+// unrolled in registers for N <= 8 (the 9..32 tiers are lane groups,
+// lu_groups.cuh, with the same pivots).
 //
 // Pivoting is first-max partial pivoting: the pivot of column k is the
 // lowest row i >= k whose |A[i][k]| is the column maximum, as in the
@@ -16,10 +14,8 @@
 
 namespace fm {
 
-// Largest order the kernels serve, and the row width of the rolled
-// chain's local array: [A | I] for the explicit inverse.
+// Largest order the kernels serve.
 constexpr int kMaxN = 32;
-constexpr int kRolledWidth = 2 * kMaxN;
 
 constexpr int kThreads = 128;
 
@@ -98,16 +94,6 @@ __device__ __forceinline__ void load_sym(const T* __restrict__ m, long long sc,
 #pragma unroll
     for (int i = 0; i < N; ++i) E[i][i] = E[i][i] + eps[i];
   }
-}
-
-// Entry (i, j) of a compact matrix plus eps on the diagonal, read from
-// device memory (rolled_load).
-template <typename T>
-__device__ __forceinline__ T sym_entry(const T* __restrict__ m, long long sc,
-                                       const T* __restrict__ eps, int i, int j, int n) {
-  T a = m[tri_index(i, j, n) * sc];
-  if (i == j && eps != nullptr) a = a + eps[i];
-  return a;
 }
 
 // r = v - A x, summed diagonal first, then the other columns in order.
@@ -220,70 +206,6 @@ __device__ __forceinline__ int plu_sign(const int (&piv)[N]) {
   for (int k = 0; k < N - 1; ++k)
     if (piv[k] != k) sign = -sign;
   return sign;
-}
-
-// Rolled LU with partial pivoting on a local array of n rows of width
-// w: A in columns [0, n), right-hand sides in [n, w). Eliminates the
-// right-hand sides with A (multipliers by division, as the reference's
-// rolled tier does), leaving U on and above the diagonal. Returns the
-// sign of the row permutation.
-template <typename T>
-__device__ int rolled_factor(T* a, int n, int w) {
-  int sign = 1;
-  for (int k = 0; k < n; ++k) {
-    int p = k;
-    T m = fm_abs(a[k * w + k]);
-    for (int i = k + 1; i < n; ++i) {
-      const T v = fm_abs(a[i * w + k]);
-      if (v > m) {
-        m = v;
-        p = i;
-      }
-    }
-    if (p != k) {
-      sign = -sign;
-      for (int j = k; j < w; ++j) {
-        const T t = a[k * w + j];
-        a[k * w + j] = a[p * w + j];
-        a[p * w + j] = t;
-      }
-    }
-    const T pv = a[k * w + k];
-    for (int i = k + 1; i < n; ++i) {
-      const T l = a[i * w + k] / pv;
-      for (int j = k + 1; j < w; ++j) a[i * w + j] = a[i * w + j] - l * a[k * w + j];
-    }
-  }
-  return sign;
-}
-
-// Back-substitution with rolled_factor's U, overwriting each
-// right-hand-side column [n, w) with its solution.
-template <typename T>
-__device__ void rolled_backsub(T* a, int n, int w) {
-  for (int c = n; c < w; ++c) {
-    for (int i = n - 1; i >= 0; --i) {
-      T s = T(0);
-      for (int j = i + 1; j < n; ++j) s = s + a[i * w + j] * a[j * w + c];
-      a[i * w + c] = (a[i * w + c] - s) / a[i * w + i];
-    }
-  }
-}
-
-// Fill a local array with [A | extra columns]: the compact matrix (plus
-// eps) in columns [0, n); the caller fills the rest.
-template <typename T>
-__device__ __forceinline__ void rolled_load(T* a, int n, int w, const T* __restrict__ m,
-                                            long long sc, const T* __restrict__ eps) {
-  for (int i = 0; i < n; ++i)
-    for (int j = 0; j < n; ++j) a[i * w + j] = sym_entry(m, sc, eps, i, j, n);
-}
-
-// Columns [c0, c0 + n) of the local array set to the identity.
-template <typename T>
-__device__ __forceinline__ void rolled_identity(T* a, int n, int w, int c0) {
-  for (int i = 0; i < n; ++i)
-    for (int j = 0; j < n; ++j) a[i * w + c0 + j] = i == j ? T(1) : T(0);
 }
 
 }  // namespace fm

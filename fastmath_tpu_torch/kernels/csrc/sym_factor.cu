@@ -22,7 +22,7 @@
 //              which the later columns need for the symmetrized upper
 //              slots 0.5 * (X_ij + X_ji);
 //   9 <= N <= 32 the lane-group LU (lu_groups.cuh), G = 16 lanes a
-//              problem to N = 16, 32 above, rolled_factor's pivots without
+//              problem to N = 16, 32 above, the plain rolled_factor's pivots without
 //              moving a row: the determinant (sym_det_groups) the signed
 //              product of the pivots, lu_group_det as batched.cu's
 //              det_groups on the compact load; the inverse

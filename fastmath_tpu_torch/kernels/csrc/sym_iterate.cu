@@ -5,9 +5,10 @@
 //   fm_sym_matvec_chain  <- _matvec_chain_kernel  (sym_matvec_chain_cf)
 //   fm_sym_maxeig        <- _maxeig_kernel        (sym_maxeig_cf)
 //
-// One thread owns one problem and keeps its matrix on chip for every
-// step: the chain computes x <- A x + c `iters` times; the power
-// iteration pre-scales A by its Gershgorin bound g = max_i sum_j |a_ij|
+// Each problem keeps its matrix on chip for every step (one thread a
+// problem; a group of lanes in the chain's 9..32 tier): the chain computes
+// x <- A x + c `iters` times; the power iteration pre-scales A by its
+// Gershgorin bound g = max_i sum_j |a_ij|
 // (1/g taken as 0 where g = 0), normalizes the start vector, runs
 // iters / r blocks of r matvecs each followed by a renormalization, then
 // the iters % r remaining matvecs, a last renormalization, one more
@@ -21,24 +22,32 @@
 // so each result moves a few ulp from the plain PyTorch version.
 //
 // Tiers: n <= 8 unrolls at compile time, the full entry grid in
-// registers; 9 <= n <= 32 walks the packed compact matrix (n(n+1)/2
-// values, 2,112 B in f32 at n = 32) and the vectors in a per-thread local
-// array, each row's slots reached by a running index (slot (j, i) for
-// j < i, then the diagonal, then slots (i, j) for j > i).
+// registers; 9 <= n <= 32: the chain runs a group of G = 16 lanes a
+// problem to n = 16, 32 above (matvec_chain_groups: row i of A in lane
+// i's registers, x in shared memory, lu_group_chain of lu_groups.cuh,
+// which the compact chain solve shares); the power iteration walks the
+// packed compact matrix (n(n+1)/2 values, 2,112 B in f32 at n = 32) and
+// the vectors in a per-thread local array, each row's slots reached by a
+// running index (slot (j, i) for j < i, then the diagonal, then slots
+// (i, j) for j > i).
 //
 // What bounds them: per problem the chain reads n(n+1)/2 + 2n values and
 // writes n, for iters * 2n^2 flops; the power iteration reads n(n+1)/2 + n
 // and writes n + 1, for about (iters + 1) * 2n^2 flops. At the bench
 // suite's shapes (4x4, iters 128 and 32) the flops weigh more than or as
 // much as the bytes, so both are compute-bound loops over registers; one
-// thread per problem keeps every step free of communication.
+// thread per problem keeps every step free of communication. Above 8, one
+// thread a problem kept its matrix in local memory and reached 1.5% of
+// the operation bound (16 x 16, iters 32); a lane of a group issues G / 4
+// (f32) broadcast vector loads, G multiply-adds, one store and one
+// __syncwarp a step.
 //
 // Every launch goes on the caller's stream, allocates nothing and does
 // not synchronize; each entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
-#include "sym_common.cuh"
+#include "lu_groups.cuh"
 
 namespace fm {
 
@@ -144,17 +153,16 @@ maxeig_unrolled(long long nb, int iters, int r, View<const T> mat, View<const T>
 }
 
 // ---------------------------------------------------------------------------
-// rolled tier: 9 <= n <= 32
+// 9 <= n <= 32: the chain's lane groups, the power iteration's rolled tier
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxNN = kMaxN * (kMaxN + 1) / 2;
 
-// y = A x (+ c where c is not null) on the packed compact matrix a, row i
-// summed left to right over j: slots (j, i) for j < i start at n + i - 1
-// and step n - 2 - j; slots (i, j) for j > i are consecutive from
-// tri_index(i, i + 1, n).
+// y = A x on the packed compact matrix a, row i summed left to right over
+// j: slots (j, i) for j < i start at n + i - 1 and step n - 2 - j; slots
+// (i, j) for j > i are consecutive from tri_index(i, i + 1, n).
 template <typename T>
-__device__ void packed_matvec(const T* a, int n, const T* x, const T* c, T* y) {
+__device__ void packed_matvec(const T* a, int n, const T* x, T* y) {
   for (int i = 0; i < n; ++i) {
     T acc = T(0);
     int k = n + i - 1;
@@ -165,7 +173,7 @@ __device__ void packed_matvec(const T* a, int n, const T* x, const T* c, T* y) {
     acc = acc + a[i] * x[i];
     k = n + i * (n - 1) - i * (i - 1) / 2;
     for (int j = i + 1; j < n; ++j) acc = acc + a[k++] * x[j];
-    y[i] = c != nullptr ? acc + c[i] : acc;
+    y[i] = acc;
   }
 }
 
@@ -177,26 +185,28 @@ __device__ void packed_renorm(T* v, int n) {
   for (int i = 0; i < n; ++i) v[i] = v[i] * s;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-matvec_chain_rolled(long long nb, int n, int iters, View<const T> mat, View<const T> vec,
-                    View<const T> add, View<T> out) {
-  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (b >= nb) return;
-  T a[kMaxNN], x[kMaxN], y[kMaxN], c[kMaxN];
-  const T* m = mat.p + b * mat.sb;
-  const int nn = n * (n + 1) / 2;
-  for (int k = 0; k < nn; ++k) a[k] = m[k * mat.sc];
-  for (int i = 0; i < n; ++i) x[i] = vec.p[b * vec.sb + i * vec.sc];
-  const bool has_add = add.p != nullptr;
-  if (has_add)
-    for (int i = 0; i < n; ++i) c[i] = add.p[b * add.sb + i * add.sc];
-  for (int t = 0; t < iters; ++t) {
-    packed_matvec(a, n, x, has_add ? c : nullptr, y);
-    for (int i = 0; i < n; ++i) x[i] = y[i];
-  }
-  T* o = out.p + b * out.sb;
-  for (int i = 0; i < n; ++i) o[i * out.sc] = x[i];
+// A group of G lanes a problem (G = 16 to n = 16, 32 above; 32 / G
+// problems a warp): lane i gathers row i of A from the compact operand
+// (lu_load_sym, zero past n), then lu_group_chain runs x <- A x + c
+// `iters` times from x = vec (c = 0 without `add`) with x in shared
+// memory; the group writes x in order. A group past the batch runs a copy of the last problem and
+// stores nothing.
+template <typename T, int G>
+__global__ void matvec_chain_groups(long long nb, int n, int iters, View<const T> mat,
+                                    View<const T> vec, View<const T> add, View<T> out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % kLieWarp, gl = lane % G;
+  const long long b = blockIdx.x * (long long)(blockDim.x / G) + threadIdx.x / G;
+  const long long bb = b < nb ? b : nb - 1;
+  T* stage = reinterpret_cast<T*>(smem_raw + (threadIdx.x / G) * lu_chain_bytes<T, G>());
+  T* xs = stage + G * (G + 1) / 2;
+  T row[G];
+  lu_load_sym<T, G>(mat, bb, n, gl, stage, row);
+  xs[gl] = gl < n ? vec.p[bb * vec.sb + gl * vec.sc] : T(0);
+  __syncwarp(kLieMask);
+  const T c = add.p != nullptr && gl < n ? add.p[bb * add.sb + gl * add.sc] : T(0);
+  const T xi = lu_group_chain<T, G>(row, c, n, iters, gl, xs);
+  if (b < nb && gl < n) out.p[b * out.sb + gl * out.sc] = xi;
 }
 
 template <typename T>
@@ -230,17 +240,17 @@ maxeig_rolled(long long nb, int n, int iters, int r, View<const T> mat, View<con
   const int blocks = iters / r, rem = iters % r;
   for (int o = 0; o < blocks; ++o) {
     for (int s = 0; s < r; ++s) {
-      packed_matvec<T>(a, n, v, nullptr, w);
+      packed_matvec<T>(a, n, v, w);
       for (int i = 0; i < n; ++i) v[i] = w[i];
     }
     packed_renorm(v, n);
   }
   for (int s = 0; s < rem; ++s) {
-    packed_matvec<T>(a, n, v, nullptr, w);
+    packed_matvec<T>(a, n, v, w);
     for (int i = 0; i < n; ++i) v[i] = w[i];
   }
   packed_renorm(v, n);
-  packed_matvec<T>(a, n, v, nullptr, w);
+  packed_matvec<T>(a, n, v, w);
   T mu = v[0] * w[0];
   for (int i = 1; i < n; ++i) mu = mu + v[i] * w[i];
   T* o = out.p + b * out.sb;
@@ -266,7 +276,12 @@ cudaError_t launch_matvec_chain(int n, int iters, long long nb, View<const T> ma
 #undef FM_CHAIN_CASE
     default:
       if (n < 1 || n > kMaxN) return cudaErrorInvalidValue;
-      matvec_chain_rolled<T><<<g, kThreads, 0, s>>>(nb, n, iters, mat, vec, add, out);
+      if (lie_group(n) == 16)
+        lu_launch<16>(matvec_chain_groups<T, 16>, lu_chain_bytes<T, 16>(), nb, s, n, iters,
+                      mat, vec, add, out);
+      else
+        lu_launch<kLieWarp>(matvec_chain_groups<T, kLieWarp>, lu_chain_bytes<T, kLieWarp>(),
+                            nb, s, n, iters, mat, vec, add, out);
   }
   return cudaGetLastError();
 }

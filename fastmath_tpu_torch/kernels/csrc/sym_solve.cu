@@ -21,14 +21,15 @@
 //   9 <= N <= 32 the solve: the lane-group LU (lu_groups.cuh,
 //              sym_solve_groups): G = 16 lanes a problem to N = 16, 32
 //              above, row i of A + diag(eps) in lane i's registers,
-//              rolled_factor's pivots on [A | v] without moving a row,
-//              each lane carrying its row's entry of v through the factor,
-//              then one lane's back-substitution; a refined solve also
-//              forms the explicit inverse (lane c solves for column c) and
-//              applies it to the residual, which lane i sums for row i.
-//              The chain: rolled LU over a per-thread local array [A | I]
-//              (rolled_factor, sym_common.cuh), then the explicit inverse
-//              applied `iters` times.
+//              the plain rolled_solve's pivots on [A | v]
+//              (kernels/_launch.py) without moving a row, each lane
+//              carrying its row's entry of v through the factor, then one
+//              lane's back-substitution; a refined solve also forms the
+//              explicit inverse (lane c solves for column c) and applies
+//              it to the residual, which lane i sums for row i. The chain
+//              (chain_groups) forms the same explicit inverse, moves row i
+//              to lane i and runs lu_group_chain: x in shared memory, each
+//              step's x read as broadcast vectors.
 //
 // What bounds them on the card: the single solve at N <= 4 moves
 // (NN + 2N) values per problem for ~250 flops, so it is bound by device
@@ -37,12 +38,12 @@
 // runs `iters` solves on it, so it is bound by fp32/fp64 arithmetic; the
 // loop-invariant part (cofactors and 1/det, packed LU with pivots and
 // 1/U_ii, or the explicit inverse) is computed once before the loop.
-// The solve's 9..32 tier was one thread a problem over a local array of up
-// to 32 x 65 values, every step read and written through L1 and L2, at 2%
-// of its byte bound; the lane groups keep a row a lane in registers and
-// read U as broadcast vectors from shared memory, so instruction issue
-// bounds them (each step's reductions, division and broadcast reads). The
-// chain's local array (up to 32 x 64 values) still spills to local memory.
+// The 9..32 tiers were one thread a problem over a local array of up to
+// 32 x 65 values, every step read and written through L1 and L2, at 1.4-2%
+// of their bounds; the lane groups keep a row a lane in registers and read
+// U and x as broadcast vectors from shared memory, so instruction issue
+// bounds them (each LU step's reductions, division and broadcast reads;
+// each chain step's vector loads, multiply-adds and barrier).
 //
 // Every launch goes on the caller's stream, allocates nothing and does
 // not synchronize; each entry point returns cudaGetLastError().
@@ -111,8 +112,8 @@ solve_unrolled(long long nb, View<const T> mat, View<const T> vec, View<T> out,
 }
 
 // A group of G lanes a problem (lu_groups.cuh): row i of A + diag(eps) in
-// lane i (lu_load_sym, then eps on the diagonal, as rolled_load's
-// sym_entry), the lane-group LU with every pivot row kept in U, each lane
+// lane i (lu_load_sym, then eps on the diagonal, as the plain version's
+// _dense), the lane-group LU with every pivot row kept in U, each lane
 // carrying its row's entry of v through the factor, then the group's first
 // lane back-substitutes (solve1_groups' scheme on compact input); the
 // group writes x in order. The staged operand is over before step 0 stores
@@ -247,35 +248,51 @@ chain_unrolled(long long nb, View<const T> mat, View<const T> vec, View<const T>
   for (int i = 0; i < N; ++i) out.p[b * out.sb + i * out.sc] = x[i];
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-chain_rolled(long long nb, int n, View<const T> mat, View<const T> vec, View<const T> add,
-             View<T> out, const T* __restrict__ eps, int iters) {
-  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (b >= nb) return;
-  const T* m = mat.p + b * mat.sb;
-  // [A | I] -> explicit inverse in columns [n, 2n)
-  const int w = 2 * n;
-  T a[kMaxN * kRolledWidth];
-  T x[kMaxN], c[kMaxN], y[kMaxN];
-  rolled_load(a, n, w, m, mat.sc, eps);
-  rolled_identity(a, n, w, n);
-  rolled_factor(a, n, w);
-  rolled_backsub(a, n, w);
-  for (int j = 0; j < n; ++j) {
-    x[j] = vec.p[b * vec.sb + j * vec.sc];
-    c[j] = add.p != nullptr ? add.p[b * add.sb + j * add.sc] : T(0);
+// A group of G lanes a problem (G = 16 to N = 16, 32 above): the explicit
+// inverse X of A + diag(eps) as sym_solve_groups<T, G, true> forms it
+// (lu_load_sym with eps on the diagonal, lu_group_factor with every pivot
+// row kept in U, lane c solving for column c against the identity with
+// lu_group_solve), which is the plain version's rolled_solve(A, I); X goes
+// through shared memory (row stride G + 1) so that lane i holds row i,
+// then lu_group_chain runs x <- X x + c `iters` times from x = vec. The
+// staged operand is over before step 0 stores its pivot row, so U takes
+// its place, and X U's. A group past the batch runs a copy of the last
+// problem and stores nothing.
+template <typename T, int G>
+__global__ void chain_groups(long long nb, int n, View<const T> mat, View<const T> vec,
+                             View<const T> add, View<T> out, const T* __restrict__ eps,
+                             int iters) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kX = G + 1;
+  const int lane = threadIdx.x % kLieWarp, gl = lane % G;
+  const long long b = blockIdx.x * (long long)(blockDim.x / G) + threadIdx.x / G;
+  const long long bb = b < nb ? b : nb - 1;
+  T* u = reinterpret_cast<T*>(smem_raw + (threadIdx.x / G) * lu_chain_solve_bytes<T, G>());
+  T* xs = u + G * kX;
+  int* perm = reinterpret_cast<int*>(xs + 2 * G);
+  T row[G];
+  lu_load_sym<T, G>(mat, bb, n, gl, u, row);
+  if (eps != nullptr && gl < n) {
+    const T e = eps[gl];
+#pragma unroll
+    for (int c = 0; c < G; ++c)
+      if (c == gl) row[c] = row[c] + e;
   }
-  for (int t = 0; t < iters; ++t) {
-    for (int i = 0; i < n; ++i) {
-      const T* inv_row = a + i * w + n;
-      T acc = inv_row[0] * x[0];
-      for (int j = 1; j < n; ++j) acc = acc + inv_row[j] * x[j];
-      y[i] = acc;
-    }
-    for (int i = 0; i < n; ++i) x[i] = y[i] + c[i];
-  }
-  for (int i = 0; i < n; ++i) out.p[b * out.sb + i * out.sc] = x[i];
+  __syncwarp(kLieMask);  // every row is gathered: U may take its place
+  lu_group_factor<T, G, true>(row, n, lane, u, perm);
+  T xc[G];
+  lu_group_solve<T, G>(u, perm, n, [gl](int r) { return r == gl ? T(1) : T(0); }, xc);
+  __syncwarp(kLieMask);  // U is read: X takes its place
+#pragma unroll
+  for (int i = 0; i < G; ++i)
+    if (i < n) u[i * kX + gl] = xc[i];
+  xs[gl] = gl < n ? vec.p[bb * vec.sb + gl * vec.sc] : T(0);
+  const T c = add.p != nullptr && gl < n ? add.p[bb * add.sb + gl * add.sc] : T(0);
+  __syncwarp(kLieMask);
+#pragma unroll
+  for (int j = 0; j < G; ++j) row[j] = gl < n && j < n ? u[gl * kX + j] : T(0);
+  const T xi = lu_group_chain<T, G>(row, c, n, iters, gl, xs);
+  if (b < nb && gl < n) out.p[b * out.sb + gl * out.sc] = xi;
 }
 
 // ---------------------------------------------------------------------------
@@ -324,7 +341,12 @@ cudaError_t launch_chain(int n, long long nb, View<const T> mat, View<const T> v
 #undef FM_CHAIN_CASE
     default:
       if (n < 1 || n > kMaxN) return cudaErrorInvalidValue;
-      chain_rolled<T><<<g, kThreads, 0, s>>>(nb, n, mat, vec, add, out, eps, iters);
+      if (lie_group(n) == 16)
+        lu_launch<16>(chain_groups<T, 16>, lu_chain_solve_bytes<T, 16>(), nb, s, n, mat, vec,
+                      add, out, eps, iters);
+      else
+        lu_launch<kLieWarp>(chain_groups<T, kLieWarp>, lu_chain_solve_bytes<T, kLieWarp>(), nb,
+                            s, n, mat, vec, add, out, eps, iters);
   }
   return cudaGetLastError();
 }

@@ -5,8 +5,8 @@ PyTorch versions and autograd.
 ``sym_solve_chain_cf`` replaces ``_solve_chain_kernel``
 (``fastmath_tpu/kernels/sym_pallas.py``). Both kernels live in
 ``csrc/sym_solve.cu``; one thread owns one problem, and a group of 16 or
-32 lanes one problem in the solve's 9 <= N <= 32 tier
-(``sym_solve_groups``). The single solve at N <= 4 is bound by device
+32 lanes one problem in the 9 <= N <= 32 tiers (``sym_solve_groups``,
+``chain_groups``). The single solve at N <= 4 is bound by device
 memory (it moves ``NN + 2N`` values for a few hundred flops): it reads
 each operand once and keeps the cofactors and the refinement step in
 registers. The chain is bound by arithmetic (``iters`` solves per matrix

@@ -35,6 +35,14 @@ nor ``fastmath_tpu``:
   and 40 at n = 9 and k = 33 at n = 32, reading A as stored and
   transposed, batch-major and channel-first, against the plain version
   and float64 numpy.
+- Chains: the compact chain solve forms its inverse with the same LU
+  (``chain_groups``), then shares its step with the matvec chain
+  (``lu_group_chain``): on the tie matrices it must match the plain
+  version within ``TOL``, normwise over the terms (||x|| + ||c||), at 2
+  steps (the plain version alone sits at up to 3.4e-6 from float64 there
+  in float32); beside a singular or NaN problem, every other problem of
+  both chains keeps the bits it has alone, and the poisoned compact chain
+  comes back not finite.
 """
 import numpy as np
 import pytest
@@ -42,7 +50,8 @@ import torch
 
 from fastmath_tpu_torch.kernels import (batched_cuda, chol_cf, det_cf, inv_cf, logdet_cf,
                                         solve_full_cf, sym_cuda, sym_det_cf, sym_factor,
-                                        sym_invert_cf, sym_solve_cf)
+                                        sym_invert_cf, sym_iterate, sym_matvec_chain_cf,
+                                        sym_solve_chain_cf, sym_solve_cf)
 from fastmath_tpu_torch.layouts import full_to_sym
 
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -349,3 +358,67 @@ def test_solve_any_width(n, k, dtype, rng):
     err = ((x.t().double().cpu() - batched_cuda.solve_full_plain(a, r, k).double().cpu())
            .norm(dim=1) / batched_cuda.solve_full_plain(a, r, k).double().cpu().norm(dim=1))
     assert err.max().item() <= TOL[dtype]
+
+
+def _over_terms(got, want, add):
+    """max over problems of ||got - want|| / (||want|| + ||add||)."""
+    got, want, add = (t.double().cpu() for t in (got, want, add))
+    return ((got - want).norm(dim=1) / (want.norm(dim=1) + add.norm(dim=1))).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["batch_major", "channel_first"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", NS)
+def test_chain_ties_match_plain(n, dtype, layout, rng):
+    cf = layout == "channel_first"
+    sfull = _ties_symmetric(rng, n)
+    s = full_to_sym(torch.tensor(sfull, dtype=dtype, device="cuda")).contiguous()
+    b = s.shape[0]
+    v, c = (torch.tensor(rng.standard_normal((b, n)), dtype=dtype, device="cuda")
+            for _ in range(2))
+    ok = torch.from_numpy(np.linalg.cond(sfull + EPS * np.eye(n)) <= 100).to("cuda")
+    eps = sym_cuda._prep_eps(EPS, n)
+    for e, rows in ((None, slice(None)), (eps, ok)):
+        sm, vm, cm = s[rows].contiguous(), v[rows].contiguous(), c[rows].contiguous()
+        before = sym_solve_chain_cf.launches
+        got = sym_cuda.launch_chain(_cf(sm) if cf else sm, _cf(vm) if cf else vm,
+                                    _cf(cm) if cf else cm, e, 2, cf_out=cf)
+        assert sym_solve_chain_cf.launches == before + 1
+        assert _over_terms(got, sym_cuda.chain_plain(sm, vm, cm, e, 2), cm) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", NS)
+def test_chain_neighbours_keep_their_bits(n, dtype, rng):
+    b = 33
+    full = _poisoned(rng, b, n)
+    s = full_to_sym(torch.tensor(0.5 * (full + full.transpose(0, 2, 1)), dtype=dtype,
+                                 device="cuda")).contiguous()
+    v, c = (torch.tensor(rng.standard_normal((b, n)), dtype=dtype, device="cuda")
+            for _ in range(2))
+    eps = sym_cuda._prep_eps(EPS, n)
+    # the matvec chain on contractions: A / (2 n) keeps each step's terms O(1)
+    sm = s / (2 * n)
+    before = (sym_solve_chain_cf.launches, sym_matvec_chain_cf.launches)
+    for cf in (False, True):
+        s_in, sm_in, v_in, c_in = (_cf(t) for t in (s, sm, v, c)) if cf else (s, sm, v, c)
+        outs = (sym_cuda.launch_chain(s_in, v_in, c_in, None, 3, cf_out=cf),
+                sym_cuda.launch_chain(s_in, v_in, c_in, eps, 3, cf_out=cf),
+                sym_iterate.launch_matvec_chain(sm_in, v_in, c_in, 5, cf_out=cf))
+        for t in range(0, b, 2):
+            one = slice(t, t + 1)
+            alone = (sym_cuda.launch_chain(s[one], v[one], c[one], None, 3),
+                     sym_cuda.launch_chain(s[one], v[one], c[one], eps, 3),
+                     sym_iterate.launch_matvec_chain(sm[one], v[one], c[one], 5))
+            for got, want in zip(outs, alone):
+                assert torch.isfinite(want).all()
+                assert torch.equal(_bits(got[one]), _bits(want)), (t, cf)
+        # a zero row and column pivots on 0, a NaN spreads: never a finite answer
+        for t in range(1, b, 2):
+            assert not torch.isfinite(outs[0][t]).all(), t
+        assert torch.isnan(outs[2][3::4]).any(dim=1).all()
+    alone_runs = 2 * len(range(0, b, 2))  # both layouts
+    assert sym_solve_chain_cf.launches - before[0] == 2 * (2 + alone_runs)
+    assert sym_matvec_chain_cf.launches - before[1] == 2 + alone_runs

@@ -139,6 +139,24 @@ def test_matvec_chain_cf_matches_pallas(rng):
         _close(np.moveaxis(_np(got), 0, -1), np.moveaxis(want, 0, -1))
 
 
+@pytest.mark.parametrize("n", [16, 32])
+def test_matvec_chain_cf_lane_group_sizes_match_pallas(n, rng):
+    """The lane-group chain's two group sizes (16 lanes to n = 16, 32
+    above): 3 steps on a batch of 8 against the interpreted Pallas kernel
+    and the float64 numpy recurrence."""
+    full = _contraction(rng, (8,), n)
+    mat = _compact(full).T
+    vec, add = rng.standard_normal((n, 8)), rng.standard_normal((n, 8))
+    want = np.asarray(pallas_chain_cf(jnp.asarray(mat), jnp.asarray(vec), 3,
+                                      add=jnp.asarray(add), block=BLOCK))
+    got = _np(K.sym_matvec_chain_cf(_t(mat), _t(vec), 3, add=_t(add)))
+    x = vec.T
+    for _ in range(3):
+        x = np.einsum("bij,bj->bi", full, x) + add.T
+    _close(got.T, want.T)
+    _close(got.T, x)
+
+
 @pytest.mark.parametrize("n", [3, 9])
 def test_matvec_chain_grad_matches_jax(n, rng):
     mat = _compact(_contraction(rng, (6,), n))

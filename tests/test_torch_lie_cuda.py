@@ -112,6 +112,24 @@ def test_logm_matches_plain(d, dtype, rng):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [17, 20, 24])
+def test_logm_mixed_step_counts_match_plain(d, dtype, rng):
+    """17 <= d <= 24 (a group of 32 lanes on a padded problem): the bench
+    input at scales 0.1 to 2 in turn, so that neighbouring problems take
+    different numbers of square roots and Denman-Beavers steps through the
+    kernel's one loop of phases, each against the plain version."""
+    x = gauss(rng, B, d) * np.resize([0.1, 0.5, 1.0, 2.0], B)[:, None, None]
+    a = KE.expm_plain(torch.tensor(x, device="cuda")).to(dtype)
+    iss, db = KL.iteration_counts(a[:64])
+    assert iss.unique().numel() > 1 and db.unique().numel() > 1
+    got = KL.launch_logm(a)
+    want = KL.logm_plain(a)
+    assert torch.isfinite(want).all() and torch.isfinite(got).all()
+    assert normwise(got, want) <= TOL_LOGM[dtype]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [3, 4, 9, 16, 5, 8, 17, 32])
 def test_strided_and_broadcast_batches(d, rng):
     """A strided batch (every other matrix), a transposed view and a

@@ -119,6 +119,22 @@ def test_chain_cf_matches_pallas(n, rng):
     np.testing.assert_allclose(got, exact, rtol=1e-8, atol=1e-10)
 
 
+def test_chain_cf_lane_group_tier_matches_pallas(rng):
+    """N = 16, the lane-group chain's widest group of 16 lanes: 3 steps on
+    a batch of 8 against the interpreted Pallas kernel's rolled tier and
+    the float64 numpy recurrence."""
+    n = 16
+    full = _spd(rng, 8, n)
+    mat = _cf(_compact(full))
+    vec, add = _cf(rng.standard_normal((8, n))), _cf(rng.standard_normal((8, n)))
+    want = np.asarray(pallas_chain_cf(jnp.asarray(mat), jnp.asarray(vec), iters=3,
+                                      add=jnp.asarray(add), block=BLOCK, interpret=True))
+    got = sym_solve_chain_cf(_t(mat), _t(vec), iters=3, add=_t(add)).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-12)
+    exact = _oracle_chain(full, vec.T, add.T, 3).T
+    np.testing.assert_allclose(got, exact, rtol=1e-8, atol=1e-10)
+
+
 @pytest.mark.parametrize("n", [5, 6, 8])
 def test_pivoting_tier_indefinite(n, rng):
     """Indefinite matrices pivot at later steps too. The solve matches the
