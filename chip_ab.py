@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one source tree's full-storage solve, Cholesky, inverse, compact
-solve, product, matrix logarithm, rolled eig and chain kernels on one NVIDIA GPU,
-to compare two versions of a kernel in one call.
+solve, product, matrix logarithm, rolled eig, chain and power-iteration
+kernels on one NVIDIA GPU, to compare two versions of a kernel in one call.
 
     python3 /path/to/chip_ab.py TAG [--library] [--only GROUP[,GROUP...]]
 
@@ -12,26 +12,33 @@ groups it times, times each kernel three times with
 ``chip_smoke.device_ms`` at the bench suite's shapes, holds each result
 against its plain version, and prints one JSON line: ``tag``, each
 shape's three times and error, and the registers and spills (``-Xptxas
--v``) of every kernel of those sources but the unrolled tiers. The groups
-(all by default): ``solve`` (``csrc/batched.cu``: the solve 16x16 on
-500k, 24x24 on 200k, 32x32 on 100k with one column and 16x16 with 16;
-the inverse 16x16 and 32x32), ``chol`` (16x16, 24x24, 32x32), ``sym_solve``
-(``csrc/sym_solve.cu``: N = 16 on 262,144, also with ``refine=1``, N = 24
-on 131,072, N = 32 on 65,536), ``matmul`` (``csrc/batched_products.cu``:
-4x4 on 1M, 16x16 on 500k, 32x32 on 100k), ``logm`` (``csrc/logm.cu``:
-``logm_warp`` at every ``chip_smoke.LIE_SHAPES`` d and 17x17, 20x20 and
-21x21 on 15,625, on
-expm of the bench input, and 32x32 holding those 17x17 problems padded
-with the identity; normwise error) and ``eig`` (``csrc/eig.cu``: ``eig_rolled`` at
-12, 16 on 200k and 24, 32 on 100k, values and vectors, the largest
-eigenvalue difference) and ``chain`` (``csrc/sym_iterate.cu`` and
-``csrc/sym_solve.cu``: the matvec chain k = 32 at n = 9, 12, 16, 17, 24,
-32 and the compact chain solve k = 128 at N = 9, 16, 24, 32, on the bytes
-of 16x16 on 1M and of N = 16 on 262,144; normwise over the terms, as
-``chip_smoke.py``). ``--library`` also times ``torch.linalg.solve_ex``
-/ ``cholesky_ex`` (the compact solve's on the densified batch),
-``torch.matmul`` and ``eigvalsh`` / ``eigh`` on the same inputs. It imports
-neither JAX nor ``fastmath_tpu``.
+-v``) of every kernel of those sources but the unrolled tiers (except
+``logm_unrolled``). The groups (all by default): ``solve``
+(``csrc/batched.cu``: the solve 16x16 on 500k, 24x24 on 200k, 32x32 on
+100k with one column and 16x16 with 16; the inverse 16x16 and 32x32),
+``chol`` (16x16, 24x24, 32x32), ``sym_solve`` (``csrc/sym_solve.cu``: N =
+16 on 262,144, also with ``refine=1``, N = 24 on 131,072, N = 32 on
+65,536), ``matmul`` (``csrc/batched_products.cu``: 4x4 on 1M, 16x16 on
+500k, 32x32 on 100k), ``logm`` (``csrc/logm.cu``: ``logm_warp`` at every
+``chip_smoke.LIE_SHAPES`` d and 17x17, 20x20 and 21x21 on 15,625, on expm
+of the bench input, and 32x32 holding those 17x17 problems padded with
+the identity; normwise error), ``logm4`` (``logm_unrolled``: 4x4 on 1M,
+``chip_smoke.py``'s input, then the same problems sorted by their
+iteration counts and a batch of one problem a warp, each with its mean
+square roots and Denman-Beavers steps; and ``expm_unrolled`` on the
+input, which shares the tier's product), ``eig`` (``csrc/eig.cu``:
+``eig_rolled`` at 12, 16 on 200k and 24, 32 on 100k, values and vectors,
+the largest eigenvalue difference), ``chain`` (``csrc/sym_iterate.cu``
+and ``csrc/sym_solve.cu``: the matvec chain k = 32 at n = 9, 12, 16, 17,
+24, 32 and the compact chain solve k = 128 at N = 9, 16, 24, 32, on the
+bytes of 16x16 on 1M and of N = 16 on 262,144; normwise over the terms,
+as ``chip_smoke.py``) and ``maxeig`` (``csrc/sym_iterate.cu``: the power
+iteration, iters 32, r 8, at n = 9, 12, 16, 17, 24, 32 on the bytes of
+16x16 on 1M, ``chip_smoke.maxeig_input``; mu over the Gershgorin bound,
+v normwise). ``--library`` also times ``torch.linalg.solve_ex`` /
+``cholesky_ex`` (the compact solve's on the densified batch),
+``torch.matmul`` and ``eigvalsh`` / ``eigh`` on the same inputs. It
+imports neither JAX nor ``fastmath_tpu``.
 """
 import json
 import pathlib
@@ -53,18 +60,18 @@ def main():
     from fastmath_tpu_torch.kernels import logm as KL
     from fastmath_tpu_torch.kernels import sym_cuda as SC
     from fastmath_tpu_torch.kernels import sym_iterate as SI
-    from fastmath_tpu_torch.layouts import full_to_sym
+    from fastmath_tpu_torch.layouts import full_to_sym, sym_to_full
 
     tag, library = sys.argv[1], "--library" in sys.argv[2:]
-    groups = {"solve", "chol", "sym_solve", "matmul", "logm", "eig", "chain"}
+    groups = {"solve", "chol", "sym_solve", "matmul", "logm", "logm4", "eig", "chain", "maxeig"}
     if "--only" in sys.argv:
         groups = set(sys.argv[sys.argv.index("--only") + 1].split(","))
     sources = {"solve": "batched", "chol": "batched", "sym_solve": "sym_solve",
-               "matmul": "batched_products", "logm": "logm", "eig": "eig",
-               "chain": ("sym_iterate", "sym_solve")}
+               "matmul": "batched_products", "logm": "logm", "logm4": "logm", "eig": "eig",
+               "chain": ("sym_iterate", "sym_solve"), "maxeig": "sym_iterate"}
     libs = sorted({lib for g in groups for lib in
                    ((sources[g],) if isinstance(sources[g], str) else sources[g])})
-    _build.build_all(libs + (["expm"] if "logm" in groups else []))
+    _build.build_all(libs + (["expm"] if groups & {"logm", "logm4"} else []))
     res = {"tag": tag}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -148,7 +155,44 @@ def main():
         timed(f"sym_chain N={n} k=128 on {b}", lambda: SC.launch_chain(m, v, c, None, 128),
               lambda: SC.chain_plain(m, v, c, None, 128), None, chain_err(c))
         del m, v, c
+    for n in (9, 12, 16, 17, 24, 32):
+        if "maxeig" not in groups:
+            break
+        b = 1_000_000 * 136 // (n * (n + 1) // 2)  # the bytes of 16 x 16 on 1M
+        m, v = C.maxeig_input(torch, gen, n, b)
+        gersh = sym_to_full(m).abs().sum(dim=-1).amax(dim=-1)
+
+        def maxeig_err(got, want):  # mu over the Gershgorin bound, v normwise
+            return max(((got[:, 0] - want[:, 0]).abs() / gersh).max().item(),
+                       ((got[:, 1:] - want[:, 1:]).norm(dim=1)
+                        / want[:, 1:].norm(dim=1)).max().item())
+
+        timed(f"maxeig {n}x{n} iters=32 r=8 on {b}", lambda: SI.launch_maxeig(m, v, 32, 8),
+              lambda: SI.maxeig_plain(m, v, 32, 8), None, maxeig_err)
+        del m, v, gersh
     logm_err = lambda got, want: C.lie_normwise(torch, got, want).max().item()  # noqa: E731
+    if "logm4" in groups:
+        # chip_smoke.py's 4x4 input, then the same problems sorted by their
+        # (square roots, Denman-Beavers steps), so that neighbours take equal
+        # steps, and a batch whose every 32 consecutive problems are one
+        # problem (each warp's lanes in step); each with its mean counts
+        x = torch.randn(1_000_000, 4, 4, generator=gen, device="cuda") * 0.5
+        timed("expm 4x4 on 1000000", lambda: KE.launch_expm(x), lambda: KE.expm_plain(x), None,
+              logm_err)  # expm_unrolled shares logm_unrolled's product
+        e = KE.launch_expm(x)
+        del x
+        iss, db = KL.iteration_counts(e)
+        order = torch.argsort(iss.long() * 4096 + db.long())
+        one = torch.arange(0, 1_000_000, 32, device="cuda").repeat_interleave(32)
+        for key, idx in (("logm 4x4 on 1000000", None), ("logm 4x4 sorted by counts", order),
+                         ("logm 4x4 one problem a warp", one)):
+            a = e if idx is None else e[idx].contiguous()
+            timed(key, lambda: KL.launch_logm(a), lambda: KL.logm_plain(a), None, logm_err)
+            sel = slice(None) if idx is None else idx
+            res[f"{key} counts"] = [iss[sel].double().mean().item(),
+                                    db[sel].double().mean().item()]
+            del a
+        del e, iss, db, order, one
     for d, b in C.LIE_SHAPES:
         if "logm" not in groups:
             break
@@ -188,7 +232,7 @@ def main():
         del a
     res["ptxas"] = [row for lib in libs
                     for row in C.ptxas_summary(_build.build_log(lib).read_text())
-                    if "unrolled" not in row]
+                    if "unrolled" not in row or row.startswith("logm_unrolled")]
     print(json.dumps(res), flush=True)
     return 0
 

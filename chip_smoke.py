@@ -21,7 +21,8 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    log-determinant, Cholesky, compact determinant and compact inverse
    (also at n = 12, 17 and 24, the edges of the lane-group tiers);
    the matvec chain (iters 0, 1, 7, with and without ``add``), the power
-   iteration (iters 0, 5, 32; ``renorm_every`` 1, 8, 16), the full matvec
+   iteration (iters 0, 5, 32; ``renorm_every`` 1, 8, 16; both also at n =
+   12, 17 and 24), the full matvec
    (also reading A transposed) and the product (every pair of transposed
    reads, m, k, n up to 32, the edges of its tiers and tiles); the Jacobi eigendecomposition (both tiers,
    n = 4..32, values and vectors: sorted eigenvalues, U diag(w) Uᵀ and
@@ -91,7 +92,8 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    1M x 4 x 4 through the matvec kernel; launch counts, per-call, host and
    device times, each kernel alone against its bound, its plain version
    and ``torch.matmul`` (the product at each of its shapes, with the tier
-   it takes); then the routing sweeps: the matvec and the product kernels
+   it takes; the power iteration also at 16 x 16 on 1M and 32 x 32 on
+   262,144, its lane groups); then the routing sweeps: the matvec and the product kernels
    against ``torch.matmul`` from n = 4 to 32, with the product's tier;
 9. ``eig_sym`` and ``sugar.lmdiv`` at the bench suite's shapes (float32,
    a a^T + n I): ``eig_sym`` 2x2 and 3x3 (closed forms) and 4x4 on 1M,
@@ -640,7 +642,7 @@ def phase_iterate_vs_plain(torch, rng):
     layouts = (("bm", lambda t: t), ("cf", lambda t: t.t().contiguous().t()))
     for dt_name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
         tol_p, tol_o = TOL_PLAIN[dt_name], TOL_ORACLE[dt_name]
-        for n in (1, 2, 3, 4, 5, 8, 9, 16, 32):
+        for n in (1, 2, 3, 4, 5, 8, 9, 12, 16, 17, 24, 32):
             mat, vec, add = (torch.tensor(a, dtype=dtype, device=DEV) for a in (
                 compact(contraction(rng, B_CHECK, n)), rng.standard_normal((B_CHECK, n)),
                 rng.standard_normal((B_CHECK, n))))
@@ -1722,10 +1724,10 @@ def phase_factor(torch, rng, mat4):
 # batchmatmul 16 x 16 on 500k (:478-496) and 4 x 4 on 1M
 CHAIN_SHAPES = ((4, 128, 1_000_000), (16, 32, 1_000_000))
 # timed beside the path: the chain's group of 32 lanes, the power
-# iteration's rolled tier
+# iteration's groups of 16 and 32 lanes
 CHAIN_WIDE = (32, 32, 262_144)
 MAXEIG_SHAPES = ((4, 1_000_000), (8, 1_000_000))
-MAXEIG_ROLLED = (16, 1_000_000)
+MAXEIG_GROUPS = ((16, 1_000_000), (32, 262_144))
 MAXEIG_ITERS, MAXEIG_RENORM = 32, 8
 MATMUL_SHAPES = ((16, 500_000), (4, 1_000_000), (32, 100_000))
 # batch of each size in the routing sweeps: 256 MB or less per operand
@@ -1948,10 +1950,9 @@ def phase_iterate(torch, rng):
             "bound_by": b_by, "library_ms": lib_ms})
     # the other shapes of the path, and the lane-group chain's widest group
     # (n = 32 on about the bytes of 16 x 16 on 1M) and the power
-    # iteration's rolled tier (16 x 16), kernel alone beside its plain
-    # version, for the kernels' rows
+    # iteration's groups (16 x 16 on 1M, 32 x 32 on 262,144), kernel alone
+    # beside its plain version, for the kernels' rows
     chain_in[32] = chain_input(torch, gen, *CHAIN_WIDE)
-    eig_in[16], eig_start[16] = maxeig_input(torch, gen, *MAXEIG_ROLLED)
     chain_rows, maxeig_rows = [], []
     for n in (16, 32):
         k, mat, vec, add = chain_in[n]
@@ -1972,8 +1973,22 @@ def phase_iterate(torch, rng):
         log(f"  sym_matvec_chain_cf {n}x{n} k={k} on {b} kernel: {t:.4f} ms (bound {b_ms:.4f} "
             f"ms by {b_by}, {b_ms / t * 100:.1f}% of it), plain {t_plain:.4f} ms, vs plain "
             f"{rel:.3e}")
-    for n in (8, 16):
+    del chain_in
+    for n, b in ((8, None),) + MAXEIG_GROUPS:
+        if b is not None:
+            eig_in[n], eig_start[n] = maxeig_input(torch, gen, n, b)
         b = eig_in[n].shape[0]
+        fn = (f"maxeig_unrolled<float, {n}>" if n <= 8
+              else f"maxeig_groups<float, {16 if n <= 16 else 32}>")
+        m, v = eig_in[n][:4096], eig_start[n][:4096]
+        want = SI.maxeig_plain(m, v, MAXEIG_ITERS, MAXEIG_RENORM)
+        d = SI.launch_maxeig(m, v, MAXEIG_ITERS, MAXEIG_RENORM) - want
+        gersh = sym_to_full(m).abs().sum(dim=-1).amax(dim=-1)
+        rel = max((d[:, 0].abs() / gersh).max().item(),
+                  (d[:, 1:].norm(dim=-1) / want[:, 1:].norm(dim=-1)).max().item())
+        if not rel <= TOL_PLAIN["float32"]:
+            fail(f"sym_maxeig_cf {n}x{n} ({fn}): kernel vs plain {rel:.3e}")
+        del m, v, d, want, gersh
         t = kernel_ms(torch, lambda: SI.launch_maxeig(eig_in[n], eig_start[n], MAXEIG_ITERS,
                                                       MAXEIG_RENORM), f"maxeig {n}")
         t_plain = call_ms(torch, lambda: SI.maxeig_plain(eig_in[n], eig_start[n], MAXEIG_ITERS,
@@ -1981,10 +1996,12 @@ def phase_iterate(torch, rng):
         nn = n * (n + 1) // 2
         b_ms, b_by = bound(b * (nn + 2 * n + 1) * 4,
                            b * ops_maxeig(n, MAXEIG_ITERS, MAXEIG_RENORM), "float32")
-        maxeig_rows.append(shape_row(f"{n}x{n}, iters = {MAXEIG_ITERS} on {b}", t, t_plain,
-                                     b_ms, b_by, None))
-        log(f"  sym_maxeig_cf {n}x{n} on {b} kernel: {t:.4f} ms (bound {b_ms:.4f} ms by "
-            f"{b_by}, {b_ms / t * 100:.1f}% of it), plain {t_plain:.4f} ms")
+        maxeig_rows.append(shape_row(f"{n}x{n}, iters = {MAXEIG_ITERS} on {b} ({fn})", t,
+                                     t_plain, b_ms, b_by, None))
+        log(f"  sym_maxeig_cf {n}x{n} on {b} kernel ({fn}): {t:.4f} ms (bound {b_ms:.4f} ms by "
+            f"{b_by}, {b_ms / t * 100:.1f}% of it), plain {t_plain:.4f} ms, vs plain {rel:.3e}")
+        if n > 8:
+            del eig_in[n], eig_start[n]
     next(k for k in kernels if k["name"] == "sym_matvec_chain_cf")["shapes"] = chain_rows
     next(k for k in kernels if k["name"] == "sym_maxeig_cf")["shapes"] = maxeig_rows
     # the product at each shape of the path, kernel alone, for its row
@@ -2000,7 +2017,7 @@ def phase_iterate(torch, rng):
             f"{b_ms:.4f} ms by {b_by}, {b_ms / t * 100:.1f}% of it), plain {t_plain:.4f} ms, "
             f"torch.matmul {t_lib:.4f} ms")
     next(k for k in kernels if k["name"] == "matmul_cf")["shapes"] = mm_rows
-    del chain_in, eig_in, eig_start, mm_in, m4, full4, v4
+    del eig_in, eig_start, mm_in, m4, full4, v4
 
     # the routing sweeps: each kernel against torch.matmul on the same
     # square batches (float32)

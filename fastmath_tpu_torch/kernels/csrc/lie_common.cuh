@@ -100,7 +100,9 @@ __device__ __forceinline__ void lie_store(T* tile, View<T> out, long long nb, co
 }
 
 // c = add I + scale (a b), each entry of a b summed over k in order from
-// the first term; c must not alias a or b.
+// the first term; c must not alias a or b. No entry takes a `0 +` (it
+// changes nothing but the sign of a zero, and costs an instruction an
+// entry where scale is 1).
 template <typename T, int D>
 __device__ __forceinline__ void lie_mm(const T (&a)[D * D], const T (&b)[D * D], T (&c)[D * D],
                                        T add = T(0), T scale = T(1)) {
@@ -111,7 +113,7 @@ __device__ __forceinline__ void lie_mm(const T (&a)[D * D], const T (&b)[D * D],
       T acc = a[i * D] * b[j];
 #pragma unroll
       for (int k = 1; k < D; ++k) acc = acc + a[i * D + k] * b[k * D + j];
-      c[i * D + j] = (i == j ? add : T(0)) + acc * scale;
+      c[i * D + j] = i == j && add != T(0) ? add + acc * scale : acc * scale;
     }
 }
 

@@ -172,14 +172,19 @@ logm_unrolled(long long nb, MatView<T> in, View<T> out) {
         break;
       }
       inverse_small<T, D>(m, minv);
+      // T / 2 = (M + I) / 2, then Y = (Y M^-1)(T / 2) and M = M^-1 ((T / 2)
+      // (T / 2)): the halves taken into T give the bits of (Y M^-1) T / 2
+      // and M^-1 (T T) / 4 (a power of two scales each rounding exactly,
+      // short of underflow) without scaling two products
 #pragma unroll
       for (int i = 0; i < D; ++i)
 #pragma unroll
-        for (int c = 0; c < D; ++c) t[i * D + c] = m[i * D + c] + (i == c ? T(1) : T(0));
+        for (int c = 0; c < D; ++c)
+          t[i * D + c] = i == c ? m[i * D + c] * T(0.5) + T(0.5) : m[i * D + c] * T(0.5);
       lie_mm<T, D>(y, minv, p);
-      lie_mm<T, D>(p, t, y, T(0), T(0.5));
+      lie_mm<T, D>(p, t, y);
       lie_mm<T, D>(t, t, p);
-      lie_mm<T, D>(minv, p, m, T(0), T(0.25));
+      lie_mm<T, D>(minv, p, m);
     }
     ++k;
     const T e2 = lie_dist2<T, D>(m);
@@ -190,7 +195,7 @@ logm_unrolled(long long nb, MatView<T> in, View<T> out) {
 #pragma unroll
     for (int i = 0; i < D; ++i)
 #pragma unroll
-      for (int c = 0; c < D; ++c) t[i * D + c] = y[i * D + c] + (i == c ? T(1) : T(0));
+      for (int c = 0; c < D; ++c) t[i * D + c] = i == c ? y[i * D + c] + T(1) : y[i * D + c];
     inverse_small<T, D>(t, minv);
     lie_mm<T, D>(dm, minv, p);
 #pragma unroll
@@ -209,7 +214,7 @@ logm_unrolled(long long nb, MatView<T> in, View<T> out) {
 #pragma unroll
     for (int i = 0; i < D; ++i)
 #pragma unroll
-      for (int c = 0; c < D; ++c) ap[i * D + c] = a[i * D + c] + (i == c ? T(1) : T(0));
+      for (int c = 0; c < D; ++c) ap[i * D + c] = i == c ? a[i * D + c] + T(1) : a[i * D + c];
     inverse_small<T, D>(ap, ainv);
     lie_mm<T, D>(dm, ainv, z);
     lie_mm<T, D>(z, z, z2);

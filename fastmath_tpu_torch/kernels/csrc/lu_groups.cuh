@@ -7,8 +7,9 @@
 // chain_groups) and the matrix logarithm's inverses (logm.cu, logm_warp,
 // also at G = 8 for 5 <= d <= 8); the Cholesky factor (batched.cu,
 // chol_groups) takes its row layout and compact load, the matvec chain
-// (sym_iterate.cu, matvec_chain_groups) its compact load and the chain
-// step (lu_group_chain), which chain_groups shares.
+// (sym_iterate.cu, matvec_chain_groups) and the power iteration
+// (maxeig_groups) its compact load and the chain step (lu_group_chain),
+// which chain_groups shares.
 //
 // A group of G lanes owns one problem (G = 16 for n <= 16, 32 above:
 // lie_group; 32 / G problems a warp, lie_common.cuh). Lane i holds row i
@@ -276,8 +277,9 @@ __device__ __forceinline__ T lu_group_det(T (&row)[G], int n, int lane, T* rows,
   return !kLog && me.odd ? -r : r;
 }
 
-// The chain step of the matvec chain (sym_iterate.cu, matvec_chain_groups)
-// and the compact chain solve (sym_solve.cu, chain_groups): x <- M x + c,
+// The chain step of the matvec chain and the power iteration
+// (sym_iterate.cu, matvec_chain_groups, maxeig_groups) and the compact
+// chain solve (sym_solve.cu, chain_groups): x <- M x + c,
 // `iters` times. Lane i holds row i of M in `row` (a zero row for lanes
 // >= n) and c = c_i; x lives in shared memory at xs, double buffered (G
 // values each, 16-byte aligned), and starts in the first buffer. Step t

@@ -6,7 +6,7 @@
 //   fm_sym_maxeig        <- _maxeig_kernel        (sym_maxeig_cf)
 //
 // Each problem keeps its matrix on chip for every step (one thread a
-// problem; a group of lanes in the chain's 9..32 tier): the chain computes
+// problem; a group of lanes in the 9..32 tiers): the chain computes
 // x <- A x + c `iters` times; the power iteration pre-scales A by its
 // Gershgorin bound g = max_i sum_j |a_ij|
 // (1/g taken as 0 where g = 0), normalizes the start vector, runs
@@ -22,14 +22,14 @@
 // so each result moves a few ulp from the plain PyTorch version.
 //
 // Tiers: n <= 8 unrolls at compile time, the full entry grid in
-// registers; 9 <= n <= 32: the chain runs a group of G = 16 lanes a
-// problem to n = 16, 32 above (matvec_chain_groups: row i of A in lane
-// i's registers, x in shared memory, lu_group_chain of lu_groups.cuh,
-// which the compact chain solve shares); the power iteration walks the
-// packed compact matrix (n(n+1)/2 values, 2,112 B in f32 at n = 32) and
-// the vectors in a per-thread local array, each row's slots reached by a
-// running index (slot (j, i) for j < i, then the diagonal, then slots
-// (i, j) for j > i).
+// registers; 9 <= n <= 32 runs a group of G = 16 lanes a problem to n =
+// 16, 32 above (matvec_chain_groups, maxeig_groups: row i of A in lane i's
+// registers, x in shared memory, the step lu_group_chain of lu_groups.cuh,
+// which the compact chain solve shares). The power iteration's
+// renormalizations and Rayleigh quotient read x from shared memory as
+// broadcast vectors, each lane summing in index order, so every lane of
+// a group holds the same bits without a reduction; its Gershgorin bound
+// is a butterfly of fm_max over the group's row sums.
 //
 // What bounds them: per problem the chain reads n(n+1)/2 + 2n values and
 // writes n, for iters * 2n^2 flops; the power iteration reads n(n+1)/2 + n
@@ -37,7 +37,7 @@
 // suite's shapes (4x4, iters 128 and 32) the flops weigh more than or as
 // much as the bytes, so both are compute-bound loops over registers; one
 // thread per problem keeps every step free of communication. Above 8, one
-// thread a problem kept its matrix in local memory and reached 1.5% of
+// thread a problem kept its matrix in local memory and reached 1.5-1.8% of
 // the operation bound (16 x 16, iters 32); a lane of a group issues G / 4
 // (f32) broadcast vector loads, G multiply-adds, one store and one
 // __syncwarp a step.
@@ -153,37 +153,8 @@ maxeig_unrolled(long long nb, int iters, int r, View<const T> mat, View<const T>
 }
 
 // ---------------------------------------------------------------------------
-// 9 <= n <= 32: the chain's lane groups, the power iteration's rolled tier
+// 9 <= n <= 32: lane groups
 // ---------------------------------------------------------------------------
-
-constexpr int kMaxNN = kMaxN * (kMaxN + 1) / 2;
-
-// y = A x on the packed compact matrix a, row i summed left to right over
-// j: slots (j, i) for j < i start at n + i - 1 and step n - 2 - j; slots
-// (i, j) for j > i are consecutive from tri_index(i, i + 1, n).
-template <typename T>
-__device__ void packed_matvec(const T* a, int n, const T* x, T* y) {
-  for (int i = 0; i < n; ++i) {
-    T acc = T(0);
-    int k = n + i - 1;
-    for (int j = 0; j < i; ++j) {
-      acc = acc + a[k] * x[j];
-      k += n - 2 - j;
-    }
-    acc = acc + a[i] * x[i];
-    k = n + i * (n - 1) - i * (i - 1) / 2;
-    for (int j = i + 1; j < n; ++j) acc = acc + a[k++] * x[j];
-    y[i] = acc;
-  }
-}
-
-template <typename T>
-__device__ void packed_renorm(T* v, int n) {
-  T nrm2 = v[0] * v[0];
-  for (int i = 1; i < n; ++i) nrm2 = nrm2 + v[i] * v[i];
-  const T s = nrm2 > T(0) ? fm_rsqrt(nrm2) : T(0);
-  for (int i = 0; i < n; ++i) v[i] = v[i] * s;
-}
 
 // A group of G lanes a problem (G = 16 to n = 16, 32 above; 32 / G
 // problems a warp): lane i gathers row i of A from the compact operand
@@ -209,53 +180,102 @@ __global__ void matvec_chain_groups(long long nb, int n, int iters, View<const T
   if (b < nb && gl < n) out.p[b * out.sb + gl * out.sc] = xi;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-maxeig_rolled(long long nb, int n, int iters, int r, View<const T> mat, View<const T> vec,
-              View<T> out) {
-  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (b >= nb) return;
-  T a[kMaxNN], v[kMaxN], w[kMaxN];
-  const T* m = mat.p + b * mat.sb;
-  const int nn = n * (n + 1) / 2;
-  for (int k = 0; k < nn; ++k) a[k] = m[k * mat.sc];
-  // Gershgorin bound: row i's |entries| summed left to right over j
-  T g = T(0);
-  for (int i = 0; i < n; ++i) {
-    T row = T(0);
-    int k = n + i - 1;
-    for (int j = 0; j < i; ++j) {
-      row = row + fm_abs(a[k]);
-      k += n - 2 - j;
+// The lane's x_i renormalized: every lane of the group sums x_j^2 over j
+// = 0..n-1 in index order from buffer `from` of xs (broadcast vectors, the
+// same bits in every lane), scales its own x_i by rsqrt(|x|^2) (0 where
+// |x|^2 = 0) and writes it to the first buffer, where the next
+// lu_group_chain starts. Ends synchronized.
+template <typename T, int G>
+__device__ __forceinline__ T group_renorm(T* xs, int from, int n, int gl) {
+  using V = typename LuVec<T>::type;
+  constexpr int kW = LuVec<T>::width;
+  const V* x = reinterpret_cast<const V*>(xs + from * G);
+  T nrm2 = T(0);
+#pragma unroll
+  for (int q = 0; q < G / kW; ++q) {
+    if (q * kW >= n) break;
+    const V v = x[q];
+#pragma unroll
+    for (int e = 0; e < kW; ++e) {
+      const int j = q * kW + e;
+      const T xj = lu_get(v, e);
+      if (j < n) nrm2 = j == 0 ? xj * xj : nrm2 + xj * xj;
     }
-    row = row + fm_abs(a[i]);
-    k = n + i * (n - 1) - i * (i - 1) / 2;
-    for (int j = i + 1; j < n; ++j) row = row + fm_abs(a[k++]);
-    g = i == 0 ? row : fm_max(g, row);
   }
+  const T xi = xs[from * G + gl];
+  __syncwarp(kLieMask);  // every lane has read the buffer
+  const T s = nrm2 > T(0) ? fm_rsqrt(nrm2) : T(0);
+  const T vi = xi * s;
+  xs[gl] = vi;
+  __syncwarp(kLieMask);
+  return vi;
+}
+
+// The power iteration on a group of G lanes a problem (as
+// matvec_chain_groups): lane i holds row i of A (lu_load_sym), sums its
+// |a_ij| over j in order and the group takes the largest row sum by a
+// butterfly of fm_max, which drops a NaN, so that it equals the sequential
+// fm_max chain over the rows (lanes past n offer NaN, which every number
+// beats); each lane scales its row by 1/g (0 where g = 0). v lives double
+// buffered in shared memory: group_renorm, then lu_group_chain for each
+// block of r matvecs and the iters % r rest, each followed by
+// group_renorm back into the first buffer, one more step w = A v into the
+// second, and every lane forms v . w in index order. Lane 0 stores mu =
+// (v . w) g, lane i < n stores v_i. A group past the batch runs a copy of
+// the last problem and stores nothing.
+template <typename T, int G>
+__global__ void maxeig_groups(long long nb, int n, int iters, int r, View<const T> mat,
+                              View<const T> vec, View<T> out) {
+  using V = typename LuVec<T>::type;
+  constexpr int kW = LuVec<T>::width;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % kLieWarp, gl = lane % G;
+  const long long b = blockIdx.x * (long long)(blockDim.x / G) + threadIdx.x / G;
+  const long long bb = b < nb ? b : nb - 1;
+  T* stage = reinterpret_cast<T*>(smem_raw + (threadIdx.x / G) * lu_chain_bytes<T, G>());
+  T* xs = stage + G * (G + 1) / 2;
+  T row[G];
+  lu_load_sym<T, G>(mat, bb, n, gl, stage, row);
+  // Gershgorin bound: row gl's |entries| summed left to right over j
+  T g = fm_abs(row[0]);
+#pragma unroll
+  for (int j = 1; j < G; ++j)
+    if (j < n) g = g + fm_abs(row[j]);
+  if (gl >= n) g = lie_nan(T(0));
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) g = fm_max(g, __shfl_xor_sync(kLieMask, g, o));
   const T inv_g = g > T(0) ? T(1) / g : T(0);
-  for (int k = 0; k < nn; ++k) a[k] = a[k] * inv_g;
-  for (int i = 0; i < n; ++i) v[i] = vec.p[b * vec.sb + i * vec.sc];
-  packed_renorm(v, n);
-  const int blocks = iters / r, rem = iters % r;
-  for (int o = 0; o < blocks; ++o) {
-    for (int s = 0; s < r; ++s) {
-      packed_matvec<T>(a, n, v, w);
-      for (int i = 0; i < n; ++i) v[i] = w[i];
+#pragma unroll
+  for (int j = 0; j < G; ++j) row[j] = row[j] * inv_g;
+  xs[gl] = gl < n ? vec.p[bb * vec.sb + gl * vec.sc] : T(0);
+  __syncwarp(kLieMask);
+  T vi = group_renorm<T, G>(xs, 0, n, gl);
+  for (int o = 0; o < iters / r; ++o) {
+    lu_group_chain<T, G>(row, T(0), n, r, gl, xs);
+    vi = group_renorm<T, G>(xs, r & 1, n, gl);
+  }
+  const int rem = iters % r;
+  lu_group_chain<T, G>(row, T(0), n, rem, gl, xs);
+  vi = group_renorm<T, G>(xs, rem & 1, n, gl);
+  lu_group_chain<T, G>(row, T(0), n, 1, gl, xs);  // w = A v, into the second buffer
+  const V* v = reinterpret_cast<const V*>(xs);
+  const V* w = reinterpret_cast<const V*>(xs + G);
+  T mu = T(0);
+#pragma unroll
+  for (int q = 0; q < G / kW; ++q) {
+    if (q * kW >= n) break;
+    const V vq = v[q], wq = w[q];
+#pragma unroll
+    for (int e = 0; e < kW; ++e) {
+      const int j = q * kW + e;
+      const T t = lu_get(vq, e) * lu_get(wq, e);
+      if (j < n) mu = j == 0 ? t : mu + t;
     }
-    packed_renorm(v, n);
   }
-  for (int s = 0; s < rem; ++s) {
-    packed_matvec<T>(a, n, v, w);
-    for (int i = 0; i < n; ++i) v[i] = w[i];
-  }
-  packed_renorm(v, n);
-  packed_matvec<T>(a, n, v, w);
-  T mu = v[0] * w[0];
-  for (int i = 1; i < n; ++i) mu = mu + v[i] * w[i];
+  if (b >= nb) return;
   T* o = out.p + b * out.sb;
-  o[0] = mu * g;
-  for (int i = 0; i < n; ++i) o[(1 + i) * out.sc] = v[i];
+  if (gl == 0) o[0] = mu * g;
+  if (gl < n) o[(1 + gl) * out.sc] = vi;
 }
 
 // ---------------------------------------------------------------------------
@@ -299,7 +319,12 @@ cudaError_t launch_maxeig(int n, int iters, int r, long long nb, View<const T> m
 #undef FM_MAXEIG_CASE
     default:
       if (n < 1 || n > kMaxN) return cudaErrorInvalidValue;
-      maxeig_rolled<T><<<g, kThreads, 0, s>>>(nb, n, iters, r, mat, vec, out);
+      if (lie_group(n) == 16)
+        lu_launch<16>(maxeig_groups<T, 16>, lu_chain_bytes<T, 16>(), nb, s, n, iters, r, mat,
+                      vec, out);
+      else
+        lu_launch<kLieWarp>(maxeig_groups<T, kLieWarp>, lu_chain_bytes<T, kLieWarp>(), nb, s, n,
+                            iters, r, mat, vec, out);
   }
   return cudaGetLastError();
 }

@@ -6,9 +6,9 @@ autograd.
 ``sym_maxeig_cf`` replaces ``_maxeig_kernel``
 (``fastmath_tpu/kernels/sym_pallas.py``). Both kernels live in
 ``csrc/sym_iterate.cu``; each problem keeps its matrix on chip for every
-step (one thread a problem; a group of 16 or 32 lanes in the chain's 9 <=
-n <= 32 tier, ``matvec_chain_groups``), and the source's header gives the
-tiers and what bounds them.
+step (one thread a problem; a group of 16 or 32 lanes a problem for 9 <=
+n <= 32, ``matvec_chain_groups`` and ``maxeig_groups``), and the source's
+header gives the tiers and what bounds them.
 
 Each wrapper launches its kernel on a CUDA tensor and runs its plain
 version, which repeats the kernel's arithmetic in PyTorch in the same

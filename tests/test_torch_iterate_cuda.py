@@ -31,7 +31,9 @@ from fastmath_tpu_torch.ops.batched import MATMUL_KERNEL_MAX
 
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 B = 4099  # a ragged last block
-NS = [1, 2, 3, 4, 5, 8, 9, 16, 32]
+# the tiers, and the lane groups' edges and padded lanes (G = 16 to n = 16,
+# 32 above)
+NS = [1, 2, 3, 4, 5, 8, 9, 12, 16, 17, 24, 32]
 
 
 @pytest.fixture(autouse=True)
@@ -123,6 +125,37 @@ def test_maxeig_kernel_matches_plain(n, dtype, rng):
                 mu_err = ((got[:, :1] - want[:, :1]).double().cpu().abs() / g).max().item()
                 assert mu_err <= TOL[dtype], (iters, r, layout)
                 assert _rel(got[:, 1:], want[:, 1:]) <= TOL[dtype], (iters, r, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [4, 12, 24])
+def test_maxeig_nan_and_zero_rows_match_plain(n, dtype, rng):
+    """A NaN entry (in two rows, as the matrix is symmetric) and an
+    all-zero row among nonzero problems: NaN exactly where the plain
+    version has NaN, the rest within the tolerance, and the neighbours
+    unchanged. The Gershgorin bound's maximum drops the NaN row sum
+    (fm_max) where the plain version's torch.maximum keeps it; both scale
+    the finite entries to values that the NaN then reaches."""
+    gap, start = _gapped(rng, 40, n, start=True)
+    full = sym_to_full(torch.from_numpy(gap), n)
+    full[3, 1, :] = 0.0
+    full[3, :, 1] = 0.0
+    full[7, n - 1, 2] = full[7, 2, n - 1] = float("nan")
+    mat, vec = _dev(full_to_sym(full).numpy(), dtype), _dev(start, dtype)
+    clean = [i for i in range(40) if i != 7]
+    for iters in (0, 1, 5, 32):
+        want = sym_iterate.maxeig_plain(mat, vec, iters, 8)
+        got = sym_iterate.launch_maxeig(mat, vec, iters, 8)
+        alone = sym_iterate.launch_maxeig(mat[clean], vec[clean], iters, 8)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isnan(got), torch.isnan(want)), iters
+        assert torch.isnan(got[7, 0]) and not torch.isnan(got[clean]).any(), iters
+        assert torch.equal(got[clean], alone), iters
+        g = _gershgorin(mat[clean], n)
+        mu_err = ((got[clean, :1] - want[clean, :1]).double().cpu().abs() / g).max().item()
+        assert mu_err <= TOL[dtype], iters
+        assert _rel(got[clean, 1:], want[clean, 1:]) <= TOL[dtype], iters
 
 
 @pytest.mark.cuda

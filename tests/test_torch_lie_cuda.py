@@ -28,8 +28,9 @@ from fastmath_tpu_torch.kernels import logm as KL
 
 B = 4099  # ragged against both tiers' blocks
 DS = [1, 2, 3, 4, 5, 8, 9, 12, 16, 17, 24, 25, 32]
-# the edges of logm_warp's lane groups (G = 8 to d = 8, 16 to 16, 32 above)
-EDGES = [5, 8, 9, 12, 16, 17, 24, 25, 32]
+# logm_unrolled's sizes, and the edges of logm_warp's lane groups (G = 8
+# to d = 8, 16 to 16, 32 above)
+EDGES = [2, 3, 4, 5, 8, 9, 12, 16, 17, 24, 25, 32]
 TOL_EXPM = {torch.float32: 1e-5, torch.float64: 1e-12}
 TOL_DEEP = {torch.float32: 2e-4, torch.float64: 1e-11}
 TOL_LOGM = {torch.float32: 5e-5, torch.float64: 1e-11}
@@ -113,12 +114,12 @@ def test_logm_matches_plain(d, dtype, rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("d", [17, 20, 24])
+@pytest.mark.parametrize("d", [2, 3, 4, 17, 20, 24])
 def test_logm_mixed_step_counts_match_plain(d, dtype, rng):
-    """17 <= d <= 24 (a group of 32 lanes on a padded problem): the bench
-    input at scales 0.1 to 2 in turn, so that neighbouring problems take
-    different numbers of square roots and Denman-Beavers steps through the
-    kernel's one loop of phases, each against the plain version."""
+    """d <= 4 (a thread a problem) and 17 <= d <= 24 (a group of 32 lanes
+    on a padded problem): the bench input at scales 0.1 to 2 in turn, so
+    that neighbouring problems take different numbers of square roots and
+    Denman-Beavers steps, each against the plain version."""
     x = gauss(rng, B, d) * np.resize([0.1, 0.5, 1.0, 2.0], B)[:, None, None]
     a = KE.expm_plain(torch.tensor(x, device="cuda")).to(dtype)
     iss, db = KL.iteration_counts(a[:64])
@@ -127,6 +128,27 @@ def test_logm_mixed_step_counts_match_plain(d, dtype, rng):
     want = KL.logm_plain(a)
     assert torch.isfinite(want).all() and torch.isfinite(got).all()
     assert normwise(got, want) <= TOL_LOGM[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [2, 3, 4])
+def test_logm_problem_order_changes_no_value(d, dtype, rng):
+    """logm_unrolled's neighbours take their own steps: the mixed-scale
+    input sorted by its (square roots, Denman-Beavers steps), so that a
+    warp's lanes take equal steps, and the same problems shuffled give the
+    same bits after un-permuting."""
+    x = gauss(rng, B, d) * np.resize([0.1, 0.5, 1.0, 2.0], B)[:, None, None]
+    a = KE.expm_plain(torch.tensor(x, device="cuda")).to(dtype)
+    iss, db = KL.iteration_counts(a)
+    order = torch.argsort(iss.long() * 4096 + db.long())
+    shuffle = torch.randperm(B, generator=torch.Generator().manual_seed(d)).cuda()
+    got = KL.launch_logm(a)
+    by_counts = KL.launch_logm(a[order].contiguous())
+    shuffled = KL.launch_logm(a[shuffle].contiguous())
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(by_counts, got[order]) and torch.equal(shuffled, got[shuffle])
 
 
 @pytest.mark.cuda
@@ -180,11 +202,12 @@ def _expm64_batch(rng, b, d):
 
 def _rotation_cube(d):
     """R (x) R (x) R for the rotation R by pi/4 (every nonzero entry of
-    magnitude 2^-1.5: ties in every column), then I; at d < 8 R (x) R, then
-    I. Eigenvalues e^(i k pi/4), |k| <= 3: off the branch cut."""
+    magnitude 2^-1.5: ties in every column), then I; at d < 8 R (x) R, at
+    d < 4 R, then I. Eigenvalues e^(i k pi/4), |k| <= 3: off the branch
+    cut."""
     c = math.sqrt(0.5)
     r = np.array([[c, -c], [c, c]])
-    k = np.kron(r, r) if d < 8 else np.kron(np.kron(r, r), r)
+    k = r if d < 4 else np.kron(r, r) if d < 8 else np.kron(np.kron(r, r), r)
     out = np.eye(d)
     out[:len(k), :len(k)] = k
     return out
