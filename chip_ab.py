@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time one source tree's full-storage solve, Cholesky, inverse, compact
 solve, product, matrix logarithm, rolled eig, chain and power-iteration
-kernels on one NVIDIA GPU, to compare two versions of a kernel in one call.
+kernels, and the n <= 8 inverse and Cholesky tiers, on one NVIDIA GPU,
+to compare two versions of a kernel in one call.
 
     python3 /path/to/chip_ab.py TAG [--library] [--only GROUP[,GROUP...]]
 
@@ -13,7 +14,8 @@ groups it times, times each kernel three times with
 against its plain version, and prints one JSON line: ``tag``, each
 shape's three times and error, and the registers and spills (``-Xptxas
 -v``) of every kernel of those sources but the unrolled tiers (except
-``logm_unrolled``). The groups (all by default): ``solve``
+``logm_unrolled``, and the inverse's and Cholesky's with ``inv8`` and
+``chol8``). The groups (all by default): ``solve``
 (``csrc/batched.cu``: the solve 16x16 on 500k, 24x24 on 200k, 32x32 on
 100k with one column and 16x16 with 16; the inverse 16x16 and 32x32),
 ``chol`` (16x16, 24x24, 32x32), ``sym_solve`` (``csrc/sym_solve.cu``: N =
@@ -35,14 +37,93 @@ bytes of 16x16 on 1M and of N = 16 on 262,144; normwise over the terms,
 as ``chip_smoke.py``) and ``maxeig`` (``csrc/sym_iterate.cu``: the power
 iteration, iters 32, r 8, at n = 9, 12, 16, 17, 24, 32 on the bytes of
 16x16 on 1M, ``chip_smoke.maxeig_input``; mu over the Gershgorin bound,
-v normwise). ``--library`` also times ``torch.linalg.solve_ex`` /
+v normwise), ``inv8`` (``csrc/batched.cu``'s n <= 8 inverse tier: 3x3,
+5x5 and 8x8 on 1M in float32, 8x8 in float64, and the channel-first 8x8;
+the solve's n <= 8 tier at 8x8 on 1M with one column; then the staging's
+ceiling, ``stage_copy``: ``csrc/tile_stage.cuh`` of the
+tree this script lies in, built here into a kernel that stages 8x8
+problems into shared memory and writes them back with no arithmetic, at P
+= 64, 128 and 256 problems a block, beside ``Tensor.copy_`` of the same
+bytes and their bound) and ``chol8`` (the n <= 8 Cholesky tier: 3x3, 5x5
+and 8x8 on 1M in float32, 8x8 in float64, and the channel-first 8x8).
+``inv8`` and ``chol8`` also give each output's digest (SHA-256 of its
+bytes), so that two trees' outputs compare bit for bit, and their
+tiers' registers. ``--library`` also times ``torch.linalg.solve_ex`` /
 ``cholesky_ex`` (the compact solve's on the densified batch),
-``torch.matmul`` and ``eigvalsh`` / ``eigh`` on the same inputs. It
-imports neither JAX nor ``fastmath_tpu``.
+``inv_ex``, ``torch.matmul`` and ``eigvalsh`` / ``eigh`` on the same
+inputs. It imports neither JAX nor ``fastmath_tpu``.
 """
+import ctypes
+import hashlib
 import json
 import pathlib
+import subprocess
 import sys
+
+# A kernel that stages problems of SIZE values into shared memory at the
+# n <= 8 tiers' odd region stride and writes them back, with no arithmetic:
+# the ceiling of the staged path (inv8's stage_copy).
+STAGE_COPY = r"""
+#include "tile_stage.cuh"
+
+namespace fm {
+template <typename T, int SIZE, int P>
+__global__ void __launch_bounds__(P) stage_copy(long long nb, TileOperand<T> in, TileOut<T> out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int S = SIZE | 1;
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const long long b0 = blockIdx.x * (long long)P;
+  const int np = nb - b0 < P ? (int)(nb - b0) : P;
+  tile_stage<T>(in, b0, np, P, S, sm);
+  __syncthreads();
+  tile_store<T>(out, b0, np, P, S, sm);
+}
+
+template <typename T, int SIZE, int P>
+int copy(long long nb, const void* x, long long xsb, long long xsc, void* y, long long ysb,
+         long long ysc, void* stream) {
+  constexpr int S = SIZE | 1;
+  const int smem = P * S * (int)sizeof(T);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(stage_copy<T, SIZE, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+  const View<const T> in{static_cast<const T*>(x), xsb, xsc};
+  const View<T> out{static_cast<T*>(y), ysb, ysc};
+  stage_copy<T, SIZE, P><<<(unsigned)((nb + P - 1) / P), P, smem, (cudaStream_t)stream>>>(
+      nb, tile_flat_operand<T>(in, SIZE, P, S), tile_flat_out<T>(out, SIZE, P, S));
+  return cudaGetLastError();
+}
+}  // namespace fm
+
+extern "C" int fm_stage_copy(int dtype, int P, long long nb, const void* x, long long xsb,
+                             long long xsc, void* y, long long ysb, long long ysc, void* s) {
+  if (dtype == 0 && P == 64) return fm::copy<float, 64, 64>(nb, x, xsb, xsc, y, ysb, ysc, s);
+  if (dtype == 0 && P == 128) return fm::copy<float, 64, 128>(nb, x, xsb, xsc, y, ysb, ysc, s);
+  if (dtype == 0 && P == 256) return fm::copy<float, 64, 256>(nb, x, xsb, xsc, y, ysb, ysc, s);
+  if (dtype == 1 && P == 64) return fm::copy<double, 64, 64>(nb, x, xsb, xsc, y, ysb, ysc, s);
+  if (dtype == 1 && P == 128) return fm::copy<double, 64, 128>(nb, x, xsb, xsc, y, ysb, ysc, s);
+  return cudaErrorInvalidValue;
+}
+"""
+
+
+def stage_copy_library(_build):
+    """Build STAGE_COPY against this script's tree's tile_stage.cuh into
+    build/chip_ab/ of the working directory and load it."""
+    csrc = pathlib.Path(__file__).resolve().parent / "fastmath_tpu_torch" / "kernels" / "csrc"
+    out = pathlib.Path.cwd() / "build" / "chip_ab"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "stage_copy.cu").write_text(STAGE_COPY)
+    lib = out / "libstage_copy.so"
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
+                           str(lib), str(out / "stage_copy.cu")], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"stage_copy failed to build:\n{proc.stdout}{proc.stderr}")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    cdll = ctypes.CDLL(str(lib))
+    cdll.fm_stage_copy.argtypes = [i, i, ll, p, ll, ll, p, ll, ll, p]
+    cdll.fm_stage_copy.restype = i
+    return cdll, proc.stdout + proc.stderr
 
 
 def main():
@@ -63,12 +144,14 @@ def main():
     from fastmath_tpu_torch.layouts import full_to_sym, sym_to_full
 
     tag, library = sys.argv[1], "--library" in sys.argv[2:]
-    groups = {"solve", "chol", "sym_solve", "matmul", "logm", "logm4", "eig", "chain", "maxeig"}
+    groups = {"solve", "chol", "sym_solve", "matmul", "logm", "logm4", "eig", "chain", "maxeig",
+              "inv8", "chol8"}
     if "--only" in sys.argv:
         groups = set(sys.argv[sys.argv.index("--only") + 1].split(","))
     sources = {"solve": "batched", "chol": "batched", "sym_solve": "sym_solve",
                "matmul": "batched_products", "logm": "logm", "logm4": "logm", "eig": "eig",
-               "chain": ("sym_iterate", "sym_solve"), "maxeig": "sym_iterate"}
+               "chain": ("sym_iterate", "sym_solve"), "maxeig": "sym_iterate",
+               "inv8": "batched", "chol8": "batched"}
     libs = sorted({lib for g in groups for lib in
                    ((sources[g],) if isinstance(sources[g], str) else sources[g])})
     _build.build_all(libs + (["expm"] if groups & {"logm", "logm4"} else []))
@@ -100,6 +183,73 @@ def main():
             res[f"inv {n}x{n} on {b}"] = [C.device_ms(torch, lambda: BC.launch_inv(f), reps=10)
                                           for _ in range(3)]
         del a, f, r
+    def digest(t):  # SHA-256 of a result's bytes, in its storage order
+        t = t.t() if t.stride(0) == 1 and t.shape[1] > 1 else t
+        return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+    def cf(t):  # the channel-first copy of a (B, K) tensor, seen as (B, K)
+        return t.t().contiguous().t()
+
+    # the n <= 8 tiers on inputs seeded by shape, so that two trees get the
+    # same bits: (op, n, dtype) on 1M, then the channel-first 8x8
+    for op, n, dt in (("inv", 3, "f32"), ("inv", 5, "f32"), ("inv", 8, "f32"), ("inv", 8, "f64"),
+                      ("chol", 3, "f32"), ("chol", 5, "f32"), ("chol", 8, "f32"),
+                      ("chol", 8, "f64")):
+        if f"{op}8" not in groups:
+            continue
+        b, dtype = 1_000_000, torch.float32 if dt == "f32" else torch.float64
+        g = torch.Generator(device="cuda")
+        g.manual_seed(1000 * n + (dt == "f64"))
+        a = C.spd_on_card(torch, g, b, n).to(dtype)
+        if op == "inv":
+            x, launch, plain = a.reshape(b, n * n), BC.launch_inv, BC.inv_plain
+            lib = lambda a=a: torch.linalg.inv_ex(a)  # noqa: E731
+        else:
+            x, launch, plain = full_to_sym(a).contiguous(), BC.launch_chol, BC.chol_plain
+            lib = lambda a=a: torch.linalg.cholesky_ex(a)  # noqa: E731
+        key = f"{op} {n}x{n} {dt} on {b}"
+        timed(key, lambda: launch(x), lambda: plain(x), lib)
+        res[f"{key} digest"] = digest(launch(x))
+        if n == 8:
+            xc = cf(x)
+            res[f"{key} channel-first"] = [
+                C.device_ms(torch, lambda: launch(xc, cf_out=True), reps=10) for _ in range(3)]
+            res[f"{key} channel-first digest"] = digest(launch(xc, cf_out=True))
+            del xc
+        del a, x
+    if "inv8" in groups:
+        # the solve's n <= 8 tier, not staged: one column at 8x8 on 1M
+        b, n = 1_000_000, 8
+        a = C.spd_on_card(torch, gen, b, n)
+        f, r = a.reshape(b, n * n), torch.randn(b, n, generator=gen, device="cuda")
+        timed(f"solve {n}x{n} k=1 f32 on {b}", lambda: BC.launch_solve_full(f, r, 1),
+              lambda: BC.solve_full_plain(f, r, 1),
+              lambda: torch.linalg.solve_ex(a, r.reshape(b, n, 1)))
+        del a, f, r
+        copy_lib, nvcc_log = stage_copy_library(_build)
+        res["stage_copy ptxas"] = C.ptxas_summary(nvcc_log)
+        for dt, dtype, ps in (("f32", torch.float32, (64, 128, 256)),
+                              ("f64", torch.float64, (64, 128))):
+            b = 1_000_000
+            x = torch.randn(b, 64, generator=gen, device="cuda").to(dtype)
+            y = torch.empty_like(x)
+            stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+            for P in ps:
+                def run(P=P):
+                    err = copy_lib.fm_stage_copy(int(dt == "f64"), P, b, x.data_ptr(),
+                                                 *x.stride(), y.data_ptr(), *y.stride(), stream())
+                    if err:
+                        raise RuntimeError(f"stage_copy P={P}: CUDA error {err}")
+                run()
+                if not torch.equal(x, y):
+                    raise RuntimeError(f"stage_copy {dt} P={P} did not copy")
+                res[f"stage_copy 8x8 {dt} on {b} P={P}"] = [C.device_ms(torch, run, reps=10)
+                                                             for _ in range(3)]
+            res[f"Tensor.copy_ 8x8 {dt} on {b}"] = [
+                C.device_ms(torch, lambda: y.copy_(x), reps=10) for _ in range(3)]
+            res[f"copy bound 8x8 {dt} on {b}"] = (2 * x.numel() * x.element_size()
+                                                   / C.PEAK_BYTES * 1e3)
+            del x, y
     for n, b in ((16, 500_000), (24, 200_000), (32, 100_000)):
         if "chol" not in groups:
             break
@@ -230,9 +380,11 @@ def main():
                   lambda: (torch.linalg.eigh if vec else torch.linalg.eigvalsh)(a),
                   lambda got, want: (got.sort(-1).values - want.sort(-1).values).abs().max().item())
         del a
+    unrolled = ("logm_unrolled",) + (("inv_unrolled",) if "inv8" in groups else ()) + (
+        ("chol_unrolled",) if "chol8" in groups else ())
     res["ptxas"] = [row for lib in libs
                     for row in C.ptxas_summary(_build.build_log(lib).read_text())
-                    if "unrolled" not in row or row.startswith("logm_unrolled")]
+                    if "unrolled" not in row or row.startswith(unrolled)]
     print(json.dumps(res), flush=True)
     return 0
 

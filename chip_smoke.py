@@ -15,11 +15,11 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
    batch-major and the channel-first layout, and against a float64 numpy
    oracle (the compact solve also at N = 12, 17 and 24, the edges of its
    lane groups); the full-storage solve (k = 1, 3, 8 columns up to n = 8, 1, 16,
-   17 and 40 above, also reading A transposed) and inverse (also at n = 12, 17
+   17 and 40 above, also reading A transposed) and inverse (n = 1..8, 12, 17
    and 24) on general matrices that pivot at most steps and on SPD
    matrices; the determinant,
    log-determinant, Cholesky, compact determinant and compact inverse
-   (also at n = 12, 17 and 24, the edges of the lane-group tiers);
+   (n = 1..8, and 12, 17 and 24, the edges of the lane-group tiers);
    the matvec chain (iters 0, 1, 7, with and without ``add``), the power
    iteration (iters 0, 5, 32; ``renorm_every`` 1, 8, 16; both also at n =
    12, 17 and 24), the full matvec
@@ -457,8 +457,9 @@ def general(rng, b, n):
     return np.take_along_axis(a, perm[..., None], axis=1)
 
 
-# every tier, and the lane-group LU's edges (G = 16 to n = 16, 32 above)
-FACTOR_CHECK_NS = (1, 2, 3, 4, 5, 8, 9, 12, 16, 17, 24, 32)
+# every n of the unrolled tiers (the inverse's and Cholesky's staged), and
+# the lane-group LU's edges (G = 16 to n = 16, 32 above)
+FACTOR_CHECK_NS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 16, 17, 24, 32)
 SOLVE_CHECK_NS = (1, 2, 3, 4, 5, 8, 9, 16, 32)
 # the lane-group solve's widths: one column, a block of G = 16 columns and
 # one ragged column past it, and 40 (two blocks and a ragged one at G = 16,

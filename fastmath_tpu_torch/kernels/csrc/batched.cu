@@ -26,7 +26,9 @@
 //                   the reference's _plu_grid_solve), so k costs no
 //                   registers and is taken at run time;
 //   inverse, n <= 4 generated cofactors times 1/det (batched_adjugate.cuh);
-//   inverse, 5..8   the unrolled solve against the identity's columns;
+//   inverse, 5..8   the unrolled solve against the identity's columns,
+//                   each solved column written to shared memory at once;
+//                   both inverse tiers on staged tiles (below);
 //   solve and inverse, 9..32
 //                   the lane-group LU (lu_groups.cuh, solve_groups,
 //                   inv_groups): G = 16 lanes a problem to n = 16, 32
@@ -54,8 +56,9 @@
 //                   saturates float32 (an 8 x 8 with pivots ~7e4).
 //   chol            compact SPD in, compact lower factor out (slot (i, j)
 //                   holds L[max(i,j)][min(i,j)]), no pivoting: n <= 8 the
-//                   unrolled Cholesky-Banachiewicz in registers (L_jj =
-//                   sqrt(s), then L_ij = s * (1 / L_jj)); 9..32 the
+//                   unrolled Cholesky-Banachiewicz on the lower triangle
+//                   in registers (L_jj = sqrt(s), then L_ij = s * (1 /
+//                   L_jj)), on staged tiles (below); 9..32 the
 //                   right-looking outer-product form in lane groups
 //                   (chol_groups: row i in lane i's registers, column k
 //                   scaled by rsqrt(W_kk), then the rank-1 update of the
@@ -63,11 +66,26 @@
 //
 // What bounds them on the card: per problem the solve moves n^2 + 2nk
 // values, the inverse 2n^2, the determinant n^2 + 1 and the Cholesky
-// factor n(n + 1), for O(n^3) flops, so at n <= 4 device memory bounds
-// them: each operand is read once and the work stays in registers. From
-// n = 8 on the arithmetic grows past the bytes: the unrolled tiers keep A
-// in registers (the double-precision n = 8 tiers spill), and the lane
-// groups of the 9..32 tiers keep a row a lane (about n^2 / 2 FMAs a lane in
+// factor n(n + 1), for O(n^3) flops, so at n <= 8 device memory bounds
+// them (an 8 x 8 inverse is about 1.4 kflop for 512 bytes in float32).
+// One thread a problem that reads and writes its own entries one by one
+// wastes most of each sector it touches: in the batch-major layout
+// neighbouring threads sit 4 n^2 bytes apart, so each warp-wide access
+// moves 32 sectors for 128 useful bytes (the inverse and the Cholesky at
+// 8 x 8 reached 10.5% and 13% of their byte bounds that way; the solve
+// and the determinant still do). The n <= 8 inverse and Cholesky tiers
+// therefore stage their blocks' problems through shared memory (below,
+// above staged_stride), with the same arithmetic, so the same bits. On an
+// H100 80GB HBM3 at 700 W (chip_ab.py, 1M problems, float32) the 8 x 8
+// inverse takes 0.23 ms (67% of its byte bound; a kernel that only stages
+// the same bytes in and out, 88%), the 8 x 8 Cholesky 0.10 ms (86%), the
+// 3 x 3 inverse and Cholesky 79% and 83%: inv_unrolled<float, 8> holds 96
+// registers and 33 KB of regions, 5 blocks of 128 an SM, and what is left
+// is its arithmetic, which the other blocks' copies overlap only in part.
+// In float64 the 8 x 8 inverse (168 registers, a 64-byte local array, 64
+// problems a block) reaches 36%; the double-precision 8 x 8 solve spills.
+// From n = 9 on the arithmetic grows past the bytes: the lane groups of
+// the 9..32 tiers keep a row a lane (about n^2 / 2 FMAs a lane in
 // the factor, n^2 more in each column's two triangular solves); what
 // bounds them is instruction issue: each step's reductions, division and
 // broadcast reads cost more than its FMAs, and at k = 1 one lane of the
@@ -81,6 +99,7 @@
 #include "batched_adjugate.cuh"
 #include "lu_groups.cuh"
 #include "sym_common.cuh"
+#include "tile_stage.cuh"
 
 namespace fm {
 
@@ -120,40 +139,90 @@ solve_full_unrolled(long long nb, int k, MatView<T> mat, View<const T> rhs, View
   }
 }
 
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-inv_unrolled(long long nb, MatView<T> mat, View<T> out) {
-  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (b >= nb) return;
-  const T* m = mat.p + b * mat.sb;
-  T* o = out.p + b * out.sb;
-  if constexpr (N == 1) {
-    o[0] = T(1) / m[0];
-  } else if constexpr (N <= 4) {
-    T a[N * N], inv[N * N];
+// The n <= 8 inverse and Cholesky tiers stage their problems through
+// shared memory (tile_stage.cuh): a block of P problems, one thread each,
+// each problem's `size` values kept in one run of its region. Where a
+// problem is whole 16-byte vectors the region stride is size + 1, odd, so
+// that the 32 threads of a warp reading entry j of their own problems hit
+// 32 different banks; otherwise the regions are packed (stride size: odd,
+// or at most two threads a bank), and the block's range is copied as it
+// is. P is 128, or 64 where 128 regions would pass 48 KB (float64 at n =
+// 7, 8), a multiple of the vector width, so that each block's range of a
+// contiguous operand starts aligned. Each thread loads as many vectors at
+// once as its share of the block's range holds, up to 8: no registers
+// wait for vectors that small problems never bring.
+template <typename T>
+__host__ __device__ constexpr int staged_stride(int size) {
+  return size % (16 / (int)sizeof(T)) == 0 ? size + 1 : size;
+}
+
+template <typename T>
+constexpr int staged_threads(int size) {
+  return 128 * staged_stride<T>(size) * (int)sizeof(T) <= 48 * 1024 ? 128 : 64;
+}
+
+template <typename T>
+__host__ __device__ constexpr int staged_loads(int size) {
+  const int kW = 16 / (int)sizeof(T), u = (size + kW - 1) / kW;
+  return u < 8 ? u : 8;
+}
+
+// The block's operand and result.
+template <typename T>
+struct StagedPlan {
+  TileOperand<T> in;
+  TileOut<T> out;
+};
+
+// One thread a problem, on the block's staged problems: the thread reads
+// its problem from its own region, and writes its inverse back into it (it
+// alone reads or writes that region between the two barriers). n <= 4:
+// the generated cofactors times 1/det; 5..8: the unrolled pivoted LU, then
+// each identity column substituted in turn, its solution written to the
+// region's column at once, so that only LU and one column live in
+// registers.
+template <typename T, int N, int P, bool kCF>
+__global__ void __launch_bounds__(P) inv_unrolled(long long nb, StagedPlan<T> plan) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int S = staged_stride<T>(N * N);
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const long long b0 = blockIdx.x * (long long)P;
+  const int np = nb - b0 < P ? (int)(nb - b0) : P;
+  tile_stage<T, kCF, staged_loads<T>(N * N)>(plan.in, b0, np, P, S, sm);
+  __syncthreads();
+  if ((int)threadIdx.x < np) {
+    T* m = sm + threadIdx.x * S;
+    if constexpr (N == 1) {
+      m[0] = T(1) / m[0];
+    } else if constexpr (N <= 4) {
+      T a[N * N], inv[N * N];
 #pragma unroll
-    for (int i = 0; i < N; ++i)
+      for (int c = 0; c < N * N; ++c) a[c] = m[c];
+      full_inverse(a, inv);
 #pragma unroll
-      for (int j = 0; j < N; ++j) a[i * N + j] = m[i * mat.rs + j * mat.cs];
-    full_inverse(a, inv);
+      for (int c = 0; c < N * N; ++c) m[c] = inv[c];
+    } else {
+      T LU[N][N], inv_d[N];
+      int piv[N];
 #pragma unroll
-    for (int c = 0; c < N * N; ++c) o[c * out.sc] = inv[c];
-  } else {
-    T LU[N][N], inv_d[N];
-    int piv[N];
-    load_full<T, N>(m, mat, LU);
-    plu_factor<T, N>(LU, piv);
+      for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int i = 0; i < N; ++i) inv_d[i] = T(1) / LU[i][i];
-    for (int c = 0; c < N; ++c) {
-      T e[N], x[N];
+        for (int j = 0; j < N; ++j) LU[i][j] = m[i * N + j];
+      plu_factor<T, N>(LU, piv);
 #pragma unroll
-      for (int i = 0; i < N; ++i) e[i] = i == c ? T(1) : T(0);
-      plu_substitute<T, N>(LU, piv, inv_d, e, x);
+      for (int i = 0; i < N; ++i) inv_d[i] = T(1) / LU[i][i];
+      for (int c = 0; c < N; ++c) {
+        T e[N], x[N];
 #pragma unroll
-      for (int i = 0; i < N; ++i) o[(i * N + c) * out.sc] = x[i];
+        for (int i = 0; i < N; ++i) e[i] = i == c ? T(1) : T(0);
+        plu_substitute<T, N>(LU, piv, inv_d, e, x);
+#pragma unroll
+        for (int i = 0; i < N; ++i) m[i * N + c] = x[i];
+      }
     }
   }
+  __syncthreads();
+  tile_store<T, kCF>(plan.out, b0, np, P, S, sm);
 }
 
 // ---------------------------------------------------------------------------
@@ -310,35 +379,50 @@ __global__ void det_groups(long long nb, int n, MatView<T> mat, View<T> out) {
 // Cholesky (compact in, compact lower factor out)
 // ---------------------------------------------------------------------------
 
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-chol_unrolled(long long nb, View<const T> mat, View<T> out) {
-  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (b >= nb) return;
-  // Banachiewicz in place: L[i][j] overwrites E[i][j], i >= j, which
-  // nothing reads after it
-  T E[N][N];
-  load_sym<T, N>(mat.p + b * mat.sb, mat.sc, nullptr, E);
+// One thread a problem, on the block's staged compact problems (as
+// inv_unrolled): the thread takes its problem's lower triangle into
+// registers (L[i (i + 1) / 2 + j] from slot (i, j), j <= i), runs
+// Cholesky-Banachiewicz in place, each L_ij overwriting the entry that
+// nothing reads after it, and writes L back to its region's slots.
+template <typename T, int N, int P, bool kCF>
+__global__ void __launch_bounds__(P) chol_unrolled(long long nb, StagedPlan<T> plan) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int NN = N * (N + 1) / 2, S = staged_stride<T>(NN);
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const long long b0 = blockIdx.x * (long long)P;
+  const int np = nb - b0 < P ? (int)(nb - b0) : P;
+  tile_stage<T, kCF, staged_loads<T>(NN)>(plan.in, b0, np, P, S, sm);
+  __syncthreads();
+  if ((int)threadIdx.x < np) {
+    T* m = sm + threadIdx.x * S;
+    auto lo = [](int i, int j) { return i * (i + 1) / 2 + j; };
+    T L[NN];
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
-    T s = E[j][j];
+    for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int k = 0; k < j; ++k) s = s - E[j][k] * E[j][k];
-    E[j][j] = fm_sqrt(s);
-    const T inv_ljj = T(1) / E[j][j];
+      for (int j = 0; j <= i; ++j) L[lo(i, j)] = m[tri_index(i, j, N)];
 #pragma unroll
-    for (int i = j + 1; i < N; ++i) {
-      T t = E[i][j];
+    for (int j = 0; j < N; ++j) {
+      T s = L[lo(j, j)];
 #pragma unroll
-      for (int k = 0; k < j; ++k) t = t - E[i][k] * E[j][k];
-      E[i][j] = t * inv_ljj;
+      for (int k = 0; k < j; ++k) s = s - L[lo(j, k)] * L[lo(j, k)];
+      L[lo(j, j)] = fm_sqrt(s);
+      const T inv_ljj = T(1) / L[lo(j, j)];
+#pragma unroll
+      for (int i = j + 1; i < N; ++i) {
+        T t = L[lo(i, j)];
+#pragma unroll
+        for (int k = 0; k < j; ++k) t = t - L[lo(i, k)] * L[lo(j, k)];
+        L[lo(i, j)] = t * inv_ljj;
+      }
     }
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j <= i; ++j) m[tri_index(i, j, N)] = L[lo(i, j)];
   }
-  T* o = out.p + b * out.sb;
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j <= i; ++j) o[tri_index(i, j, N) * out.sc] = E[i][j];
+  __syncthreads();
+  tile_store<T, kCF>(plan.out, b0, np, P, S, sm);
 }
 
 // A group of G lanes a problem (lu_groups.cuh's row layout): lane i holds
@@ -428,22 +512,42 @@ cudaError_t launch_solve_full(int n, int k, long long nb, MatView<T> mat, View<c
   return cudaGetLastError();
 }
 
+// A staged n <= 8 tier (inv_unrolled, chol_unrolled) over nb problems of
+// `size` values: P problems a block, their regions in dynamic shared
+// memory. A channel-first operand and result take the kernel that reads
+// and writes them a problem a thread (`cf`): the general staging's code
+// beside the arithmetic costs the batch-major kernel registers, and at
+// 8 x 8 in float32 a fifth of its blocks an SM.
+template <typename T, int P>
+void launch_staged(void (*kern)(long long, StagedPlan<T>), void (*cf)(long long, StagedPlan<T>),
+                   int size, long long nb, View<const T> in, View<T> out, cudaStream_t s) {
+  const int S = staged_stride<T>(size);
+  const StagedPlan<T> plan{tile_flat_operand<T>(in, size, P, S), tile_flat_out<T>(out, size, P, S)};
+  const auto k = plan.in.batch_fastest && plan.out.batch_fastest ? cf : kern;
+  k<<<(unsigned)((nb + P - 1) / P), P, P * S * sizeof(T), s>>>(nb, plan);
+}
+
 template <typename T>
-cudaError_t launch_inv(int n, long long nb, MatView<T> mat, View<T> out, cudaStream_t s) {
-  const unsigned g = grid_for(nb);
+cudaError_t launch_inv(int n, long long nb, View<const T> in, View<T> out, cudaStream_t s) {
   switch (n) {
-#define FM_INV_CASE(K) \
-  case K: inv_unrolled<T, K><<<g, kThreads, 0, s>>>(nb, mat, out); break;
+#define FM_INV_CASE(K)                                                        \
+  case K: {                                                                   \
+    constexpr int P = staged_threads<T>(K * K);                               \
+    launch_staged<T, P>(inv_unrolled<T, K, P, false>, inv_unrolled<T, K, P, true>, K * K, nb, \
+                        in, out, s);                                          \
+  } break;
     FM_INV_CASE(1) FM_INV_CASE(2) FM_INV_CASE(3) FM_INV_CASE(4)
     FM_INV_CASE(5) FM_INV_CASE(6) FM_INV_CASE(7) FM_INV_CASE(8)
 #undef FM_INV_CASE
-    default:
+    default: {
       if (n < 1 || n > kMaxN) return cudaErrorInvalidValue;
+      const MatView<T> mat = mat_view<T>(in.p, in.sb, in.sc, n, n, 0);
       if (lie_group(n) == 16)
         lu_launch<16>(inv_groups<T, 16>, lu_inv_bytes<T, 16>(), nb, s, n, mat, out);
       else
         lu_launch<kLieWarp>(inv_groups<T, kLieWarp>, lu_inv_bytes<T, kLieWarp>(), nb, s, n,
                             mat, out);
+    }
   }
   return cudaGetLastError();
 }
@@ -470,10 +574,13 @@ cudaError_t launch_det(int n, long long nb, MatView<T> mat, View<T> out, cudaStr
 
 template <typename T>
 cudaError_t launch_chol(int n, long long nb, View<const T> mat, View<T> out, cudaStream_t s) {
-  const unsigned g = grid_for(nb);
   switch (n) {
-#define FM_CHOL_CASE(K) \
-  case K: chol_unrolled<T, K><<<g, kThreads, 0, s>>>(nb, mat, out); break;
+#define FM_CHOL_CASE(K)                                                       \
+  case K: {                                                                   \
+    constexpr int NN = K * (K + 1) / 2, P = staged_threads<T>(NN);            \
+    launch_staged<T, P>(chol_unrolled<T, K, P, false>, chol_unrolled<T, K, P, true>, NN, nb, \
+                        mat, out, s);                                         \
+  } break;
     FM_CHOL_CASE(1) FM_CHOL_CASE(2) FM_CHOL_CASE(3) FM_CHOL_CASE(4)
     FM_CHOL_CASE(5) FM_CHOL_CASE(6) FM_CHOL_CASE(7) FM_CHOL_CASE(8)
 #undef FM_CHOL_CASE
@@ -516,10 +623,10 @@ extern "C" int fm_inv(int dtype, int n, long long nb,
   if (nb <= 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return fm::launch_inv<float>(n, nb, fm::mat_view<float>(mat, msb, msc, n, n, 0),
+    return fm::launch_inv<float>(n, nb, fm::cview<float>(mat, msb, msc),
                                  fm::view<float>(out, osb, osc), s);
   if (dtype == 1)
-    return fm::launch_inv<double>(n, nb, fm::mat_view<double>(mat, msb, msc, n, n, 0),
+    return fm::launch_inv<double>(n, nb, fm::cview<double>(mat, msb, msc),
                                   fm::view<double>(out, osb, osc), s);
   return cudaErrorInvalidValue;
 }

@@ -27,7 +27,9 @@
 //     writing row i when it is summed; 9 <= n <= 32 keeps v in a
 //     per-thread local array and loops over the rows.
 //   fm_matmul: a block of P problems stages each problem's A and B in
-//     shared memory (matmul_tiles), reading device memory in order: in
+//     shared memory (matmul_tiles, on tile_stage.cuh's tile_stage and
+//     tile_store, which batched.cu's n <= 8 inverse and Cholesky share),
+//     reading device memory in order: in
 //     16-byte vectors where an operand is contiguous batch-major (P a
 //     whole number of vectors' worth of problems), batch-fastest where it
 //     is channel-first; each thread issues eight loads before it stores
@@ -47,9 +49,8 @@
 
 #include <cuda_runtime.h>
 
-#include <cstdint>
-
 #include "sym_common.cuh"
+#include "tile_stage.cuh"
 
 namespace fm {
 
@@ -116,40 +117,8 @@ matmul_entries(long long nb, int m, int k, int n, bool batch_fastest, MatView<T>
   out.p[b * out.sb + e * out.sc] = acc;
 }
 
-// x / d for 0 <= x, x d < 2^32, d fixed at launch: the high word of x times
-// 2^32 / d rounded up (exact in that range), and x itself for d = 1.
-struct FastDiv {
-  unsigned d, mul;
-};
-
-inline FastDiv fast_div(int d) {
-  return {(unsigned)d, d == 1 ? 0u : (unsigned)(((1ull << 32) + d - 1) / d)};
-}
-
-__device__ __forceinline__ int fdiv(int x, FastDiv f) {
-  return f.d == 1 ? x : (int)__umulhi((unsigned)x, f.mul);
-}
-
 // The tile of C a thread of matmul_tiles accumulates: kTile x kTile.
 constexpr int kTile = 4;
-
-// 16 bytes of T, moved as one access.
-template <typename T>
-struct alignas(16) TileVec {
-  T v[16 / sizeof(T)];
-};
-
-// One operand of the product as the block stages it: raw storage in
-// rows * cols channels of `v` (row-major, or, if trans, the transpose of a
-// cols x rows matrix), staged as the rows x cols matrix at row stride ld,
-// at offset `off` of each problem's region.
-template <typename T>
-struct TileOperand {
-  View<const T> v;
-  int size, ld, off;
-  bool trans, batch_fastest, vec, vec_rows;  // vec_rows: a vector stays in one staged row
-  FastDiv inner, per;  // raw row length; size, or problems a block if batch_fastest
-};
 
 // The launch shape: problems a block, threads a problem and column blocks
 // of C a problem, each problem's shared region (S values), the operands,
@@ -158,94 +127,8 @@ template <typename T>
 struct TilePlan {
   int P, tpp, ncb, S;
   TileOperand<T> a, b;
-  bool out_batch_fastest, out_vec;
-  FastDiv out_per;
+  TileOut<T> out;
 };
-
-// Stage operand `o` of problems b0 .. b0 + np - 1. Entry e of the block's
-// range is problem p's raw value q, problem-major or, for a channel-first
-// operand, batch-fastest (the block's problems are then neighbours in each
-// channel): either way the block reads device memory in order. A
-// contiguous batch-major operand (`vec`) is read in 16-byte vectors: P is
-// a whole number of vectors' worth of problems, so each block's range
-// starts aligned, and a vector may span problems. Each thread issues kU
-// loads before it stores any, so that enough bytes are in flight to cover
-// the latency.
-template <typename T>
-__device__ __forceinline__ void tile_stage(const TileOperand<T>& o, long long b0, int np, int P,
-                                           int S, T* sm) {
-  constexpr int kU = 8, kW = 16 / (int)sizeof(T);
-  using V = TileVec<T>;
-  const int inner = (int)o.inner.d;
-  auto at = [&](int p, int q1, int q2) {  // the staged slot of raw row q1, column q2
-    return sm + p * S + o.off + (o.trans ? q2 * o.ld + q1 : q1 * o.ld + q2);
-  };
-  auto put = [&](int p, int q, T x) {
-    const int q1 = fdiv(q, o.inner);
-    *at(p, q1, q - q1 * inner) = x;
-  };
-  if (o.vec) {
-    const T* base = o.v.p + b0 * o.size;
-    const int total = np * o.size, nv = total / kW;
-    const V* src = reinterpret_cast<const V*>(base);
-    for (int e0 = threadIdx.x; e0 < nv; e0 += kU * blockDim.x) {
-      V x[kU];
-#pragma unroll
-      for (int u = 0; u < kU; ++u)
-        if (e0 + u * (int)blockDim.x < nv) x[u] = src[e0 + u * blockDim.x];
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        if (e0 + u * (int)blockDim.x < nv) {
-          // the vector's first value by division, the next ones by steps
-          const int e = (e0 + u * blockDim.x) * kW;
-          int p = fdiv(e, o.per), q = e - p * o.size;
-          int q1 = fdiv(q, o.inner), q2 = q - q1 * inner;
-          if (o.vec_rows) {
-            *reinterpret_cast<V*>(at(p, q1, q2)) = x[u];
-            continue;
-          }
-#pragma unroll
-          for (int c = 0; c < kW; ++c) {
-            *at(p, q1, q2) = x[u].v[c];
-            if (++q2 == inner) {
-              q2 = 0;
-              ++q1;
-            }
-            if (++q == o.size) {
-              q = q1 = q2 = 0;
-              ++p;
-            }
-          }
-        }
-      }
-    }
-    for (int e = nv * kW + threadIdx.x; e < total; e += blockDim.x) {  // the last block's tail
-      const int p = fdiv(e, o.per);
-      put(p, e - p * o.size, base[e]);
-    }
-    return;
-  }
-  const int total = (o.batch_fastest ? P : np) * o.size;
-  for (int e0 = threadIdx.x; e0 < total; e0 += kU * blockDim.x) {
-    T x[kU];
-    int pu[kU], qu[kU];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int e = e0 + u * blockDim.x;
-      if (o.batch_fastest) {
-        qu[u] = fdiv(e, o.per);
-        pu[u] = e - qu[u] * P;
-      } else {
-        pu[u] = fdiv(e, o.per);
-        qu[u] = e - pu[u] * o.size;
-      }
-      if (e < total && pu[u] < np) x[u] = o.v.p[(b0 + pu[u]) * o.v.sb + qu[u] * o.v.sc];
-    }
-#pragma unroll
-    for (int u = 0; u < kU; ++u)
-      if (e0 + u * (int)blockDim.x < total && pu[u] < np) put(pu[u], qu[u], x[u]);
-  }
-}
 
 // A block of P problems (plan), tpp threads each. The block stages each
 // problem's A (row stride lda, a multiple of the vector width) and B in
@@ -257,7 +140,7 @@ __device__ __forceinline__ void tile_stage(const TileOperand<T>& o, long long b0
 // place, row stride n, and the block writes each problem's m n values in
 // order, in vectors where the output is contiguous batch-major.
 template <typename T>
-__global__ void matmul_tiles(long long nb, int m, int k, int n, TilePlan<T> plan, View<T> out) {
+__global__ void matmul_tiles(long long nb, int m, int k, int n, TilePlan<T> plan) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int TM = kTile, TN = kTile, kW = 16 / (int)sizeof(T);
   static_assert(TN % kW == 0, "a tile row is whole vectors");
@@ -323,48 +206,7 @@ __global__ void matmul_tiles(long long nb, int m, int k, int n, TilePlan<T> plan
     }
   }
   __syncthreads();
-  const int mn = m * n;
-  if (plan.out_vec) {
-    using V = TileVec<T>;
-    T* base = out.p + b0 * mn;
-    const int total = np * mn, nv = total / kW;
-    for (int v = threadIdx.x; v < nv; v += blockDim.x) {
-      V x;
-      int pp = fdiv(v * kW, plan.out_per), q = v * kW - pp * mn;
-      if (mn % kW == 0) {  // a vector stays in one problem
-        reinterpret_cast<V*>(base)[v] = *reinterpret_cast<const V*>(sm + pp * S + q);
-        continue;
-      }
-#pragma unroll
-      for (int c = 0; c < kW; ++c) {
-        x.v[c] = sm[pp * S + q];
-        if (++q == mn) {
-          q = 0;
-          ++pp;
-        }
-      }
-      reinterpret_cast<V*>(base)[v] = x;
-    }
-    for (int e = nv * kW + threadIdx.x; e < total; e += blockDim.x) {
-      const int pp = fdiv(e, plan.out_per);
-      base[e] = sm[pp * S + e - pp * mn];
-    }
-    return;
-  }
-  const int total = (plan.out_batch_fastest ? P : np) * mn;
-#pragma unroll 4
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    int pp, q;
-    if (plan.out_batch_fastest) {
-      q = fdiv(e, plan.out_per);
-      pp = e - q * P;
-      if (pp >= np) continue;
-    } else {
-      pp = fdiv(e, plan.out_per);
-      q = e - pp * mn;
-    }
-    out.p[(b0 + pp) * out.sb + q * out.sc] = sm[pp * S + q];
-  }
+  tile_store<T>(plan.out, b0, np, P, S, sm);
 }
 
 // ---------------------------------------------------------------------------
@@ -416,19 +258,15 @@ TilePlan<T> tile_plan(int m, int k, int n, View<const T> a, bool ta, View<const 
   plan.tpp = tpp;
   plan.ncb = ncb;
   plan.S = S;
-  // a contiguous batch-major operand at a 16-byte boundary is read in vectors
-  auto vec = [P](const void* p, long long sb, long long sc, int size) {
-    return sc == 1 && sb == size && P * size % kW == 0 && (uintptr_t)p % 16 == 0;
-  };
+  // a vector of a row that is whole vectors lands whole in its staged row
   const bool af = a.sb == 1 && m * k > 1, bf = b.sb == 1 && k * n > 1;
-  const bool av = vec(a.p, a.sb, a.sc, m * k), bv = vec(b.p, b.sb, b.sc, k * n);
-  plan.a = {a, m * k, lda, 0, ta, af, av, av && !ta && k % kW == 0, fast_div(ta ? m : k),
-            fast_div(af ? P : m * k)};
-  plan.b = {b, k * n, ldb, mp * lda, tb, bf, bv, bv && !tb && n % kW == 0,
+  const bool av = tile_vec<T>(a.p, a.sb, a.sc, m * k, P);
+  const bool bv = tile_vec<T>(b.p, b.sb, b.sc, k * n, P);
+  plan.a = {a, m * k, lda, 0, ta, af, av, !ta && k % kW == 0 ? kLandWhole : kLandApart,
+            fast_div(ta ? m : k), fast_div(af ? P : m * k)};
+  plan.b = {b, k * n, ldb, mp * lda, tb, bf, bv, !tb && n % kW == 0 ? kLandWhole : kLandApart,
             fast_div(tb ? k : n), fast_div(bf ? P : k * n)};
-  plan.out_vec = vec(out.p, out.sb, out.sc, m * n);
-  plan.out_batch_fastest = !plan.out_vec && out.sb == 1 && m * n > 1;
-  plan.out_per = fast_div(plan.out_batch_fastest ? P : m * n);
+  plan.out = tile_flat_out<T>(out, m * n, P, S);  // C at row stride n: one run a problem
   return plan;
 }
 
@@ -438,7 +276,7 @@ void launch_tiles(int m, int k, int n, long long nb, View<const T> a, bool ta, V
   const TilePlan<T> plan = tile_plan<T>(m, k, n, a, ta, b, tb, out);
   const int threads = (plan.P * plan.tpp + 31) / 32 * 32;
   const unsigned g = (unsigned)((nb + plan.P - 1) / plan.P);
-  matmul_tiles<T><<<g, threads, plan.P * plan.S * (int)sizeof(T), s>>>(nb, m, k, n, plan, out);
+  matmul_tiles<T><<<g, threads, plan.P * plan.S * (int)sizeof(T), s>>>(nb, m, k, n, plan);
 }
 
 // The tier of an m x k x n product: a thread an entry up to 8

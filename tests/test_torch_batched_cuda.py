@@ -55,7 +55,7 @@ def _cf(t):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 8, 9, 16, 32])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 32])
 def test_kernels_match_plain(n, dtype, rng):
     b = 1029  # ragged last block
     for kind in ("pivoting", "spd"):
@@ -84,6 +84,77 @@ def test_kernels_match_plain(n, dtype, rng):
                     torch.cuda.synchronize()
                     assert _normwise(got, want) <= TOL[dtype]
                     assert _normwise(got, oracle.reshape(b, n * k)) <= TOL[dtype]
+
+
+# the n <= 8 tiers stage blocks of 128 problems (the inverse 64 in float64
+# at n = 7, 8): one problem, a block less one, one, one more, at either
+# size, and many
+STAGED_BATCHES = (1, 63, 64, 65, 127, 128, 129, 1029)
+
+
+def _misaligned(x):
+    """A batch-major copy of ``x`` one element past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_staged_inverse_batches_and_views(n, dtype, rng):
+    # the staged tier's three orders of device memory (16-byte vectors,
+    # batch-fastest, element by element) at every edge of its blocks
+    for b in STAGED_BATCHES:
+        a = torch.tensor(_matrices(rng, b, n, "pivoting").reshape(b, n * n), dtype=dtype,
+                         device="cuda")
+        want = batched_cuda.inv_plain(a)
+        oracle = torch.from_numpy(np.linalg.inv(a.double().cpu().numpy().reshape(b, n, n)))
+        views = ((a, False), (_cf(a), True), (_cf(a), False), (a, True), (_misaligned(a), False))
+        for m, cf in views:
+            before = inv_cf.launches
+            got = batched_cuda.launch_inv(m, cf_out=cf)
+            assert inv_cf.launches == before + 1
+            torch.cuda.synchronize()
+            assert _normwise(got, want) <= TOL[dtype], (b, m.stride(), cf)
+            assert _normwise(got, oracle.reshape(b, n * n)) <= TOL[dtype], (b, m.stride(), cf)
+    # a broadcast batch (stride 0), through the channel-first wrapper and
+    # the public op
+    one = torch.tensor(_matrices(rng, 1, n, "pivoting").reshape(n * n, 1), dtype=dtype,
+                       device="cuda")
+    got = inv_cf(one.expand(-1, 515))
+    assert _normwise(got.t(), inv_cf(one.cpu().expand(-1, 515)).t()) <= TOL[dtype]
+    got = T.batchinv(one.reshape(1, n, n).expand(515, n, n))
+    assert _normwise(got.reshape(515, -1), T.batchinv(one.reshape(1, n, n).cpu()).reshape(
+        1, -1).expand(515, -1)) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 3, 5, 8])
+def test_staged_inverse_keeps_a_bad_problem_to_itself(n, dtype, rng):
+    # singular and NaN problems, either side of two block edges: their
+    # results are not finite, and every other problem's are the bits of a
+    # batch without them
+    b, bad = 1029, (63, 64, 127, 128)
+    a = torch.tensor(_matrices(rng, b, n, "pivoting").reshape(b, n * n), dtype=dtype,
+                     device="cuda")
+    good = batched_cuda.launch_inv(a)
+    a[bad[0]] = 0
+    a[bad[1], 0] = float("nan")
+    a[bad[2], -1] = float("nan")
+    a[bad[3]] = 0
+    keep = torch.ones(b, dtype=torch.bool)
+    keep[list(bad)] = False
+    for m, cf in ((a, False), (_cf(a), True), (_misaligned(a), False)):
+        got = batched_cuda.launch_inv(m, cf_out=cf)
+        torch.cuda.synchronize()
+        for k in bad:
+            assert not torch.isfinite(got[k]).all(), (k, cf)
+        assert torch.equal(got.cpu()[keep], good.cpu()[keep])
+        want = batched_cuda.inv_plain(a[keep.to(a.device)])
+        assert _normwise(got[keep.to(a.device)], want) <= TOL[dtype]
 
 
 @pytest.mark.cuda

@@ -127,6 +127,75 @@ def test_kernels_match_plain(n, dtype, rng):
                 assert _rel(got, torch.from_numpy(oracle)) <= tol, (wrapper.__name__, cf)
 
 
+# the n <= 8 tiers stage blocks of 128 problems (the inverse 64 in float64
+# at n = 7, 8): one problem, a block less one, one, one more, at either
+# size, and many
+STAGED_BATCHES = (1, 63, 64, 65, 127, 128, 129, 1029)
+
+
+def _misaligned(x):
+    """A batch-major copy of ``x`` one element past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_staged_cholesky_batches_and_views(n, dtype, rng):
+    # the staged tier's three orders of device memory (16-byte vectors,
+    # batch-fastest, element by element) at every edge of its blocks
+    for b in STAGED_BATCHES:
+        c = torch.tensor(_compact(_spd(rng, b, n)), dtype=dtype, device="cuda")
+        want = batched_cuda.chol_plain(c)
+        oracle = _compact_lower(np.linalg.cholesky(sym_to_full(c.double().cpu()).numpy()))
+        views = ((c, False), (_cf(c), True), (_cf(c), False), (c, True), (_misaligned(c), False))
+        for m, cf in views:
+            before = chol_cf.launches
+            got = batched_cuda.launch_chol(m, cf_out=cf)
+            assert chol_cf.launches == before + 1
+            torch.cuda.synchronize()
+            assert _rel(got, want) <= TOL[dtype], (b, m.stride(), cf)
+            assert _rel(got, torch.from_numpy(oracle)) <= TOL[dtype], (b, m.stride(), cf)
+    # a broadcast batch (stride 0), through the channel-first wrapper and
+    # the public op
+    one = torch.tensor(_compact(_spd(rng, 1, n)).T, dtype=dtype, device="cuda")
+    got = chol_cf(one.expand(-1, 515))
+    assert _rel(got.t(), chol_cf(one.cpu().expand(-1, 515)).t()) <= TOL[dtype]
+    full = sym_to_full(one.t())
+    got = T.batchchol(full.expand(515, n, n))
+    assert _rel(got.reshape(515, -1),
+                T.batchchol(full.cpu()).reshape(1, -1).expand(515, -1)) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 3, 5, 8])
+def test_staged_cholesky_keeps_a_bad_problem_to_itself(n, dtype, rng):
+    # problems that are not SPD, either side of two block edges: their
+    # factors hold NaN, and every other problem's are the bits of a batch
+    # without them
+    b, bad = 1029, (63, 64, 127, 128)
+    c = torch.tensor(_compact(_spd(rng, b, n)), dtype=dtype, device="cuda")
+    good = batched_cuda.launch_chol(c)
+    c[bad[0], 0] = -1.0  # a negative first pivot
+    c[bad[1], n - 1] = -float(n)  # the last pivot negative
+    c[bad[2], 0] = float("nan")
+    c[bad[3], 0] = -1.0
+    keep = torch.ones(b, dtype=torch.bool)
+    keep[list(bad)] = False
+    for m, cf in ((c, False), (_cf(c), True), (_misaligned(c), False)):
+        got = batched_cuda.launch_chol(m, cf_out=cf)
+        torch.cuda.synchronize()
+        for k in bad:
+            assert torch.isnan(got[k]).any(), (k, cf)
+        assert torch.equal(got.cpu()[keep], good.cpu()[keep])
+        want = batched_cuda.chol_plain(c[keep.to(c.device)])
+        assert _rel(got[keep.to(c.device)], want) <= TOL[dtype]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cf_wrappers_take_strided_operands(dtype, rng):
