@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time one source tree's full-storage solve, Cholesky, inverse, compact
 solve, product, matrix logarithm, rolled eig, chain and power-iteration
-kernels, and the n <= 8 inverse and Cholesky tiers, on one NVIDIA GPU,
-to compare two versions of a kernel in one call.
+kernels, the n <= 8 inverse and Cholesky tiers, the d <= 8 matrix
+exponential and the 5 <= N <= 8 compact chain, on one NVIDIA GPU, to
+compare two versions of a kernel in one call.
 
     python3 /path/to/chip_ab.py TAG [--library] [--only GROUP[,GROUP...]]
 
@@ -14,8 +15,9 @@ groups it times, times each kernel three times with
 against its plain version, and prints one JSON line: ``tag``, each
 shape's three times and error, and the registers and spills (``-Xptxas
 -v``) of every kernel of those sources but the unrolled tiers (except
-``logm_unrolled``, and the inverse's and Cholesky's with ``inv8`` and
-``chol8``). The groups (all by default): ``solve``
+``logm_unrolled``, and the inverse's, Cholesky's, expm's and the chain's
+with ``inv8``, ``chol8``, ``expm`` and ``chain8``). The groups (all by
+default): ``solve``
 (``csrc/batched.cu``: the solve 16x16 on 500k, 24x24 on 200k, 32x32 on
 100k with one column and 16x16 with 16; the inverse 16x16 and 32x32),
 ``chol`` (16x16, 24x24, 32x32), ``sym_solve`` (``csrc/sym_solve.cu``: N =
@@ -44,11 +46,19 @@ ceiling, ``stage_copy``: ``csrc/tile_stage.cuh`` of the
 tree this script lies in, built here into a kernel that stages 8x8
 problems into shared memory and writes them back with no arithmetic, at P
 = 64, 128 and 256 problems a block, beside ``Tensor.copy_`` of the same
-bytes and their bound) and ``chol8`` (the n <= 8 Cholesky tier: 3x3, 5x5
-and 8x8 on 1M in float32, 8x8 in float64, and the channel-first 8x8).
-``inv8`` and ``chol8`` also give each output's digest (SHA-256 of its
-bytes), so that two trees' outputs compare bit for bit, and their
-tiers' registers. ``--library`` also times ``torch.linalg.solve_ex`` /
+bytes and their bound), ``chol8`` (the n <= 8 Cholesky tier: 3x3, 5x5
+and 8x8 on 1M in float32, 8x8 in float64, and the channel-first 8x8),
+``expm`` (``csrc/expm.cu``'s one-thread tier at every d <= 8 in both
+dtypes on the bytes of 4x4 on 1M, batch-major and channel-first, with its
+bound and mean squarings; 4x4 and 8x8 float32 also sorted by their
+squaring counts; ``expm_warp<T, 8>`` at 5 <= d <= 8) and ``chain8`` (the
+compact chain solve k = 128 at N = 5..8 on 262,144 in both dtypes,
+channel-first too, with its bound and its normwise error against the
+float64 recurrence on 4096 problems; ``chain_groups<T, 8>``). The
+lane-group tiers at d, N <= 8 come from ``TIER_PROBE``, built against
+the measured tree's sources. ``inv8``, ``chol8``, ``expm`` and ``chain8``
+also give each output's digest (SHA-256 of its bytes), so that two trees'
+outputs compare bit for bit, and their tiers' registers. ``--library`` also times ``torch.linalg.solve_ex`` /
 ``cholesky_ex`` (the compact solve's on the densified batch),
 ``inv_ex``, ``torch.matmul`` and ``eigvalsh`` / ``eigh`` on the same
 inputs. It imports neither JAX nor ``fastmath_tpu``.
@@ -107,6 +117,76 @@ extern "C" int fm_stage_copy(int dtype, int P, long long nb, const void* x, long
 """
 
 
+# The other tiers a shape could take, built from the measured tree's own
+# sources: expm_warp<T, 8> (the lane groups of 8 that serve float64 at d =
+# 7, 8) and chain_groups<T, 8> (the 9 <= N <= 32 chain's explicit inverse
+# on lane groups of 8), each launched at 5 <= d, N <= 8, where the tree's
+# own launchers take the one-thread tiers.
+TIER_PROBE = r"""
+#include "expm.cu"
+#include "sym_solve.cu"
+
+extern "C" int fm_probe_expm_warp8(int dtype, int d, long long nb, const void* a, long long sb,
+                                   long long rs, long long cs, void* out, long long osb,
+                                   long long osc, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    fm::launch_expm_group<float, 8>(
+        d, nb, fm::MatView<float>{static_cast<const float*>(a), sb, rs, cs},
+        fm::view<float>(out, osb, osc), s);
+  else
+    fm::launch_expm_group<double, 8>(
+        d, nb, fm::MatView<double>{static_cast<const double*>(a), sb, rs, cs},
+        fm::view<double>(out, osb, osc), s);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int chain8(int n, long long nb, const void* mat, long long msb, long long msc, const void* vec,
+           long long vsb, long long vsc, const void* add, long long asb, long long asc,
+           void* out, long long osb, long long osc, int iters, cudaStream_t s) {
+  fm::lu_launch<8>(fm::chain_groups<T, 8>, fm::lu_chain_solve_bytes<T, 8>(), nb, s, n,
+                   fm::cview<T>(mat, msb, msc), fm::cview<T>(vec, vsb, vsc),
+                   fm::cview<T>(add, asb, asc), fm::view<T>(out, osb, osc),
+                   static_cast<const T*>(nullptr), iters);
+  return cudaGetLastError();
+}
+
+extern "C" int fm_probe_chain_groups8(int dtype, int n, long long nb, const void* mat,
+                                      long long msb, long long msc, const void* vec,
+                                      long long vsb, long long vsc, const void* add,
+                                      long long asb, long long asc, void* out, long long osb,
+                                      long long osc, int iters, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? chain8<float>(n, nb, mat, msb, msc, vec, vsb, vsc, add, asb, asc, out,
+                                    osb, osc, iters, s)
+                    : chain8<double>(n, nb, mat, msb, msc, vec, vsb, vsc, add, asb, asc, out,
+                                     osb, osc, iters, s);
+}
+"""
+
+
+def tier_probe_library(_build):
+    """Build TIER_PROBE against the measured tree's csrc (the working
+    directory's package) into its build/chip_ab/ and load it."""
+    out = pathlib.Path.cwd() / "build" / "chip_ab"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "tier_probe.cu").write_text(TIER_PROBE)
+    lib = out / "libtier_probe.so"
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+                           str(lib), str(out / "tier_probe.cu")], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"tier_probe failed to build:\n{proc.stdout}{proc.stderr}")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    cdll = ctypes.CDLL(str(lib))
+    cdll.fm_probe_expm_warp8.argtypes = [i, i, ll, p, ll, ll, ll, p, ll, ll, p]
+    cdll.fm_probe_expm_warp8.restype = i
+    cdll.fm_probe_chain_groups8.argtypes = [i, i, ll, p, ll, ll, p, ll, ll, p, ll, ll, p, ll, ll,
+                                            i, p]
+    cdll.fm_probe_chain_groups8.restype = i
+    return cdll, proc.stdout + proc.stderr
+
+
 def stage_copy_library(_build):
     """Build STAGE_COPY against this script's tree's tile_stage.cuh into
     build/chip_ab/ of the working directory and load it."""
@@ -145,16 +225,16 @@ def main():
 
     tag, library = sys.argv[1], "--library" in sys.argv[2:]
     groups = {"solve", "chol", "sym_solve", "matmul", "logm", "logm4", "eig", "chain", "maxeig",
-              "inv8", "chol8"}
+              "inv8", "chol8", "expm", "chain8"}
     if "--only" in sys.argv:
         groups = set(sys.argv[sys.argv.index("--only") + 1].split(","))
     sources = {"solve": "batched", "chol": "batched", "sym_solve": "sym_solve",
                "matmul": "batched_products", "logm": "logm", "logm4": "logm", "eig": "eig",
                "chain": ("sym_iterate", "sym_solve"), "maxeig": "sym_iterate",
-               "inv8": "batched", "chol8": "batched"}
+               "inv8": "batched", "chol8": "batched", "expm": "expm", "chain8": "sym_solve"}
     libs = sorted({lib for g in groups for lib in
                    ((sources[g],) if isinstance(sources[g], str) else sources[g])})
-    _build.build_all(libs + (["expm"] if groups & {"logm", "logm4"} else []))
+    _build.build_all(sorted(set(libs) | ({"expm"} if groups & {"logm", "logm4"} else set())))
     res = {"tag": tag}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -380,8 +460,108 @@ def main():
                   lambda: (torch.linalg.eigh if vec else torch.linalg.eigvalsh)(a),
                   lambda got, want: (got.sort(-1).values - want.sort(-1).values).abs().max().item())
         del a
+    probe = tier_probe_library(_build) if groups & {"expm", "chain8"} else None
+    if probe is not None:
+        res["tier_probe ptxas"] = C.ptxas_summary(probe[1])
+        probe = probe[0]
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    # expm at d = 1..8 in both dtypes on the bytes of 4x4 on 1M (8x8 on
+    # 250k), inputs seeded by shape: the tree's tier batch-major (digest) and
+    # channel-first (digest), expm_warp<T, 8> at 5 <= d <= 8, and at d = 4
+    # and 8 in float32 the same problems sorted by their squaring counts
+    for d in range(1, 9):
+        if "expm" not in groups:
+            break
+        for dt in ("f32", "f64"):
+            dtype, b = (torch.float32 if dt == "f32" else torch.float64), 16_000_000 // (d * d)
+            g = torch.Generator(device="cuda")
+            g.manual_seed(7000 + 10 * d + (dt == "f64"))
+            x = (torch.randn(b, d, d, generator=g, device="cuda")
+                 * (0.5 if d == 4 else 0.5 / d ** 0.5)).to(dtype)
+            key = f"expm {d}x{d} {dt} on {b}"
+            timed(key, lambda: KE.launch_expm(x), lambda: KE.expm_plain(x), None, logm_err)
+            res[f"{key} digest"] = digest(KE.launch_expm(x).reshape(b, d * d))
+            s_mean = KE.squaring_counts(x[:65536]).double().mean().item()
+            nops = C.ops_expm(d, s_mean, KE.taylor_order(dtype))
+            res[f"{key} bound"] = list(C.bound(2 * b * d * d * x.element_size(), b * nops,
+                                               "float32" if dt == "f32" else "float64"))
+            res[f"{key} squarings"] = s_mean
+            xc = x.reshape(b, d * d).t().contiguous().t().reshape(b, d, d)
+            res[f"{key} channel-first"] = [
+                C.device_ms(torch, lambda: KE.launch_expm(xc, cf_out=True), reps=10)
+                for _ in range(3)]
+            res[f"{key} channel-first digest"] = digest(KE.launch_expm(xc, cf_out=True)
+                                                        .reshape(b, d * d))
+            del xc
+            if d >= 5:
+                y = torch.empty_like(x)
+
+                def warp8():
+                    err = probe.fm_probe_expm_warp8(int(dt == "f64"), d, b, x.data_ptr(),
+                                                    *x.stride(), y.data_ptr(), d * d, 1, stream())
+                    if err:
+                        raise RuntimeError(f"expm_warp<{dt}, 8> d={d}: CUDA error {err}")
+                    return y
+
+                timed(f"{key} expm_warp8", warp8, lambda: KE.expm_plain(x), None, logm_err)
+                del y
+            if dt == "f32" and d in (4, 8):
+                xs = x[torch.argsort(KE.squaring_counts(x), stable=True)].contiguous()
+                res[f"{key} sorted by squarings"] = [
+                    C.device_ms(torch, lambda: KE.launch_expm(xs), reps=10) for _ in range(3)]
+                del xs
+            del x
+    # the compact chain k = 128 at N = 5..8 on 262,144 in both dtypes (add =
+    # c, no eps): the tree's tier batch-major (digest) and channel-first,
+    # chain_groups<T, 8>, and the normwise error over the terms against
+    # the float64 recurrence on the first 4096
+    for n in range(5, 9):
+        if "chain8" not in groups:
+            break
+        for dt in ("f32", "f64"):
+            dtype, b, k = (torch.float32 if dt == "f32" else torch.float64), 262_144, 128
+            g = torch.Generator(device="cuda")
+            g.manual_seed(9000 + 10 * n + (dt == "f64"))
+            full = C.spd_on_card(torch, g, b, n)
+            m = full_to_sym(full).contiguous().to(dtype)
+            v, c = (torch.randn(b, n, generator=g, device="cuda").to(dtype) for _ in range(2))
+            key = f"sym_chain N={n} k={k} {dt} on {b}"
+            timed(key, lambda: SC.launch_chain(m, v, c, None, k),
+                  lambda: SC.chain_plain(m, v, c, None, k), None, chain_err(c))
+            got = SC.launch_chain(m, v, c, None, k)
+            res[f"{key} digest"] = digest(got)
+            want = C.oracle_chain(full[:4096].double().cpu().numpy(), v[:4096].cpu().numpy(),
+                                  c[:4096].cpu().numpy(), k)
+            res[f"{key} vs f64 recurrence"] = float(C.normwise(
+                got[:4096].double().cpu().numpy(), want, c[:4096].double().cpu().numpy()).max())
+            nn = n * (n + 1) // 2
+            res[f"{key} bound"] = list(C.bound(b * (nn + 2 * n) * m.element_size(),
+                                               b * C.ops_chain_rolled(n, k),
+                                               "float32" if dt == "f32" else "float64"))
+            mc, vc, cc = cf(m), cf(v), cf(c)
+            res[f"{key} channel-first"] = [
+                C.device_ms(torch, lambda: SC.launch_chain(mc, vc, cc, None, k, cf_out=True),
+                            reps=10) for _ in range(3)]
+            res[f"{key} channel-first digest"] = digest(SC.launch_chain(mc, vc, cc, None, k,
+                                                                        cf_out=True))
+            y = torch.empty_like(v)
+
+            def groups8():
+                err = probe.fm_probe_chain_groups8(int(dt == "f64"), n, b, m.data_ptr(),
+                                                   *m.stride(), v.data_ptr(), *v.stride(),
+                                                   c.data_ptr(), *c.stride(), y.data_ptr(),
+                                                   *y.stride(), k, stream())
+                if err:
+                    raise RuntimeError(f"chain_groups<{dt}, 8> N={n}: CUDA error {err}")
+                return y
+
+            timed(f"{key} chain_groups8", groups8, lambda: SC.chain_plain(m, v, c, None, k),
+                  None, chain_err(c))
+            del full, m, v, c, mc, vc, cc, got, y
     unrolled = ("logm_unrolled",) + (("inv_unrolled",) if "inv8" in groups else ()) + (
-        ("chol_unrolled",) if "chol8" in groups else ())
+        ("chol_unrolled",) if "chol8" in groups else ()) + (
+        ("expm_unrolled",) if "expm" in groups else ()) + (
+        ("chain_unrolled",) if "chain8" in groups else ())
     res["ptxas"] = [row for lib in libs
                     for row in C.ptxas_summary(_build.build_log(lib).read_text())
                     if "unrolled" not in row or row.startswith(unrolled)]

@@ -309,7 +309,7 @@ def phase_device(torch):
 
 # the compact solve's and chain's tiers, and the edges of the solve's lane
 # groups (G = 16 to N = 16, 32 above)
-SYM_SOLVE_CHECK_NS = (1, 2, 3, 4, 5, 6, 8, 9, 12, 16, 17, 24, 32)
+SYM_SOLVE_CHECK_NS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 16, 17, 24, 32)
 
 
 def phase_kernels_vs_plain(torch, rng):
@@ -1045,6 +1045,8 @@ def ops_chain_rolled(n, iters):
 # the compact solve beyond the main path: (N, batch, refine); the chain is
 # timed beside the unrefined solve
 WIDE_SHAPES = ((8, B_WIDE, 0), (16, B_WIDE, 0), (16, B_WIDE, 1), (32, 65_536, 0))
+# the chain's other N of the explicit-inverse tier (5 <= N <= 8), on B_WIDE
+CHAIN_NARROW = (5, 6, 7)
 
 
 def ops_sym_solve(n, refine):
@@ -1060,9 +1062,10 @@ def phase_wide(torch, rng):
     """The compact solve at N = 8 (unrolled PLU), N = 16 (lane groups, also
     with ``refine=1``) and N = 32 (lane groups of 32), each beside its
     bound, its plain version and ``torch.linalg.solve_ex`` on the densified
-    batch, and the chain k = 128 at N = 8, 16 and 32 beside its bound and
-    its plain version. Returns the solve's and the chain's timed shapes
-    for the kernels line."""
+    batch, and the chain k = 128 at N = 5, 6, 7, 8 (the explicit inverse,
+    one thread a problem), 16 and 32 beside its bound and its plain
+    version, each also against the float64 recurrence. Returns the solve's
+    and the chain's timed shapes for the kernels line."""
     import fastmath_tpu_torch as T
     from fastmath_tpu_torch.kernels import sym_cuda
     from fastmath_tpu_torch.layouts import full_to_sym
@@ -1102,24 +1105,50 @@ def phase_wide(torch, rng):
             f"bound {b_s:.4f} ms by {by_s}, {b_s / t_s * 100:.1f}% of it; plain "
             f"{t_plain:.4f} ms; solve_ex {t_lib:.4f} ms)")
         if refine == 0:
-            c_k = sym_cuda.launch_chain(mat[:4096], vec[:4096], vec[:4096], None, CHAIN_K)
-            c_p = sym_cuda.chain_plain(mat[:4096], vec[:4096], vec[:4096], None, CHAIN_K)
-            d_c = normwise(c_k.cpu().numpy(), c_p.cpu().numpy(), vec[:4096].cpu().numpy()).max()
-            if not d_c <= 1e-3:  # the main path's chain gate
-                fail(f"N={n}: chain k={CHAIN_K} kernel vs plain {d_c:.3e}")
-            t_c = kernel_ms(torch, lambda: sym_cuda.launch_chain(mat, vec, vec, None, CHAIN_K),
-                            f"chain N={n}", reps=5)
-            t_cp = call_ms(torch, lambda: sym_cuda.chain_plain(mat, vec, vec, None, CHAIN_K),
-                           reps=3, warmup=1)
-            b_c, by_c = bound(b * (nn + 2 * n) * 4, b * ops_chain_rolled(n, CHAIN_K),
-                              "float32")
-            chain_rows.append(shape_row(f"N = {n}, k = {CHAIN_K} on {b}", t_c, t_cp, b_c, by_c,
-                                        None))
-            log(f"  N={n} B={b} f32 chain k={CHAIN_K} kernel {t_c:.4f} ms "
-                f"({b * CHAIN_K / t_c * 1e3:.4e} solves/s; bound {b_c:.4f} ms by {by_c}, "
-                f"{b_c / t_c * 100:.1f}% of it; plain {t_cp:.4f} ms; vs plain {d_c:.3e})")
+            chain_rows.append(chain_row(n, b, mat, vec))
         del dense, mat, vec, x
-    return rows, chain_rows
+    # the chain alone at the other N of the explicit inverse's tier
+    narrow = []
+    for n in CHAIN_NARROW:
+        a = torch.from_numpy(rng.standard_normal((B_WIDE, n, n)).astype(np.float32)).to(DEV)
+        mat = full_to_sym(a @ a.mT + n * torch.eye(n, device=DEV)).contiguous()
+        vec = torch.from_numpy(rng.standard_normal((B_WIDE, n)).astype(np.float32)).to(DEV)
+        narrow.append(chain_row(n, B_WIDE, mat, vec))
+        del a, mat, vec
+    return rows, narrow + chain_rows
+
+
+def chain_row(n, b, mat, vec):
+    """The chain k = CHAIN_K with add = vec at N = n on b problems, float32:
+    the kernel against its plain version (the main path's gate) and, on
+    4096 problems, the float64 recurrence (GATE); its time beside its bound
+    and its plain version's; the kernels line's row."""
+    import torch
+
+    from fastmath_tpu_torch.kernels import sym_cuda
+    from fastmath_tpu_torch.layouts import sym_to_full
+
+    nn = n * (n + 1) // 2
+    c_k = sym_cuda.launch_chain(mat[:4096], vec[:4096], vec[:4096], None, CHAIN_K)
+    c_p = sym_cuda.chain_plain(mat[:4096], vec[:4096], vec[:4096], None, CHAIN_K)
+    v64 = vec[:4096].cpu().numpy()
+    d_c = normwise(c_k.cpu().numpy(), c_p.cpu().numpy(), v64).max()
+    if not d_c <= 1e-3:  # the main path's chain gate
+        fail(f"N={n}: chain k={CHAIN_K} kernel vs plain {d_c:.3e}")
+    full = sym_to_full(mat[:4096]).double().cpu().numpy()
+    o_c = normwise(c_k.cpu().numpy(), oracle_chain(full, v64, v64, CHAIN_K), v64).max()
+    if not o_c <= GATE:
+        fail(f"N={n}: chain k={CHAIN_K} vs the float64 recurrence {o_c:.3e}")
+    t_c = kernel_ms(torch, lambda: sym_cuda.launch_chain(mat, vec, vec, None, CHAIN_K),
+                    f"chain N={n}", reps=5)
+    t_cp = call_ms(torch, lambda: sym_cuda.chain_plain(mat, vec, vec, None, CHAIN_K),
+                   reps=3, warmup=1)
+    b_c, by_c = bound(b * (nn + 2 * n) * 4, b * ops_chain_rolled(n, CHAIN_K), "float32")
+    log(f"  N={n} B={b} f32 chain k={CHAIN_K} kernel {t_c:.4f} ms "
+        f"({b * CHAIN_K / t_c * 1e3:.4e} solves/s; bound {b_c:.4f} ms by {by_c}, "
+        f"{b_c / t_c * 100:.1f}% of it; plain {t_cp:.4f} ms; vs plain {d_c:.3e}, "
+        f"vs f64 recurrence {o_c:.3e} (gate {GATE:.0e}))")
+    return shape_row(f"N = {n}, k = {CHAIN_K} on {b}", t_c, t_cp, b_c, by_c, None)
 
 
 # --- phase 5 -----------------------------------------------------------------
@@ -2353,7 +2382,7 @@ TOL_EXPM = {"float32": 1e-5, "float64": 1e-12}
 TOL_EXPM_DEEP = {"float32": 2e-4, "float64": 1e-11}
 TOL_LOGM = {"float32": 5e-5, "float64": 1e-11}
 # every d phase 10 runs, and each tier's edges
-LIE_CHECK_DS = (1, 2, 3, 4, 5, 8, 9, 12, 16, 17, 24, 25, 28, 32)
+LIE_CHECK_DS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 16, 17, 24, 25, 28, 32)
 LIE_ORACLE = 64  # problems held against float64 scipy in phase 2
 
 
@@ -2530,9 +2559,10 @@ LIE_SPD = ((5, 15_625), (8, 15_625), (12, 15_625), (16, 15_625), (17, 15_625), (
            (28, 15_625), (32, 15_625))
 MEANM_SHAPE = (4096, 8, 4)
 # the shape of each kernel row of the kernels line
-LIE_ROWS = {"expm_unrolled": (4, 1_000_000), "expm_warp": (16, 62_500),
-            "expm_warp_d32": (32, 15_625), "logm_unrolled": (4, 1_000_000),
-            "logm_warp": (16, 62_500), "logm_warp_d32": (32, 15_625)}
+LIE_ROWS = {"expm_unrolled": (4, 1_000_000), "expm_unrolled_d8": (8, 250_000),
+            "expm_warp": (16, 62_500), "expm_warp_d32": (32, 15_625),
+            "logm_unrolled": (4, 1_000_000), "logm_warp": (16, 62_500),
+            "logm_warp_d32": (32, 15_625)}
 
 
 def ops_matmul(d):
@@ -2730,10 +2760,12 @@ def phase_lie(torch, rng):
     # version and, for expm, torch.linalg.matrix_exp (timed only, never
     # called by the port)
     kernels = []
-    rows = {"expm_unrolled": (X, "expm"), "expm_warp": (Xs[16], "expm"),
+    rows = {"expm_unrolled": (X, "expm"), "expm_unrolled_d8": (Xs[8], "expm"),
+            "expm_warp": (Xs[16], "expm"),
             "expm_warp_d32": (Xs[32], "expm"), "logm_unrolled": (E, "logm"),
             "logm_warp": (es[16], "logm"), "logm_warp_d32": (es[32], "logm")}
-    lines = {"expm_unrolled": "expm_pallas.py:114", "expm_warp": "expm_pallas.py:73",
+    lines = {"expm_unrolled": "expm_pallas.py:114", "expm_unrolled_d8": "expm_pallas.py:114",
+             "expm_warp": "expm_pallas.py:73",
              "expm_warp_d32": "expm_pallas.py:73", "logm_unrolled": "logm_pallas.py:106",
              "logm_warp": "logm_pallas.py:235", "logm_warp_d32": "logm_pallas.py:317"}
     for name, (a, op) in rows.items():
@@ -2743,7 +2775,8 @@ def phase_lie(torch, rng):
         launch = KE.launch_expm if op == "expm" else KL.launch_logm
         plain = KE.expm_plain if op == "expm" else KL.logm_plain
         tier = (KE.tier if op == "expm" else KL.tier)(d, a.dtype)
-        if tier != name.replace("_d32", ""):
+        kernel = re.sub(r"_d\d+$", "", name)
+        if tier != kernel:
             fail(f"{name}: d={d} runs {tier}")
         got, want = launch(a), plain(a)
         err = (got - want).abs().max().item()
@@ -2771,7 +2804,7 @@ def phase_lie(torch, rng):
             "name": name, "route": "cuda",
             "source": f"fastmath_tpu_torch/kernels/csrc/{op}.cu",
             "replaces": f"fastmath_tpu/kernels/{lines[name]}",
-            "launches": launches[name.replace("_d32", "")], "max_abs_err": err, "ms": ms,
+            "launches": launches[kernel], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
     return kernels
 

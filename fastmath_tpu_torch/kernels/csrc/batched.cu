@@ -74,14 +74,15 @@
 // moves 32 sectors for 128 useful bytes (the inverse and the Cholesky at
 // 8 x 8 reached 10.5% and 13% of their byte bounds that way; the solve
 // and the determinant still do). The n <= 8 inverse and Cholesky tiers
-// therefore stage their blocks' problems through shared memory (below,
-// above staged_stride), with the same arithmetic, so the same bits. On an
-// H100 80GB HBM3 at 700 W (chip_ab.py, 1M problems, float32) the 8 x 8
-// inverse takes 0.23 ms (67% of its byte bound; a kernel that only stages
-// the same bytes in and out, 88%), the 8 x 8 Cholesky 0.10 ms (86%), the
-// 3 x 3 inverse and Cholesky 79% and 83%: inv_unrolled<float, 8> holds 96
-// registers and 33 KB of regions, 5 blocks of 128 an SM, and what is left
-// is its arithmetic, which the other blocks' copies overlap only in part.
+// therefore stage their blocks' problems through shared memory
+// (tile_stage.cuh, staged_stride), with the same arithmetic, so the same
+// bits. On an H100 80GB HBM3 at 700 W (chip_ab.py, 1M problems, float32)
+// the 8 x 8 inverse takes 0.23 ms (67% of its byte bound; a kernel that
+// only stages the same bytes in and out, 88%), the 8 x 8 Cholesky 0.10 ms
+// (86%), the 3 x 3 inverse and Cholesky 79% and 83%: inv_unrolled<float,
+// 8> holds 96 registers and 33 KB of regions, 5 blocks of 128 an SM, and
+// what is left is its arithmetic, which the other blocks' copies overlap
+// only in part.
 // In float64 the 8 x 8 inverse (168 registers, a 64-byte local array, 64
 // problems a block) reaches 36%; the double-precision 8 x 8 solve spills.
 // From n = 9 on the arithmetic grows past the bytes: the lane groups of
@@ -137,34 +138,6 @@ solve_full_unrolled(long long nb, int k, MatView<T> mat, View<const T> rhs, View
 #pragma unroll
     for (int i = 0; i < N; ++i) o[(i * k + c) * out.sc] = x[i];
   }
-}
-
-// The n <= 8 inverse and Cholesky tiers stage their problems through
-// shared memory (tile_stage.cuh): a block of P problems, one thread each,
-// each problem's `size` values kept in one run of its region. Where a
-// problem is whole 16-byte vectors the region stride is size + 1, odd, so
-// that the 32 threads of a warp reading entry j of their own problems hit
-// 32 different banks; otherwise the regions are packed (stride size: odd,
-// or at most two threads a bank), and the block's range is copied as it
-// is. P is 128, or 64 where 128 regions would pass 48 KB (float64 at n =
-// 7, 8), a multiple of the vector width, so that each block's range of a
-// contiguous operand starts aligned. Each thread loads as many vectors at
-// once as its share of the block's range holds, up to 8: no registers
-// wait for vectors that small problems never bring.
-template <typename T>
-__host__ __device__ constexpr int staged_stride(int size) {
-  return size % (16 / (int)sizeof(T)) == 0 ? size + 1 : size;
-}
-
-template <typename T>
-constexpr int staged_threads(int size) {
-  return 128 * staged_stride<T>(size) * (int)sizeof(T) <= 48 * 1024 ? 128 : 64;
-}
-
-template <typename T>
-__host__ __device__ constexpr int staged_loads(int size) {
-  const int kW = 16 / (int)sizeof(T), u = (size + kW - 1) / kW;
-  return u < 8 ? u : 8;
 }
 
 // The block's operand and result.

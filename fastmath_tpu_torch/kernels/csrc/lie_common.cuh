@@ -1,9 +1,9 @@
 // Code shared by the matrix exponential and logarithm kernels (expm.cu,
 // logm.cu), whose group sizes and launch shapes (lie_group, lie_warps) and
 // 16-byte vectors (LuVec) the lane-group LU (lu_groups.cuh) and the rolled
-// eig tier (eig.cu) take too: the staged row loads and stores of the
-// one-thread-a-problem tiers, their unrolled products and squared
-// distance to I; expm_warp's products on row-major d x d matrices in
+// eig tier (eig.cu) take too: the staged row loads and stores of
+// logm_unrolled, the one-thread tiers' unrolled products and squared
+// distance to I (expm_unrolled stages through tile_stage.cuh); expm_warp's products on row-major d x d matrices in
 // shared memory; logm_warp's columns in registers, its column-major
 // shared matrices and their products (a group of 8, 16 or 32 lanes a
 // problem).

@@ -17,7 +17,11 @@
 //              plus `refine` residual steps through the same cofactors;
 //   5 <= N <= 8  LU with first-max partial pivoting, unrolled in
 //              registers; refinement re-solves the residual through the
-//              same factors (the numbers of a from-scratch re-solve);
+//              same factors (the numbers of a from-scratch re-solve). The
+//              chain (chain_inverse) stages the compact operand through
+//              shared memory (tile_stage.cuh), forms the explicit inverse
+//              from that LU once, and runs x <- X x + c with X's rows in
+//              registers;
 //   9 <= N <= 32 the solve: the lane-group LU (lu_groups.cuh,
 //              sym_solve_groups): G = 16 lanes a problem to N = 16, 32
 //              above, row i of A + diag(eps) in lane i's registers,
@@ -36,8 +40,11 @@
 // memory bandwidth; the design reads each operand once and keeps the
 // cofactors and refinement in registers. The chain reads A once and
 // runs `iters` solves on it, so it is bound by fp32/fp64 arithmetic; the
-// loop-invariant part (cofactors and 1/det, packed LU with pivots and
-// 1/U_ii, or the explicit inverse) is computed once before the loop.
+// loop-invariant part (cofactors and 1/det at N <= 4, the explicit inverse
+// above) is computed once before the loop. At 5 <= N <= 8 the chain was a
+// pivot replay and two dependent substitutions a step, one thread a
+// problem, at 4.5% of its bound at N = 8 (float32, H100); a step of the
+// explicit inverse is N independent dot products.
 // The 9..32 tiers were one thread a problem over a local array of up to
 // 32 x 65 values, every step read and written through L1 and L2, at 1.4-2%
 // of their bounds; the lane groups keep a row a lane in registers and read
@@ -53,6 +60,7 @@
 #include "lu_groups.cuh"
 #include "sym_adjugate.cuh"
 #include "sym_common.cuh"
+#include "tile_stage.cuh"
 
 namespace fm {
 
@@ -203,6 +211,8 @@ __global__ void sym_solve_groups(long long nb, int n, View<const T> mat, View<co
 // fused chain: x <- A \ x + c, iters times, factoring once
 // ---------------------------------------------------------------------------
 
+// N <= 4: one thread a problem, the cofactors once, then each step adj x
+// times 1/det plus c (N == 1: x times 1/a plus c).
 template <typename T, int N>
 __global__ void __launch_bounds__(kThreads)
 chain_unrolled(long long nb, View<const T> mat, View<const T> vec, View<const T> add,
@@ -222,7 +232,7 @@ chain_unrolled(long long nb, View<const T> mat, View<const T> vec, View<const T>
     if (eps != nullptr) a = a + eps[0];
     const T inv = T(1) / a;
     for (int t = 0; t < iters; ++t) x[0] = x[0] * inv + c[0];
-  } else if constexpr (N <= 4) {
+  } else {
     T E[N][N], adj[N][N];
     load_sym<T, N>(m, mat.sc, eps, E);
     const T inv_det = T(1) / sym_cofactors(E, adj);
@@ -231,18 +241,70 @@ chain_unrolled(long long nb, View<const T> mat, View<const T> vec, View<const T>
 #pragma unroll
       for (int i = 0; i < N; ++i) x[i] = y[i] * inv_det + c[i];
     }
-  } else {
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) out.p[b * out.sb + i * out.sc] = x[i];
+}
+
+// 5 <= N <= 8: one thread a problem, P problems a block, the compact
+// operand staged into the block's regions (tile_stage.cuh). The thread
+// factors A + diag(eps) with the unrolled pivoted LU and forms the
+// explicit inverse X from it, each identity column substituted in turn
+// and written to the region's column at once (so that only LU and one
+// column live in registers), as the batched inverse's n <= 8 tier does;
+// then it holds X's rows in registers and runs x <- X x + c `iters`
+// times, each entry of X x a row summed from its first term: N
+// independent dot products a step, with no pivot replay and no chain of
+// dependent substitutions across the rows.
+template <typename T, int N, int P>
+__global__ void __launch_bounds__(P)
+chain_inverse(long long nb, TileOperand<T> mat, View<const T> vec, View<const T> add,
+              View<T> out, const T* __restrict__ eps, int iters) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int NN = N * (N + 1) / 2, S = staged_stride<T>(N * N);
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const long long b0 = blockIdx.x * (long long)P;
+  const int np = nb - b0 < P ? (int)(nb - b0) : P;
+  tile_stage<T, false, staged_loads<T>(NN)>(mat, b0, np, P, S, sm);
+  __syncthreads();
+  if ((int)threadIdx.x >= np) return;  // no barrier follows
+  const long long b = b0 + threadIdx.x;
+  T* m = sm + threadIdx.x * S;
+  {
     T LU[N][N], inv_d[N];
     int piv[N];
-    load_sym<T, N>(m, mat.sc, eps, LU);
+    load_sym<T, N>(m, 1, eps, LU);
     plu_factor<T, N>(LU, piv);
 #pragma unroll
     for (int i = 0; i < N; ++i) inv_d[i] = T(1) / LU[i][i];
-    for (int t = 0; t < iters; ++t) {
-      plu_substitute<T, N>(LU, piv, inv_d, x, y);
+    for (int c = 0; c < N; ++c) {
+      T e[N], xc[N];
 #pragma unroll
-      for (int i = 0; i < N; ++i) x[i] = y[i] + c[i];
+      for (int i = 0; i < N; ++i) e[i] = i == c ? T(1) : T(0);
+      plu_substitute<T, N>(LU, piv, inv_d, e, xc);
+#pragma unroll
+      for (int i = 0; i < N; ++i) m[i * N + c] = xc[i];
     }
+  }
+  T X[N][N], x[N], c[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) X[i][j] = m[i * N + j];
+    x[i] = vec.p[b * vec.sb + i * vec.sc];
+    c[i] = add.p != nullptr ? add.p[b * add.sb + i * add.sc] : T(0);
+  }
+  for (int t = 0; t < iters; ++t) {
+    T y[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      T acc = X[i][0] * x[0];
+#pragma unroll
+      for (int j = 1; j < N; ++j) acc = acc + X[i][j] * x[j];
+      y[i] = acc + c[i];
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = y[i];
   }
 #pragma unroll
   for (int i = 0; i < N; ++i) out.p[b * out.sb + i * out.sc] = x[i];
@@ -328,6 +390,14 @@ cudaError_t launch_solve(int n, long long nb, View<const T> mat, View<const T> v
   return cudaGetLastError();
 }
 
+template <typename T, int N>
+void launch_chain_inverse(long long nb, View<const T> mat, View<const T> vec, View<const T> add,
+                          View<T> out, const T* eps, int iters, cudaStream_t s) {
+  constexpr int S = staged_stride<T>(N * N), P = staged_threads<T>(N * N);
+  chain_inverse<T, N, P><<<(unsigned)((nb + P - 1) / P), P, P * S * sizeof(T), s>>>(
+      nb, tile_flat_operand<T>(mat, N * (N + 1) / 2, P, S), vec, add, out, eps, iters);
+}
+
 template <typename T>
 cudaError_t launch_chain(int n, long long nb, View<const T> mat, View<const T> vec,
                          View<const T> add, View<T> out, const T* eps, int iters,
@@ -337,6 +407,9 @@ cudaError_t launch_chain(int n, long long nb, View<const T> mat, View<const T> v
 #define FM_CHAIN_CASE(K) \
   case K: chain_unrolled<T, K><<<g, kThreads, 0, s>>>(nb, mat, vec, add, out, eps, iters); break;
     FM_CHAIN_CASE(1) FM_CHAIN_CASE(2) FM_CHAIN_CASE(3) FM_CHAIN_CASE(4)
+#undef FM_CHAIN_CASE
+#define FM_CHAIN_CASE(K) \
+  case K: launch_chain_inverse<T, K>(nb, mat, vec, add, out, eps, iters, s); break;
     FM_CHAIN_CASE(5) FM_CHAIN_CASE(6) FM_CHAIN_CASE(7) FM_CHAIN_CASE(8)
 #undef FM_CHAIN_CASE
     default:

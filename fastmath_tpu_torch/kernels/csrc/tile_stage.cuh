@@ -1,7 +1,8 @@
 // Staged tiles: a block of P problems moves its operands between device
 // memory and shared memory in order, so that the threads that work on them
 // never touch device memory one problem at a time (batched_products.cu:
-// matmul_tiles; batched.cu: the n <= 8 inverse and Cholesky tiers).
+// matmul_tiles; batched.cu: the n <= 8 inverse and Cholesky tiers; expm.cu:
+// expm_unrolled; sym_solve.cu: the compact chain at 5 <= N <= 8).
 //
 // Each problem owns a region of S values in shared memory. The block reads
 // each operand into the regions (tile_stage) and writes each result out of
@@ -278,6 +279,35 @@ __device__ __forceinline__ void tile_store(const TileOut<T>& o, long long b0, in
     }
     o.v.p[(b0 + pp) * o.v.sb + q * o.v.sc] = sm[pp * S + q];
   }
+}
+
+// The one-thread-a-problem tiers that stage their problems here (batched.cu:
+// the n <= 8 inverse and Cholesky; expm.cu: expm_unrolled; sym_solve.cu:
+// chain_inverse at 5 <= N <= 8): a block of P problems, one thread each,
+// each problem's `size` values kept in one run of its region. Where a
+// problem is whole 16-byte vectors the region stride is size + 1, odd, so
+// that the 32 threads of a warp reading entry j of their own problems hit
+// 32 different banks; otherwise the regions are packed (stride size: odd,
+// or at most two threads a bank), and the block's range is copied as it
+// is. P is 128, or 64 where 128 regions would pass 48 KB (float64 regions
+// of 49 or 65 values), a multiple of the vector width, so that each block's range of a
+// contiguous operand starts aligned. Each thread loads as many vectors at
+// once as its share of the block's range holds, up to 8: no registers
+// wait for vectors that small problems never bring.
+template <typename T>
+__host__ __device__ constexpr int staged_stride(int size) {
+  return size % (16 / (int)sizeof(T)) == 0 ? size + 1 : size;
+}
+
+template <typename T>
+constexpr int staged_threads(int size) {
+  return 128 * staged_stride<T>(size) * (int)sizeof(T) <= 48 * 1024 ? 128 : 64;
+}
+
+template <typename T>
+__host__ __device__ constexpr int staged_loads(int size) {
+  const int kW = 16 / (int)sizeof(T), u = (size + kW - 1) / kW;
+  return u < 8 ? u : 8;
 }
 
 }  // namespace fm

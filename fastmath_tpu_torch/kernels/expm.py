@@ -4,10 +4,11 @@ core), with its plain PyTorch version and autograd.
 Two kernels of ``csrc/expm.cu`` replace the Pallas ``_expm_kernel``
 (d <= 8) and ``_expm_rolled_kernel`` (9 <= d <= 32) of
 ``fastmath_tpu/kernels/expm_pallas.py``: ``expm_unrolled`` runs one thread
-a problem with the matrices in registers up to :data:`UNROLL_MAX` (by
-dtype), ``expm_warp`` a group of 8, 16 or 32 lanes a problem with the
-matrices in shared memory above; the source's header gives the design and
-what bounds it.
+a problem up to :data:`UNROLL_MAX` (by dtype), the problems staged through
+shared memory in tiles, the matrices in registers to d = 6 and Y in the
+thread's shared region above; ``expm_warp`` a group of 16 or 32 lanes a
+problem with the matrices in shared memory above; the source's header
+gives the design and what bounds it.
 Each problem squares exactly its own s times.
 
 Entry points:
@@ -41,7 +42,7 @@ __all__ = ["expm_cf", "expm_plain", "launch_expm", "ExpmFunction", "expm_unrolle
 _LIB = "expm"
 #: d up to this runs the one-thread tier (``expm_unroll_max`` of
 #: ``csrc/expm.cu``), by dtype; above, the warp tier
-UNROLL_MAX = {torch.float32: 8, torch.float64: 6}
+UNROLL_MAX = {torch.float32: 8, torch.float64: 8}
 SQUARINGS_MAX = 20
 _ORDER_F32 = 9
 _ORDER_F64 = 16

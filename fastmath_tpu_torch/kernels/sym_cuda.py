@@ -10,8 +10,8 @@ PyTorch versions and autograd.
 memory (it moves ``NN + 2N`` values for a few hundred flops): it reads
 each operand once and keeps the cofactors and the refinement step in
 registers. The chain is bound by arithmetic (``iters`` solves per matrix
-read): it factors once and loops in registers. See the source's header
-for the tiers.
+read): it forms the cofactors (N <= 4) or the explicit inverse (above)
+once and loops in registers. See the source's header for the tiers.
 
 Each wrapper launches its kernel on a CUDA tensor and runs its plain
 version, which repeats the kernel's arithmetic in PyTorch, on a CPU
@@ -128,7 +128,9 @@ def solve_plain(mat, vec, eps=None, refine=None):
 
 def chain_plain(mat, vec, add, eps, iters):
     r"""Plain version of the chain kernel: ``x <- A \ x + add``, ``iters``
-    times from ``x = vec``, factoring once (``add`` may be None)."""
+    times from ``x = vec`` (``add`` may be None): at N <= 4 through the
+    cofactors, above as ``x <- X x + add`` with the explicit inverse X
+    formed once (5 <= N <= 8 from the pivoted LU, as the kernel does)."""
     n = vec.shape[1]
     e = _eps_tensor(eps, mat)
     c = torch.zeros_like(vec) if add is None else add
@@ -152,13 +154,11 @@ def chain_plain(mat, vec, add, eps, iters):
                   for i, y in enumerate(_adjugate_apply(adj, xs))]
         return torch.stack(xs, dim=1)
     A = _dense(mat, n, e)
-    if n <= 8:
-        LU, piv, inv_d = plu_factor(A)
-        for _ in range(iters):
-            x = plu_substitute(LU, piv, inv_d, x) + c
-        return x.clone()
     eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape[0], n, n)
-    inv = rolled_solve(A, eye)
+    if n <= 8:  # the explicit inverse from the unrolled tier's pivoted LU
+        inv = plu_substitute(*plu_factor(A), eye)
+    else:
+        inv = rolled_solve(A, eye)
     for _ in range(iters):
         x = _matvec_rows(inv, x) + c
     return x.clone()

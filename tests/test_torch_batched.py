@@ -32,6 +32,8 @@ import fastmath_tpu_torch as T
 from fastmath_tpu_torch import kernels as K
 from fastmath_tpu_torch.kernels import _gen_adjugate
 
+from _torch_cpu import one_thread  # noqa: F401  (autouse)
+
 RTOL = 1e-9
 BLOCK = 128  # interpret-mode block of the Pallas kernels
 NS = [1, 2, 3, 4, 5, 8, 9, 12, 20]  # closed form, unrolled PLU, rolled, past 16

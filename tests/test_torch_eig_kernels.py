@@ -31,6 +31,8 @@ from fastmath_tpu.kernels.eig_pallas import eig_sym_cf as pallas_eig_cf
 from fastmath_tpu_torch.kernels import eig as K
 from fastmath_tpu_torch.layouts import full_to_sym
 
+from _torch_cpu import one_thread  # noqa: F401  (autouse)
+
 TOL = 1e-8
 
 

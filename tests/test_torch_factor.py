@@ -38,6 +38,8 @@ from fastmath_tpu_torch import kernels as K
 from fastmath_tpu_torch.kernels import _gen_adjugate
 from fastmath_tpu_torch.ops.batched import _chol_solve_unrolled
 
+from _torch_cpu import one_thread  # noqa: F401  (autouse)
+
 RTOL = 1e-10
 BLOCK = 128  # interpret-mode block of the Pallas kernels
 # the closed forms, the unrolled and rolled kernel tiers, the plain

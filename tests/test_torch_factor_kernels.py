@@ -23,6 +23,8 @@ from fastmath_tpu import kernels as PK
 import fastmath_tpu_torch as T
 from fastmath_tpu_torch import kernels as K
 
+from _torch_cpu import one_thread  # noqa: F401  (autouse)
+
 BLOCK = 128  # interpret-mode block of the Pallas kernels
 
 

@@ -32,6 +32,8 @@ from fastmath_tpu.ops import sym as F
 import fastmath_tpu_torch as T
 from fastmath_tpu_torch import kernels as K
 
+from _torch_cpu import one_thread  # noqa: F401  (autouse)
+
 TOL = 1e-12
 BLOCK = 128  # interpret-mode block of the Pallas kernels
 

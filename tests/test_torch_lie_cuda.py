@@ -92,6 +92,71 @@ def test_expm_matches_plain(d, dtype, rng):
         assert torch.equal(cf.t().reshape(B, d, d), got)
 
 
+def _expm64(x):
+    import scipy.linalg as sla
+
+    return torch.tensor(np.stack([sla.expm(m) for m in x]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", range(1, 9))
+def test_expm_one_thread_tier(d, dtype, rng):
+    """Every d <= 8 (the staged one-thread tier to UNROLL_MAX, expm_warp
+    above it in float64): a batch of 1, one block and one more (129) and
+    the ragged B, against the plain version and 64 problems against float64
+    scipy; channel-first in, out or both, which give the batch-major bits;
+    and a strided, a broadcast and a transposed operand, which give the
+    bits of the same matrices made contiguous."""
+    x = gauss(rng, B, d)
+    a = torch.tensor(x, dtype=dtype, device="cuda")
+    want = KE.expm_plain(a)
+    for b in (1, 129, B):
+        ab = a[:b]
+        got = KE.launch_expm(ab)
+        assert normwise(got, want[:b]) <= TOL_EXPM[dtype]
+        cf = ab.reshape(b, d * d).t().contiguous().t().reshape(b, d, d)
+        for arg, cf_out in ((cf, True), (cf, False), (ab, True)):
+            assert torch.equal(KE.launch_expm(arg, cf_out=cf_out), got)
+    assert normwise(got[:64], _expm64(x[:64])) <= TOL_EXPM[dtype]
+    base = torch.tensor(gauss(rng, 2 * B, d), dtype=dtype, device="cuda")
+    for view in (base[::2], base[:1].expand(777, d, d), base[:1031].mT):
+        assert torch.equal(KE.launch_expm(view), KE.launch_expm(view.contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", range(1, 9))
+def test_expm_squaring_extremes_and_nan(d, dtype, rng):
+    """s = 0: X = 0 gives I exactly, and the bench input scaled to a 1-norm
+    of 0.45 matches the plain version. s = 20: X = 2^19 e_1 e_d^T (d >=
+    2), nilpotent, gives I + X exactly, and X = -2^19 (d = 1) gives 0. A
+    problem holding a NaN and one holding an inf come back non-finite, and
+    every other problem of the batch keeps its bits."""
+    zero = torch.zeros(300, d, d, dtype=dtype, device="cuda")
+    assert torch.equal(KE.launch_expm(zero), torch.eye(d, dtype=dtype, device="cuda").expand(
+        300, d, d))
+    x = gauss(rng, 300, d)
+    x = torch.tensor(x * (0.45 / np.abs(x).sum(-2).max(-1))[:, None, None], dtype=dtype,
+                     device="cuda")  # |X|_1 = 0.45
+    assert (KE.squaring_counts(x) == 0).all()
+    assert normwise(KE.launch_expm(x), KE.expm_plain(x)) <= TOL_EXPM[dtype]
+    big = torch.zeros(300, d, d, dtype=dtype, device="cuda")
+    big[:, 0, d - 1] = -2.0 ** 19 if d == 1 else 2.0 ** 19
+    assert (KE.squaring_counts(big) == 20).all()
+    want = torch.zeros_like(big) if d == 1 else torch.eye(d, dtype=dtype, device="cuda") + big
+    assert torch.equal(KE.launch_expm(big), want)
+    clean = torch.tensor(gauss(rng, 300, d), dtype=dtype, device="cuda")
+    bad = clean.clone()
+    bad[7, 0, d - 1] = float("nan")
+    bad[150, d - 1, 0] = float("inf")
+    got, alone = KE.launch_expm(bad), KE.launch_expm(clean)
+    keep = torch.ones(300, dtype=torch.bool, device="cuda")
+    keep[[7, 150]] = False
+    assert not torch.isfinite(got[7]).all() and not torch.isfinite(got[150]).all()
+    assert torch.equal(got[keep], alone[keep])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("d", DS)

@@ -31,6 +31,8 @@ from fastmath_tpu_torch.kernels import expm as KE
 from fastmath_tpu_torch.kernels import expm_cf, logm_cf
 from fastmath_tpu_torch.kernels import logm as KL
 
+from _torch_cpu import one_thread  # noqa: F401  (autouse)
+
 TOL = 1e-10
 
 

@@ -32,6 +32,8 @@ import fastmath_tpu_torch as T
 from fastmath_tpu_torch import kernels as K
 from fastmath_tpu_torch.ops.batched import _chol_solve_unrolled
 
+from _torch_cpu import one_thread  # noqa: F401  (autouse)
+
 TOL = 1e-12
 BLOCK = 128  # interpret-mode block of the Pallas kernels
 

@@ -38,6 +38,8 @@ import fastmath_tpu_torch as T
 from fastmath_tpu_torch.ops import qr as Q
 from fastmath_tpu_torch.ops import sugar as S
 
+from _torch_cpu import one_thread  # noqa: F401  (autouse)
+
 TOL = 1e-12
 EIG_TOL = 1e-10
 

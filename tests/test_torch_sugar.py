@@ -21,6 +21,8 @@ from fastmath_tpu.ops import sugar as J
 
 from fastmath_tpu_torch.ops import sugar as S
 
+from _torch_cpu import one_thread  # noqa: F401  (autouse)
+
 TOL = 1e-12
 TOL_SVD = 1e-10
 

@@ -8,10 +8,12 @@ adjugate in float64; they differ in operation order only), float32
 normwise to ``1e-5`` (the main-path accuracy gate of ``bench.py``), and
 the layout helpers exactly (they only move values).
 """
+import functools
 import pathlib
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +24,8 @@ from fastmath_tpu import layouts as JL
 
 import fastmath_tpu_torch as T
 from fastmath_tpu_torch import layouts as TL
+
+from _torch_cpu import one_thread  # noqa: F401  (autouse)
 
 F64_RTOL = 1e-9
 F32_NORMWISE = 1e-5
@@ -45,8 +49,23 @@ def _normwise(got, want):
                   / np.linalg.norm(want, axis=-1))
 
 
+@functools.lru_cache(maxsize=None)
+def _jitted(fn, static, array_kw):
+    """``fn`` under jax.jit: the keyword values in ``static`` fixed, the
+    keywords named in ``array_kw`` passed after the positional arrays."""
+    def call(*args):
+        n = len(args) - len(array_kw)
+        return fn(*args[:n], **dict(static), **dict(zip(array_kw, args[n:])))
+    return jax.jit(call)
+
+
 def _jax(fn, *arrays, **kw):
-    return np.asarray(fn(*(jnp.asarray(a) for a in arrays), **kw))
+    """``fn`` on the arrays (numpy keywords too), jitted once per function,
+    keywords and shapes: cheaper than eager op-by-op dispatch."""
+    array_kw = tuple(sorted(k for k, v in kw.items() if isinstance(v, np.ndarray)))
+    static = tuple(sorted((k, v) for k, v in kw.items() if k not in array_kw))
+    args = [jnp.asarray(a) for a in (*arrays, *(kw[k] for k in array_kw))]
+    return np.asarray(_jitted(fn, static, array_kw)(*args))
 
 
 def _port(fn, *arrays, **kw):

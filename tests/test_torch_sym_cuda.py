@@ -72,6 +72,80 @@ def test_kernels_match_plain(n, dtype, rng):
         assert _normwise(got, want, add) <= TOL[dtype]
 
 
+def _chain64(mat, vec, add, eps, iters):
+    """The float64 numpy recurrence x <- (A + diag(eps))^-1 x + add."""
+    n = vec.shape[1]
+    full = T.sym_to_full(mat.double(), n).cpu().numpy()
+    if eps is not None:
+        full = full + np.diag(eps)
+    x = vec.double().cpu().numpy()
+    c = np.zeros_like(x) if add is None else add.double().cpu().numpy()
+    for _ in range(iters):
+        x = np.linalg.solve(full, x[..., None])[..., 0] + c
+    return torch.from_numpy(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [5, 6, 7, 8])
+def test_chain_inverse_tier(n, dtype, rng):
+    """The 5 <= N <= 8 chain (the explicit inverse, staged): a batch of 1,
+    one block and one more (129) and a ragged 1029, 16 steps with add and
+    4 without (x = A^-k v then shrinks by orders of magnitude, and its
+    relative rounding grows with k), with and without eps, against the
+    plain version and the float64 numpy recurrence; channel-first operands
+    and result give the batch-major bits, and a strided and a broadcast
+    operand the bits of the same problems made contiguous."""
+    mat, vec, add = _inputs(rng, 1029, n, dtype)
+    for eps in (None, (0.3, 0.1)):
+        e = sym_cuda._prep_eps(eps, n)
+        e64 = None if e is None else np.asarray(e)
+        for c, k in ((None, 4), (add, 16)):
+            want = sym_cuda.chain_plain(mat, vec, c, e, k)
+            oracle = _chain64(mat, vec, c, e64, k)
+            for b in (1, 129, 1029):
+                cb = None if c is None else c[:b]
+                got = sym_cuda.launch_chain(mat[:b], vec[:b], cb, e, k)
+                torch.cuda.synchronize()
+                assert _normwise(got, want[:b], cb) <= TOL[dtype]
+                assert _normwise(got.cpu().double(), oracle[:b],
+                                 None if cb is None else cb.cpu().double()) <= TOL[dtype]
+            cf = [None if t is None else t.t().contiguous().t() for t in (mat, vec, c)]
+            assert torch.equal(sym_cuda.launch_chain(*cf, e, k, cf_out=True), got)
+    nn = n * (n + 1) // 2
+    base = _inputs(rng, 2 * 515, n, dtype)
+    for m, v, a in ((base[0][::2], base[1][::2], base[2][::2]),
+                    (base[0][:1].expand(515, nn), base[1][:515], base[2][:515])):
+        got = sym_solve_chain_cf(m.t(), v.t(), 16, add=a.t())
+        want = sym_solve_chain_cf(m.t().contiguous(), v.t().contiguous(), 16,
+                                  add=a.t().contiguous())
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [5, 6, 7, 8])
+def test_chain_singular_and_nan_stay_in_their_problem(n, dtype, rng):
+    """A singular matrix (its first row and column zero: the first pivot is
+    0) comes back NaN, as the plain version gives, and a problem holding a
+    NaN non-finite; every other problem keeps the bits it has without
+    them."""
+    mat, vec, add = _inputs(rng, 300, n, dtype)
+    bad = mat.clone()
+    for j in range(n):
+        bad[7, T.layouts.tri_index(0, j, n)] = 0
+    bad[150, 1] = float("nan")
+    got = sym_cuda.launch_chain(bad, vec, add, None, 16)
+    alone = sym_cuda.launch_chain(mat, vec, add, None, 16)
+    plain = sym_cuda.chain_plain(bad, vec, add, None, 16)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[7]).all() and torch.isnan(plain[7]).all()
+    assert not torch.isfinite(got[150]).all()
+    keep = torch.ones(300, dtype=torch.bool, device="cuda")
+    keep[[7, 150]] = False
+    assert torch.equal(got[keep], alone[keep])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cf_wrappers_take_strided_operands(dtype, rng):

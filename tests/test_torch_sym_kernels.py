@@ -25,6 +25,8 @@ import fastmath_tpu_torch as T
 from fastmath_tpu_torch.kernels import _gen_adjugate, sym_cuda
 from fastmath_tpu_torch.kernels import sym_solve_cf, sym_solve_chain_cf
 
+from _torch_cpu import one_thread  # noqa: F401  (autouse)
+
 RTOL = 1e-9
 BLOCK = 256  # interpret-mode block of the Pallas kernels
 NS = [1, 3, 4, 6, 12]  # N = 1, the adjugate, the unrolled and the rolled tier
@@ -151,6 +153,31 @@ def test_pivoting_tier_indefinite(n, rng):
     got = sym_solve_chain_cf(_t(mat), _t(vec), iters=4, add=_t(add)).numpy()
     exact = _oracle_chain(full, vec.T, add.T, 4).T
     np.testing.assert_allclose(got, exact, rtol=1e-8, atol=1e-10)
+
+
+@pytest.mark.parametrize("kind", ["spd_eps", "indefinite"])
+@pytest.mark.parametrize("n", [5, 8])
+def test_chain_inverse_tier_plain(n, kind, rng):
+    """The 5 <= N <= 8 chain's plain version (the explicit inverse formed
+    once from the pivoted LU, then x <- X x + c) at the tier's edges, 4
+    steps on a batch of 40. SPD with eps against the interpreted Pallas
+    kernel (rtol 1e-9: its recorded-PLU substitutions and the inverse agree
+    to rounding on these well-conditioned systems) and the float64 numpy
+    recurrence (rtol 1e-8); indefinite, whose pivots swap rows at later
+    steps, against the numpy recurrence alone (the reference replays its
+    swaps against moved multipliers there: ROADMAP, Faults)."""
+    full = _spd(rng, 40, n) if kind == "spd_eps" else _indefinite(rng, 40, n)
+    eps = 0.3 if kind == "spd_eps" else None
+    mat = _cf(_compact(full))
+    vec, add = _cf(rng.standard_normal((40, n))), _cf(rng.standard_normal((40, n)))
+    got = sym_solve_chain_cf(_t(mat), _t(vec), iters=4, add=_t(add), eps=eps).numpy()
+    exact = _oracle_chain(full + (eps or 0.0) * np.eye(n), vec.T, add.T, 4).T
+    np.testing.assert_allclose(got, exact, rtol=1e-8, atol=1e-10)
+    if kind == "spd_eps":
+        want = np.asarray(pallas_chain_cf(jnp.asarray(mat), jnp.asarray(vec), iters=4,
+                                          add=jnp.asarray(add), eps=eps, block=BLOCK,
+                                          interpret=True))
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-12)
 
 
 def test_wrapper_errors(rng):

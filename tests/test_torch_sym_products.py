@@ -30,6 +30,8 @@ import fastmath_tpu_torch as T
 from fastmath_tpu_torch import kernels as K
 from fastmath_tpu_torch.kernels import sym_products
 
+from _torch_cpu import one_thread  # noqa: F401  (autouse)
+
 RTOL, ATOL = 1e-9, 1e-12
 BLOCK = 256  # interpret-mode block of the Pallas kernels
 NS = [1, 3, 4, 8, 12]  # the unrolled tier up to 8, the rolled one above
