@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Time one source tree's full-storage solve, Cholesky, inverse, compact
 solve, product, matrix logarithm, rolled eig, chain and power-iteration
-kernels, the n <= 8 inverse and Cholesky tiers, the d <= 8 matrix
-exponential and the 5 <= N <= 8 compact chain, on one NVIDIA GPU, to
-compare two versions of a kernel in one call.
+kernels, the n <= 8 inverse and Cholesky tiers, the matrix exponential
+(both tiers), the 5 <= N <= 8 compact chain and the rolled JtHJ tier, on
+one NVIDIA GPU, to compare two versions of a kernel in one call.
 
     python3 /path/to/chip_ab.py TAG [--library] [--only GROUP[,GROUP...]]
 
@@ -51,14 +51,20 @@ and 8x8 on 1M in float32, 8x8 in float64, and the channel-first 8x8),
 ``expm`` (``csrc/expm.cu``'s one-thread tier at every d <= 8 in both
 dtypes on the bytes of 4x4 on 1M, batch-major and channel-first, with its
 bound and mean squarings; 4x4 and 8x8 float32 also sorted by their
-squaring counts; ``expm_warp<T, 8>`` at 5 <= d <= 8) and ``chain8`` (the
-compact chain solve k = 128 at N = 5..8 on 262,144 in both dtypes,
-channel-first too, with its bound and its normwise error against the
-float64 recurrence on 4096 problems; ``chain_groups<T, 8>``). The
-lane-group tiers at d, N <= 8 come from ``TIER_PROBE``, built against
-the measured tree's sources. ``inv8``, ``chol8``, ``expm`` and ``chain8``
-also give each output's digest (SHA-256 of its bytes), so that two trees'
-outputs compare bit for bit, and their tiers' registers. ``--library`` also times ``torch.linalg.solve_ex`` /
+squaring counts), ``chain8`` (the compact chain solve k = 128 at N =
+5..8 on 262,144 in both dtypes, channel-first too, with its bound and its
+normwise error against the float64 recurrence on 4096 problems; and
+``chain_groups<T, 8>``, from ``TIER_PROBE``, built against the measured
+tree's sources), ``expm_warp`` (``csrc/expm.cu``'s lane groups at every
+``EXPM_WARP_DS`` d in both dtypes on 16M values, with bound and mean
+squarings, 16x16 and 32x32 channel-first too, and each instantiation's
+SASS size) and ``jhj`` (``csrc/sym_products.cu``'s rolled JtHJ tier at
+``JHJ_SHAPES`` in both dtypes, each on the bytes of K = D = 16 on 200k,
+with its bound, 16x16 float32 channel-first too). ``inv8``, ``chol8``,
+``expm``, ``chain8``, ``expm_warp`` and ``jhj`` also give each output's
+digest (SHA-256 of its bytes), so that two trees' outputs compare bit for
+bit, and their tiers' registers. ``--library`` also times
+``torch.linalg.solve_ex`` /
 ``cholesky_ex`` (the compact solve's on the densified batch),
 ``inv_ex``, ``torch.matmul`` and ``eigvalsh`` / ``eigh`` on the same
 inputs. It imports neither JAX nor ``fastmath_tpu``.
@@ -67,6 +73,7 @@ import ctypes
 import hashlib
 import json
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -117,29 +124,12 @@ extern "C" int fm_stage_copy(int dtype, int P, long long nb, const void* x, long
 """
 
 
-# The other tiers a shape could take, built from the measured tree's own
-# sources: expm_warp<T, 8> (the lane groups of 8 that serve float64 at d =
-# 7, 8) and chain_groups<T, 8> (the 9 <= N <= 32 chain's explicit inverse
-# on lane groups of 8), each launched at 5 <= d, N <= 8, where the tree's
-# own launchers take the one-thread tiers.
+# The other tier a shape could take, built from the measured tree's own
+# sources: chain_groups<T, 8> (the 9 <= N <= 32 chain's explicit inverse on
+# lane groups of 8), launched at 5 <= N <= 8, where the tree's own launcher
+# takes the one-thread tier.
 TIER_PROBE = r"""
-#include "expm.cu"
 #include "sym_solve.cu"
-
-extern "C" int fm_probe_expm_warp8(int dtype, int d, long long nb, const void* a, long long sb,
-                                   long long rs, long long cs, void* out, long long osb,
-                                   long long osc, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    fm::launch_expm_group<float, 8>(
-        d, nb, fm::MatView<float>{static_cast<const float*>(a), sb, rs, cs},
-        fm::view<float>(out, osb, osc), s);
-  else
-    fm::launch_expm_group<double, 8>(
-        d, nb, fm::MatView<double>{static_cast<const double*>(a), sb, rs, cs},
-        fm::view<double>(out, osb, osc), s);
-  return cudaGetLastError();
-}
 
 template <typename T>
 int chain8(int n, long long nb, const void* mat, long long msb, long long msc, const void* vec,
@@ -179,8 +169,6 @@ def tier_probe_library(_build):
         raise RuntimeError(f"tier_probe failed to build:\n{proc.stdout}{proc.stderr}")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     cdll = ctypes.CDLL(str(lib))
-    cdll.fm_probe_expm_warp8.argtypes = [i, i, ll, p, ll, ll, ll, p, ll, ll, p]
-    cdll.fm_probe_expm_warp8.restype = i
     cdll.fm_probe_chain_groups8.argtypes = [i, i, ll, p, ll, ll, p, ll, ll, p, ll, ll, p, ll, ll,
                                             i, p]
     cdll.fm_probe_chain_groups8.restype = i
@@ -206,6 +194,31 @@ def stage_copy_library(_build):
     return cdll, proc.stdout + proc.stderr
 
 
+# expm_warp's sizes: each block shape's edges and the bench suite's d
+EXPM_WARP_DS = (9, 10, 12, 13, 16, 17, 20, 21, 24, 25, 28, 29, 31, 32)
+# the rolled JtHJ tier's shapes: the bench suite's 16 x 16, the tier's edges
+# and the lopsided ones
+JHJ_SHAPES = ((16, 16), (7, 3), (3, 7), (16, 7), (7, 16), (32, 32))
+
+
+def sass_sizes(_build, lib, kernel):
+    """SASS instructions of each instantiation of ``kernel`` in the tree's
+    built ``lib`` (``cuobjdump -sass``)."""
+    sass = subprocess.run([str(pathlib.Path(_build.nvcc_path()).with_name("cuobjdump")), "-sass",
+                           str(_build.library_path(lib))], capture_output=True, text=True).stdout
+    sizes, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(rf"Function : \S*{kernel}I([fd])((?:Li\d+E)+)E", line)
+        if m:
+            args = [m.group(1), *re.findall(r"Li(\d+)E", m.group(2))]
+            name = f"{kernel}<{','.join(args)}>"
+        elif "Function" in line:
+            name = None
+        if name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            sizes[name] = sizes.get(name, 0) + 1
+    return sizes
+
+
 def main():
     import torch
 
@@ -221,17 +234,19 @@ def main():
     from fastmath_tpu_torch.kernels import logm as KL
     from fastmath_tpu_torch.kernels import sym_cuda as SC
     from fastmath_tpu_torch.kernels import sym_iterate as SI
+    from fastmath_tpu_torch.kernels import sym_products as SP
     from fastmath_tpu_torch.layouts import full_to_sym, sym_to_full
 
     tag, library = sys.argv[1], "--library" in sys.argv[2:]
     groups = {"solve", "chol", "sym_solve", "matmul", "logm", "logm4", "eig", "chain", "maxeig",
-              "inv8", "chol8", "expm", "chain8"}
+              "inv8", "chol8", "expm", "chain8", "expm_warp", "jhj"}
     if "--only" in sys.argv:
         groups = set(sys.argv[sys.argv.index("--only") + 1].split(","))
     sources = {"solve": "batched", "chol": "batched", "sym_solve": "sym_solve",
                "matmul": "batched_products", "logm": "logm", "logm4": "logm", "eig": "eig",
                "chain": ("sym_iterate", "sym_solve"), "maxeig": "sym_iterate",
-               "inv8": "batched", "chol8": "batched", "expm": "expm", "chain8": "sym_solve"}
+               "inv8": "batched", "chol8": "batched", "expm": "expm", "chain8": "sym_solve",
+               "expm_warp": "expm", "jhj": "sym_products"}
     libs = sorted({lib for g in groups for lib in
                    ((sources[g],) if isinstance(sources[g], str) else sources[g])})
     _build.build_all(sorted(set(libs) | ({"expm"} if groups & {"logm", "logm4"} else set())))
@@ -460,15 +475,15 @@ def main():
                   lambda: (torch.linalg.eigh if vec else torch.linalg.eigvalsh)(a),
                   lambda got, want: (got.sort(-1).values - want.sort(-1).values).abs().max().item())
         del a
-    probe = tier_probe_library(_build) if groups & {"expm", "chain8"} else None
+    probe = tier_probe_library(_build) if "chain8" in groups else None
     if probe is not None:
         res["tier_probe ptxas"] = C.ptxas_summary(probe[1])
         probe = probe[0]
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     # expm at d = 1..8 in both dtypes on the bytes of 4x4 on 1M (8x8 on
     # 250k), inputs seeded by shape: the tree's tier batch-major (digest) and
-    # channel-first (digest), expm_warp<T, 8> at 5 <= d <= 8, and at d = 4
-    # and 8 in float32 the same problems sorted by their squaring counts
+    # channel-first (digest), and at d = 4 and 8 in float32 the same
+    # problems sorted by their squaring counts
     for d in range(1, 9):
         if "expm" not in groups:
             break
@@ -493,24 +508,70 @@ def main():
             res[f"{key} channel-first digest"] = digest(KE.launch_expm(xc, cf_out=True)
                                                         .reshape(b, d * d))
             del xc
-            if d >= 5:
-                y = torch.empty_like(x)
-
-                def warp8():
-                    err = probe.fm_probe_expm_warp8(int(dt == "f64"), d, b, x.data_ptr(),
-                                                    *x.stride(), y.data_ptr(), d * d, 1, stream())
-                    if err:
-                        raise RuntimeError(f"expm_warp<{dt}, 8> d={d}: CUDA error {err}")
-                    return y
-
-                timed(f"{key} expm_warp8", warp8, lambda: KE.expm_plain(x), None, logm_err)
-                del y
             if dt == "f32" and d in (4, 8):
                 xs = x[torch.argsort(KE.squaring_counts(x), stable=True)].contiguous()
                 res[f"{key} sorted by squarings"] = [
                     C.device_ms(torch, lambda: KE.launch_expm(xs), reps=10) for _ in range(3)]
                 del xs
             del x
+    # expm_warp at 9 <= d <= 32 in both dtypes on 16M values (16x16 on
+    # 62,500, 32x32 on 15,625), inputs seeded by shape at the bench scale:
+    # batch-major (digest), channel-first (digest), bound, mean squarings
+    for d in EXPM_WARP_DS:
+        if "expm_warp" not in groups:
+            break
+        for dt in ("f32", "f64"):
+            dtype, b = (torch.float32 if dt == "f32" else torch.float64), 16_000_000 // (d * d)
+            g = torch.Generator(device="cuda")
+            g.manual_seed(8000 + 10 * d + (dt == "f64"))
+            x = (torch.randn(b, d, d, generator=g, device="cuda") * (0.5 / d ** 0.5)).to(dtype)
+            key = f"expm_warp {d}x{d} {dt} on {b}"
+            timed(key, lambda: KE.launch_expm(x), lambda: KE.expm_plain(x), None, logm_err)
+            res[f"{key} digest"] = digest(KE.launch_expm(x).reshape(b, d * d))
+            s_mean = KE.squaring_counts(x[:65536]).double().mean().item()
+            nops = C.ops_expm(d, s_mean, KE.taylor_order(dtype))
+            res[f"{key} bound"] = list(C.bound(2 * b * d * d * x.element_size(), b * nops,
+                                               "float32" if dt == "f32" else "float64"))
+            res[f"{key} squarings"] = s_mean
+            if d in (16, 32):
+                xc = x.reshape(b, d * d).t().contiguous().t().reshape(b, d, d)
+                res[f"{key} channel-first"] = [
+                    C.device_ms(torch, lambda: KE.launch_expm(xc, cf_out=True), reps=10)
+                    for _ in range(3)]
+                res[f"{key} channel-first digest"] = digest(KE.launch_expm(xc, cf_out=True)
+                                                            .reshape(b, d * d))
+                del xc
+            del x
+    if "expm_warp" in groups:
+        res["expm_warp sass instructions"] = sass_sizes(_build, "expm", "expm_warp")
+    # the rolled JtHJ tier (max(K, D) >= 7) in both dtypes, each shape on the
+    # bytes of K = D = 16 on 200k, inputs seeded by shape: batch-major
+    # (digest), the 16 x 16 float32 channel-first too, and the bound
+    for k, d in JHJ_SHAPES:
+        if "jhj" not in groups:
+            break
+        kk, dd = k * (k + 1) // 2, d * (d + 1) // 2
+        b = 200_000 * (256 + 2 * 136) // (k * d + kk + dd)
+        for dt in ("f32", "f64"):
+            dtype = torch.float32 if dt == "f32" else torch.float64
+            g = torch.Generator(device="cuda")
+            g.manual_seed(6000 + 100 * k + d + 50 * (dt == "f64"))
+            j = torch.randn(b, k * d, generator=g, device="cuda").to(dtype)
+            h = full_to_sym(C.spd_on_card(torch, g, b, k)).contiguous().to(dtype)
+            key = f"jhj K={k} D={d} {dt} on {b}"
+            timed(key, lambda: SP.launch_jhj(j, h, d), lambda: SP.jhj_plain(j, h, d), None)
+            res[f"{key} digest"] = digest(SP.launch_jhj(j, h, d))
+            res[f"{key} bound"] = list(C.bound(b * (k * d + kk + dd) * j.element_size(),
+                                               b * C.ops_jhj(k, d),
+                                               "float32" if dt == "f32" else "float64"))
+            if (k, d, dt) == (16, 16, "f32"):
+                jc, hc = cf(j), cf(h)
+                res[f"{key} channel-first"] = [
+                    C.device_ms(torch, lambda: SP.launch_jhj(jc, hc, d, cf_out=True), reps=10)
+                    for _ in range(3)]
+                res[f"{key} channel-first digest"] = digest(SP.launch_jhj(jc, hc, d, cf_out=True))
+                del jc, hc
+            del j, h
     # the compact chain k = 128 at N = 5..8 on 262,144 in both dtypes (add =
     # c, no eps): the tree's tier batch-major (digest) and channel-first,
     # chain_groups<T, 8>, and the normwise error over the terms against

@@ -382,7 +382,8 @@ def hold(torch, worst, key, got, plain, want64, dt_name, add=None):
         fail(f"{key}: kernel vs plain {d:.3e}, vs f64 oracle {o:.3e}")
 
 
-JHJ_CHECK = ((1, 1), (3, 2), (4, 4), (6, 6), (7, 3), (3, 7), (16, 16), (32, 32))
+JHJ_CHECK = ((1, 1), (3, 2), (4, 4), (6, 6), (7, 3), (3, 7), (16, 16), (32, 32), (16, 7),
+             (7, 16))
 
 
 def full64(cm, n):

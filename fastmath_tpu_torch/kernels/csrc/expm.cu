@@ -41,14 +41,27 @@
 //     operation bound); float64 at d = 7, 8 takes less than half the
 //     time of expm_warp's lane groups, although d = 8 spills (2 d^2
 //     doubles).
-//   expm_warp<T, G>: a group of G = 16 or 32 lanes a problem (the least
-//     G >= d; 32 / G problems a warp), Y, R and a scratch matrix row-major
-//     in shared memory with row stride G (3 d G values a problem: 12 KB at
-//     d = 32 in float32), the columns past d zero. Lane j
-//     holds column j of a product's right factor in registers and forms
-//     column j of the product, each entry a row of the left factor (a
-//     broadcast, read as 16-byte vectors) against it; the zero columns add
-//     exact zeros. Lanes j >= d of a group idle in the writes.
+//   expm_warp<T, G, R, C>: a group of G lanes a problem (32 / G problems a
+//     warp), 9 <= d <= 32. Each lane holds an R x C block of every product
+//     in registers (8 x 8: G = 4 to d = 16, 16 above; float64 at 17..24
+//     and 29..32 8 x 4 on 32 lanes) and sums its R C entries at once, each
+//     step R + C values read from shared memory as 16-byte vectors, the
+//     next step's issued first. A problem keeps two matrices in shared
+//     memory: Y^T (the left factor's transpose, which the last Horner step
+//     replaces with R^T) and R; each product is written back over them once
+//     its group has read them. Every sum runs t = 0 .. d - 1 and nothing
+//     past d is read into a real entry, so the padding to whole blocks is
+//     never zeroed. The kernel it replaced formed a column a lane, each
+//     entry one chain of G multiply-adds from a broadcast row: four bytes
+//     of shared memory read a multiply-add, which an SM serves at a quarter
+//     of its FMA rate (a 16-byte read costs the SM 16 bytes a lane,
+//     broadcast or not); 8 x 8 blocks read one byte a multiply-add in
+//     float32, 4 x 4 blocks two. At 16 x 16 the write-backs take 8% of the
+//     time and the barriers 4% (PERF.md); the rest is not explained yet.
+//   Each entry sums as the column design did once compiled: a_0 b_0 +
+//   (a_1 b_1), the second product rounded first (nvcc's contraction of its
+//   first two terms), then one multiply-add a term, then add + acc scale as
+//   one multiply-add; the outputs are the column design's bit for bit.
 //
 // What bounds them: a problem reads and writes d^2 values and needs
 // (order - 1 + s) products of about 2 d^3 operations: at 4x4 in float32
@@ -295,57 +308,189 @@ __global__ void __launch_bounds__(P) expm_unrolled(long long nb, ExpmPlan<T> pla
   }
 }
 
-template <typename T, int G>
-__global__ void expm_warp(long long nb, int d, MatView<T> in, View<T> out) {
+// x to p as vec_put does, but with flip the 16-byte vectors in the order 1,
+// 0, 3, 2, ...: of two lanes that store rows 8 apart at the same columns
+// (the same banks), one flips, and each access of the pair then hits
+// different banks.
+template <typename T, int N>
+__device__ __forceinline__ void expm_put_flip(T* p, const T (&x)[N], bool flip) {
+  constexpr int kW = 16 / (int)sizeof(T);
+  if constexpr (N / kW < 2) {
+    vec_put<T, N>(p, x);
+  } else {
+    struct alignas(16) V { T v[kW]; };
+#pragma unroll
+    for (int q = 0; q < N / kW; ++q) {
+      V v;
+#pragma unroll
+      for (int e = 0; e < kW; ++e) v.v[e] = flip ? x[(q ^ 1) * kW + e] : x[q * kW + e];
+      reinterpret_cast<V*>(p)[q ^ (flip ? 1 : 0)] = v;
+    }
+  }
+}
+
+// b <- add I + scale (a b) on a lane group's matrices (row stride ld): `at`
+// holds a's transpose and b is row-major. A busy lane holds the R x C block
+// at rows i0.., columns j0.. in registers, R C sums in flight, each step
+// R / width vector reads of row t of `at` and C / width of row t of b (the
+// group's lanes reading the same rows), the next step's reads issued
+// before this step's multiply-adds. Each entry is the column design's sum
+// (see the head of this file): a_0 b_0 + (a_1 b_1) with the second product
+// rounded first, then t = 2 .. d - 1 in order, and no term past d (the
+// column design's trailing terms were exact zeros); then
+// add (on the diagonal, j - i = i0 - j0 = dgo) + acc scale as one
+// multiply-add. Once the group has read its operands, each lane writes its
+// block over b and, if trans, transposed over `at` (in a group of 16 or 32
+// lanes the rows' vectors flipped in odd row blocks, the columns' in odd
+// column blocks: expm_put_flip). Entries past d hold what their sums give
+// and are never read into a real entry. Ends synchronized.
+template <typename T, int G, int R, int C>
+__device__ __forceinline__ void expm_grp_mm(T* at, T* b, bool trans, int ld, int d, int i0,
+                                            int j0, bool busy, int dgo, unsigned mask, T add,
+                                            T scale) {
+  // 16 or 32 lanes a group; at G = 4 the flips measured slower
+  const bool flip_r = G >= 16 && i0 / R % 2, flip_c = G >= 16 && j0 / C % 2;
+  T acc[R][C];
+  if (busy) {
+    T x[R], y[C], xn[R], yn[C];
+    const T* pa = at + i0;
+    const T* pb = b + j0;
+    vec_get<T, R>(pa, x);
+    vec_get<T, C>(pb, y);
+    vec_get<T, R>(pa + ld, xn);
+    vec_get<T, C>(pb + ld, yn);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < C; ++j) acc[i][j] = fm_fma(x[i], y[j], xn[i] * yn[j]);
+    pa += 2 * ld;
+    pb += 2 * ld;
+    vec_get<T, R>(pa, x);
+    vec_get<T, C>(pb, y);
+#pragma unroll 2
+    for (int t = 2; t < d - 1; ++t) {
+      pa += ld;
+      pb += ld;
+      vec_get<T, R>(pa, xn);
+      vec_get<T, C>(pb, yn);
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < C; ++j) acc[i][j] = fm_fma(x[i], y[j], acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < R; ++i) x[i] = xn[i];
+#pragma unroll
+      for (int j = 0; j < C; ++j) y[j] = yn[j];
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        // square blocks meet the diagonal only where i0 = j0
+        const bool diag = R == C ? i == j && dgo == 0 : j - i == dgo;
+        acc[i][j] = fm_fma(fm_fma(x[i], y[j], acc[i][j]), scale, diag ? add : T(0));
+      }
+  }
+  __syncwarp(mask);
+  if (busy) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) expm_put_flip<T, C>(b + (i0 + i) * ld + j0, acc[i], flip_r);
+    if (trans) {
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        T col[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) col[i] = acc[i][j];
+        expm_put_flip<T, R>(at + (j0 + j) * ld + i0, col, flip_c);
+      }
+    }
+  }
+  __syncwarp(mask);
+}
+
+// The side of expm_warp's matrices at size d for R x C blocks: d rounded
+// up to whole blocks both ways.
+__host__ __device__ constexpr int expm_side(int d, int R, int C) {
+  const int rows = (d + R - 1) / R * R, cols = (d + C - 1) / C * C;
+  return rows > cols ? rows : cols;
+}
+
+// A group of G lanes a problem (32 / G problems a warp). Its two matrices,
+// ld x ld with ld = expm_side, sit in the group's region of S values in
+// shared memory: Y^T, which the last Horner step and then
+// each squaring replace with R^T, and R. Lane gl holds the R x C block (R
+// (gl / nbc), C (gl % nbc)) of each product (nbc column blocks; lanes past
+// the blocks only load and store) and writes it back in place once the
+// group has read the operands, so a problem needs two matrices, not four.
+// Only the entries of rows and columns below d are read into real entries,
+// so nothing is zeroed.
+template <typename T, int G, int R, int C>
+__global__ void __launch_bounds__(8 * kLieWarp)
+expm_warp(long long nb, int d, int S, MatView<T> in, View<T> out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kOrder = expm_order<T>();
   const int lane = threadIdx.x % kLieWarp, gl = lane % G;
   const unsigned mask = lie_group_mask<G>(lane);
   const long long slot = blockIdx.x * (long long)(blockDim.x / G) + threadIdx.x / G;
-  const int dg = d * G;
-  T* y = reinterpret_cast<T*>(smem_raw) + (threadIdx.x / G) * 3 * dg;
-  T* r = y + dg;
-  T* t = r + dg;
+  const int ld = expm_side(d, R, C), nbc = (d + C - 1) / C;
+  T* yt = reinterpret_cast<T*>(smem_raw) + (threadIdx.x / G) * S;
+  T* rm = yt + ld * ld;
   if (slot >= nb) return;  // the whole group; no block-wide barrier follows
-  lie_grp_zero<T, G>(y, 3 * dg, gl, mask);
-  lie_grp_load<T, G>(in, slot, d, gl, y);
+  // column c of X to row c of Y^T, every copy in flight at once; then each
+  // lane sums the absolute values of its columns in order
+  for (int c = gl; c < d; c += G) {
+    const T* base = in.p + slot * in.sb + c * in.cs;
+    for (int i = 0; i < d; ++i) copy_async(yt + c * ld + i, base + i * in.rs);
+  }
+  copy_async_wait();
   T col = T(0);
-  if (gl < d)
-    for (int i = 0; i < d; ++i) col = col + fm_abs(y[i * G + gl]);
+  for (int c = gl; c < d; c += G) {
+    T sum = T(0);
+    for (int i = 0; i < d; ++i) sum = sum + fm_abs(yt[c * ld + i]);
+    col = c == gl ? sum : fm_max(col, sum);
+  }
   // the largest column sum: every column sum is >= 0 and fmax is exact
 #pragma unroll
   for (int o = G / 2; o > 0; o >>= 1) col = fm_max(col, __shfl_xor_sync(mask, col, o, G));
   const int s = squarings(col);
   const T scale = lie_ldexp(T(1), -s);
-  if (gl < d)
+  for (int c = gl; c < d; c += G)
     for (int i = 0; i < d; ++i) {
-      const T v = y[i * G + gl] * scale;
-      y[i * G + gl] = v;
-      r[i * G + gl] = (i == gl ? T(1) : T(0)) + v * (T(1) / T(kOrder));
+      const T v = yt[c * ld + i] * scale;
+      yt[c * ld + i] = v;
+      rm[i * ld + c] = (i == c ? T(1) : T(0)) + v * (T(1) / T(kOrder));
     }
   __syncwarp(mask);
-  for (int m = kOrder - 1; m > 0; --m) {
-    lie_grp_mm<T, G>(y, r, t, d, gl, mask, T(1), T(1) / T(m));
-    T* u = r;
-    r = t;
-    t = u;
+  const int bi = gl / nbc;
+  const int i0 = R * bi, j0 = C * (gl - bi * nbc);
+  const bool busy = i0 < d;
+  // kOrder - 1 Horner steps R = I + (Y R) / m, m = kOrder - q, then s
+  // squarings R = R R, whose left factor's transpose the last Horner step
+  // writes over Y^T
+  for (int q = 1; q < kOrder + s; ++q) {
+    const bool horner = q < kOrder;
+    expm_grp_mm<T, G, R, C>(yt, rm, q >= kOrder - 1, ld, d, i0, j0, busy, i0 - j0, mask,
+                         horner ? T(1) : T(0), horner ? T(1) / T(kOrder - q) : T(1));
   }
-  for (int it = 0; it < s; ++it) {
-    lie_grp_mm<T, G>(r, r, t, d, gl, mask);
-    T* u = r;
-    r = t;
-    t = u;
-  }
-  lie_grp_store<T, G>(r, out, slot, d, gl, T(1));
+  T* o = out.p + slot * out.sb;
+  for (int c = gl; c < d; c += G)
+    for (int i = 0; i < d; ++i) o[(i * d + c) * out.sc] = rm[i * ld + c];
 }
 
-template <typename T, int G>
-void launch_expm_group(int d, long long nb, MatView<T> in, View<T> out, cudaStream_t s) {
-  const int per_warp = (kLieWarp / G) * 3 * d * G * (int)sizeof(T);
+// expm_warp with G lanes a problem and R x C blocks at size d.
+template <typename T, int G, int R, int C>
+void launch_expm_blocks(int d, long long nb, MatView<T> in, View<T> out, cudaStream_t s) {
+  constexpr int kW = 16 / (int)sizeof(T);
+  const int ld = expm_side(d, R, C);
+  // an odd number of 16-byte vectors a region (measured better than 4 past
+  // a multiple of 8 for the 8 groups of a warp at G = 4)
+  int S = 2 * ld * ld;
+  if (S / kW % 2 == 0) S += kW;
+  const int per_warp = (kLieWarp / G) * S * (int)sizeof(T);  // at most 33 KB
   const int warps = lie_warps(per_warp);
   const int per_block = warps * (kLieWarp / G);
   const unsigned g = (unsigned)((nb + per_block - 1) / per_block);
-  expm_warp<T, G><<<g, warps * kLieWarp, warps * per_warp, s>>>(nb, d, in, out);
+  expm_warp<T, G, R, C><<<g, warps * kLieWarp, warps * per_warp, s>>>(nb, d, S, in, out);
 }
 
 // The one-thread tier at d = D: the operand staged where it is flat
@@ -377,10 +522,12 @@ cudaError_t launch_expm(int d, long long nb, MatView<T> in, View<T> out, cudaStr
 #undef FM_EXPM_CASE
       default: return cudaErrorInvalidValue;
     }
-  } else if (lie_group(d) == 16) {
-    launch_expm_group<T, 16>(d, nb, in, out, s);
+  } else if (d <= 16) {  // the lane groups' shapes as the card measured them
+    launch_expm_blocks<T, 4, 8, 8>(d, nb, in, out, s);
+  } else if (sizeof(T) == 4 || (d > 24 && d <= 28)) {
+    launch_expm_blocks<T, 16, 8, 8>(d, nb, in, out, s);
   } else {
-    launch_expm_group<T, kLieWarp>(d, nb, in, out, s);
+    launch_expm_blocks<T, kLieWarp, 8, 4>(d, nb, in, out, s);
   }
   return cudaGetLastError();
 }

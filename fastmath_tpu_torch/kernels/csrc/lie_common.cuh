@@ -3,10 +3,10 @@
 // 16-byte vectors (LuVec) the lane-group LU (lu_groups.cuh) and the rolled
 // eig tier (eig.cu) take too: the staged row loads and stores of
 // logm_unrolled, the one-thread tiers' unrolled products and squared
-// distance to I (expm_unrolled stages through tile_stage.cuh); expm_warp's products on row-major d x d matrices in
-// shared memory; logm_warp's columns in registers, its column-major
-// shared matrices and their products (a group of 8, 16 or 32 lanes a
-// problem).
+// distance to I (expm_unrolled stages through tile_stage.cuh); a lane
+// group's mask and butterfly (expm_warp keeps its register blocks in
+// expm.cu); logm_warp's columns in registers, its column-major shared
+// matrices and their products (a group of 8, 16 or 32 lanes a problem).
 //
 // Operands: the input is a MatView (entry (i, j) of problem b at
 // p[b * sb + i * rs + j * cs]: the public ops' batch-major (B, d, d) of any
@@ -132,10 +132,8 @@ __device__ __forceinline__ T lie_dist2(const T (&x)[D * D]) {
 }
 
 // ---------------------------------------------------------------------------
-// a group of G lanes a problem (G = 8, 16 or 32, G >= d; 32 / G problems a
-// warp; expm.cu's expm_warp): row-major d x d matrices in shared memory
-// with row stride G, the columns d..G-1 zero, lane j of the group owning
-// column j
+// a group of G lanes a problem (G = 8, 16 or 32; 32 / G problems a warp):
+// expm.cu's expm_warp, eig.cu's eig_rolled
 // ---------------------------------------------------------------------------
 
 // The group's lanes within the warp, for the *_sync intrinsics.
@@ -154,77 +152,6 @@ __device__ __forceinline__ T lie_grp_sum(T x, unsigned mask) {
 #pragma unroll
   for (int o = G / 2; o > 0; o >>= 1) x = x + __shfl_xor_sync(mask, x, o, G);
   return x;
-}
-
-// Column j of problem b into x, from lane j (j < d).
-template <typename T, int G>
-__device__ __forceinline__ void lie_grp_load(const MatView<T>& in, long long b, int d, int gl,
-                                             T* x) {
-  if (gl < d) {
-    const T* base = in.p + b * in.sb + gl * in.cs;
-    for (int i = 0; i < d; ++i) x[i * G + gl] = base[i * in.rs];
-  }
-}
-
-// sum_k a[k] b[k] over the G entries of a row a (16-byte aligned, read
-// as vectors) and a register column b, in order from the first term.
-template <typename T, int G>
-__device__ __forceinline__ T lie_row_dot(const T* a, const T (&b)[G]) {
-  T acc;
-  if constexpr (sizeof(T) == 4) {
-    const float4* v = reinterpret_cast<const float4*>(a);
-#pragma unroll
-    for (int q = 0; q < G / 4; ++q) {
-      const float4 x = v[q];
-      acc = q == 0 ? x.x * b[0] : acc + x.x * b[4 * q];
-      acc = acc + x.y * b[4 * q + 1];
-      acc = acc + x.z * b[4 * q + 2];
-      acc = acc + x.w * b[4 * q + 3];
-    }
-  } else {
-    const double2* v = reinterpret_cast<const double2*>(a);
-#pragma unroll
-    for (int q = 0; q < G / 2; ++q) {
-      const double2 x = v[q];
-      acc = q == 0 ? x.x * b[0] : acc + x.x * b[2 * q];
-      acc = acc + x.y * b[2 * q + 1];
-    }
-  }
-  return acc;
-}
-
-// c = add I + scale (a b): lane j holds column j of b in registers (rows
-// past d as 0) and forms column j of the product, each entry a row of a
-// (a broadcast, read as vectors) against it, summed over k in order from
-// the first term (the zero columns past d add exact zeros). c must not
-// alias a or b. Ends synchronized.
-template <typename T, int G>
-__device__ __forceinline__ void lie_grp_mm(const T* a, const T* b, T* c, int d, int gl,
-                                           unsigned mask, T add = T(0), T scale = T(1)) {
-  T bc[G];
-#pragma unroll
-  for (int k = 0; k < G; ++k) bc[k] = k < d ? b[k * G + gl] : T(0);
-  for (int i = 0; i < d; ++i) {
-    const T acc = lie_row_dot<T, G>(a + i * G, bc);
-    if (gl < d) c[i * G + gl] = (i == gl ? add : T(0)) + acc * scale;
-  }
-  __syncwarp(mask);
-}
-
-// Column j of x times `scale` to problem b of out, from lane j (j < d).
-template <typename T, int G>
-__device__ __forceinline__ void lie_grp_store(const T* x, View<T> out, long long b, int d,
-                                              int gl, T scale) {
-  if (gl < d)
-    for (int i = 0; i < d; ++i) out.p[b * out.sb + (i * d + gl) * out.sc] = x[i * G + gl] * scale;
-}
-
-// Zero `n` values of a group's shared memory (its padding columns stay 0).
-// Ends synchronized.
-template <typename T, int G>
-__device__ __forceinline__ void lie_grp_zero(T* x, int n, int gl, unsigned mask) {
-  for (int e = gl; e < n; e += G) x[e] = T(0);
-  __syncwarp(mask);
 }
 
 // 16-byte vectors of T (float4, double2), as the lane groups' shared

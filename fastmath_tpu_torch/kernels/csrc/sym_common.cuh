@@ -70,12 +70,64 @@ __host__ __device__ __forceinline__ float fm_abs(float x) { return fabsf(x); }
 __host__ __device__ __forceinline__ double fm_abs(double x) { return fabs(x); }
 __host__ __device__ __forceinline__ float fm_max(float a, float b) { return fmaxf(a, b); }
 __host__ __device__ __forceinline__ double fm_max(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float fm_fma(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fm_fma(double a, double b, double c) { return fma(a, b, c); }
 __device__ __forceinline__ float fm_log(float x) { return logf(x); }
 __device__ __forceinline__ double fm_log(double x) { return log(x); }
 __device__ __forceinline__ float fm_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double fm_sqrt(double x) { return sqrt(x); }
 __device__ __forceinline__ float fm_rsqrt(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double fm_rsqrt(double x) { return rsqrt(x); }
+
+// One asynchronous copy of a T (4, 8 or 16 bytes, aligned to its size) from
+// device to shared memory (cp.async, sm_80+): a thread issues all its
+// copies, holding no registers for them, and waits once (copy_async_wait)
+// before the barrier after which others read them.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(sizeof(T)));
+#else
+  *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// N consecutive values at p (16-byte aligned, N whole 16-byte vectors)
+// into x, and x to p, as 16-byte accesses: the register blocks of the
+// products on shared memory (sym_products.cu: jhj_tiles; expm.cu:
+// expm_warp).
+template <typename T, int N>
+__device__ __forceinline__ void vec_get(const T* p, T (&x)[N]) {
+  constexpr int kW = 16 / (int)sizeof(T);
+  struct alignas(16) V { T v[kW]; };
+  static_assert(N % kW == 0, "whole vectors");
+#pragma unroll
+  for (int q = 0; q < N / kW; ++q) {
+    const V v = reinterpret_cast<const V*>(p)[q];
+#pragma unroll
+    for (int e = 0; e < kW; ++e) x[q * kW + e] = v.v[e];
+  }
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void vec_put(T* p, const T (&x)[N]) {
+  constexpr int kW = 16 / (int)sizeof(T);
+  struct alignas(16) V { T v[kW]; };
+#pragma unroll
+  for (int q = 0; q < N / kW; ++q) {
+    V v;
+#pragma unroll
+    for (int e = 0; e < kW; ++e) v.v[e] = x[q * kW + e];
+    reinterpret_cast<V*>(p)[q] = v;
+  }
+}
 
 // Entry grid of one compact matrix (channel stride sc), with eps (n
 // values, or null) added to the diagonal.

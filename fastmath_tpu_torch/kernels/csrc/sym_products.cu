@@ -32,19 +32,27 @@
 //     upper slots of G = J^T (H J), as the reference's unrolled tier does.
 //   matvec / accumulate / outer, 9..32: a row at a time, entries read from
 //     memory (the second read of an off-diagonal slot hits L1).
-//   JtHJ, 7 <= max(K, D) <= 32: a team of lanes per problem (a power of
-//     two, one per 4 x 4 block of G, at most a warp). The team stages J
-//     and H (both triangles) in shared memory with cp.async, zero-padded
-//     to multiples of 4; each lane forms 4 x 4 blocks of HJ, then of G,
-//     from 16-byte shared-memory loads (the padding adds exact zeros after
-//     the real terms, so every sum keeps the reference's order); the
-//     output takes 0.5 (G_ij + G_ji) off the diagonal, as the reference's
-//     rolled tier does. It reaches ~30% of its byte bound at K = D = 16;
-//     what holds it there is not measured yet (PERF.md).
+//   JtHJ, 7 <= max(K, D) <= 32 (jhj_tiles): a block of P problems, a team
+//     of lanes each (a power of two, at least the count of 4 x 4 blocks of
+//     HJ or G, at most a warp). The block stages each problem's J and
+//     compact H into the problem's region of shared memory through
+//     tile_stage.cuh, reading device memory in order (16-byte vectors where
+//     an operand is contiguous batch-major, batch-fastest where it is
+//     channel-first, element by element otherwise); the team expands H to
+//     both triangles, forms HJ and then G in 4 x 4 blocks from 16-byte
+//     shared-memory loads (the padding to multiples of 4 adds exact zeros
+//     after the real terms, so every sum keeps the reference's order), and
+//     writes the compact result (0.5 (G_ij + G_ji) off the diagonal, as the
+//     reference's rolled tier) over J at the region's start; the block
+//     writes it out in order (tile_store). The kernel it replaced staged J
+//     with one 4-byte copy a value, H by a triangular walk that copied each
+//     off-diagonal slot twice, and stored the result one 4-byte value at a
+//     time: 31% of its byte bound at K = D = 16.
 
 #include <cuda_runtime.h>
 
 #include "sym_common.cuh"
+#include "tile_stage.cuh"
 
 namespace fm {
 
@@ -216,144 +224,191 @@ jhj_unrolled(long long nb, View<const T> jm, View<const T> hm, View<T> out) {
   store_row<T, DD>(tile, out, nb, o);
 }
 
-// Asynchronous copy of one value from device to shared memory (sm_80+):
-// the warp goes on issuing while the copies are in flight, so a staging
-// loop waits for memory once (copy_async_wait), not once per element as
-// a load followed by a shared-memory store does.
-template <typename T>
-__device__ __forceinline__ void copy_async(T* dst, const T* src) {
-#ifdef __CUDA_ARCH__
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(sizeof(T)));
-#else
-  *dst = *src;
-#endif
-}
-
-__device__ __forceinline__ void copy_async_wait() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-#endif
-}
-
-// Four consecutive shared-memory values (16-byte aligned) in one or two
-// vector loads.
-__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
-}
-
-__device__ __forceinline__ void load4(const double* p, double (&x)[4]) {
-  const double2 lo = *reinterpret_cast<const double2*>(p);
-  const double2 hi = *reinterpret_cast<const double2*>(p + 2);
-  x[0] = lo.x, x[1] = lo.y, x[2] = hi.x, x[3] = hi.y;
-}
-
-__device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-}
-
-__device__ __forceinline__ void store4(double* p, const double (&x)[4]) {
-  *reinterpret_cast<double2*>(p) = make_double2(x[0], x[1]);
-  *reinterpret_cast<double2*>(p + 2) = make_double2(x[2], x[3]);
-}
-
 // C[i0 + i][j0 + j] = sum_t A[t][i0 + i] * B[t][j0 + j] over t < depth,
-// from t = 0: one 4 x 4 block. A, B and C are row-major in shared memory
-// with row lengths lda, ldb and ldc, and depth, all multiples of 4.
+// from t = 0 (the first product rounded, then one multiply-add a term): one
+// 4 x 4 block in registers, each step one 16-byte read of row t of A and
+// of B (two in float64). A, B and C are row-major in shared memory with row
+// lengths lda, ldb and ldc, and depth, all multiples of 4. (8 x 8 blocks
+// read half as much a multiply-add but leave 4 lanes a problem at K = D =
+// 16, whose block of 16 problems stages and expands too slowly: PERF.md.)
 template <typename T>
 __device__ __forceinline__ void block4(const T* A, int lda, int i0, const T* B, int ldb, int j0,
                                        int depth, T* C, int ldc) {
   T acc[4][4], a[4], b[4];
-  load4(A + i0, a);
-  load4(B + j0, b);
+  vec_get<T, 4>(A + i0, a);
+  vec_get<T, 4>(B + j0, b);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = a[i] * b[j];
   for (int t = 1; t < depth; ++t) {
-    load4(A + t * lda + i0, a);
-    load4(B + t * ldb + j0, b);
+    vec_get<T, 4>(A + t * lda + i0, a);
+    vec_get<T, 4>(B + t * ldb + j0, b);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = acc[i][j] + a[i] * b[j];
+      for (int j = 0; j < 4; ++j) acc[i][j] = fm_fma(a[i], b[j], acc[i][j]);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) store4(C + (i0 + i) * ldc + j0, acc[i]);
+  for (int i = 0; i < 4; ++i) vec_put<T, 4>(C + (i0 + i) * ldc + j0, acc[i]);
 }
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
-// Shared-memory values of one problem of the rolled tier: J (k x d), HJ
-// (k x d), then H (k x k, both triangles) and later, over it, G (d x d);
-// each side padded with zeros to a multiple of 4.
-__host__ __device__ inline int jhj_values(int k, int d) {
-  const int kp = round4(k), dp = round4(d);
-  return 2 * kp * dp + (kp > dp ? kp * kp : dp * dp);
-}
-
+// The rolled tier's launch shape: P problems a block, tpp lanes a problem
+// (a power of two, at most a warp, so that a problem's lanes sync as part
+// of one warp), each problem's region of S values and where J (row stride
+// dp, at 0), HJ, H in both triangles (later G, both at row stride kp or
+// dp) and the compact H sit in it; the operands and the result. kp and dp
+// are K and D rounded up to multiples of 4.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-jhj_rolled(long long nb, int k, int d, int team, View<const T> jm, View<const T> hm,
-           View<T> out) {
+struct JhjPlan {
+  int P, tpp, S, oHJ, oG, oHc;
+  TileOperand<T> j, h;
+  TileOut<T> out;
+};
+
+// A block of P problems (plan), tpp lanes each. The block stages each
+// problem's J (k x d, rows padded to dp) and compact H into its region
+// (tile_stage: in order, as 16-byte vectors where an operand is contiguous
+// batch-major); the problem's lanes zero J's padding, expand H to both
+// triangles (rows and columns k.. zero), form HJ and then G = J^T (HJ) in
+// 4 x 4 blocks (block4), and write the compact result (the diagonal, then
+// 0.5 (G_ij + G_ji) in slot order, the lanes taking consecutive slots) over
+// J and HJ at the region's start; the block writes it in order
+// (tile_store).
+template <typename T>
+__global__ void __launch_bounds__(256) jhj_tiles(long long nb, int k, int d, JhjPlan<T> plan) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int P = plan.P, S = plan.S, tpp = plan.tpp;
+  const long long b0 = blockIdx.x * (long long)P;
+  const int np = nb - b0 < P ? (int)(nb - b0) : P;
   const int kp = round4(k), dp = round4(d);
-  const int lane = threadIdx.x % team;
-  const long long b = blockIdx.x * (long long)(blockDim.x / team) + threadIdx.x / team;
-  const bool live = b < nb;
-  T* sJ = reinterpret_cast<T*>(smem_raw) + (threadIdx.x / team) * jhj_values(k, d);
-  T* sHJ = sJ + kp * dp;
-  T* sH = sHJ + kp * dp;
+  const int p = threadIdx.x / tpp, w = threadIdx.x % tpp;
+  const bool busy = p < np;
+  T* sJ = sm + p * S;
+  T* sHJ = sJ + plan.oHJ;
+  T* sH = sJ + plan.oG;
   T* sG = sH;  // H is dead once HJ is formed
-  if (live) {
-    const T* jb = jm.p + b * jm.sb;
-    const T* hb = hm.p + b * hm.sb;
+  const T* sHc = sJ + plan.oHc;
+  if (busy && (k < kp || d < dp))  // J's padding; the staging writes the rest
     for (int a = 0; a < kp; ++a)
-      for (int c = lane; c < dp; c += team) {
-        if (a < k && c < d)
-          copy_async(sJ + a * dp + c, jb + (a * d + c) * jm.sc);
-        else
-          sJ[a * dp + c] = T(0);
+      for (int c = w + (a < k ? d : 0); c < dp; c += tpp) sJ[a * dp + c] = T(0);
+  tile_stage<T, false, 8, true>(plan.j, b0, np, P, S, sm);
+  tile_stage<T, false, 8, true>(plan.h, b0, np, P, S, sm);
+  copy_async_wait();
+  __syncthreads();
+  // H to both triangles, rows and columns k.. zero: lane w takes columns
+  // w, w + tpp, ..., each walked down its rows with the compact slots of
+  // (a, c) and (c, a) kept as running sums (tri_index)
+  if (busy)
+    for (int c = w; c < kp; c += tpp) {
+      const int col = k + c * (k - 1) - c * (c - 1) / 2 - c - 1;  // + a: slot (c, a), a > c
+      int row = k - 1;  // + c - a: slot (a, c), a < c
+      for (int a = 0; a < kp; ++a) {
+        T v = T(0);
+        if (a < k && c < k) v = sHc[a == c ? a : (a < c ? row + c - a : col + a)];
+        sH[a * kp + c] = v;
+        row += k - 1 - a;
       }
-    // H from its compact rows, walked in storage order: slot (a, c), c >= a,
-    // fills (a, c) and (c, a); rows and columns k..kp are zero
-    int slot = k;  // row a's first off-diagonal slot
-    for (int a = 0; a < k; ++a) {
-      for (int c = a + lane; c < k; c += team) {
-        const T* src = hb + (c == a ? a : slot + c - a - 1) * hm.sc;
-        copy_async(sH + a * kp + c, src);
-        if (c != a) copy_async(sH + c * kp + a, src);
-      }
-      slot += k - 1 - a;
     }
-    for (int a = 0; a < kp; ++a)
-      for (int c = k + lane; c < kp; c += team) sH[a * kp + c] = sH[c * kp + a] = T(0);
-    copy_async_wait();
-  }
   __syncwarp();
   // HJ = H J in 4 x 4 blocks (H symmetric: its row t is its column t);
   // the zero padding adds exact zeros after the real terms
   const int kb = kp / 4, db = dp / 4;
-  if (live)
-    for (int blk = lane; blk < kb * db; blk += team)
+  if (busy)
+    for (int blk = w; blk < kb * db; blk += tpp)
       block4(sH, kp, 4 * (blk / db), sJ, dp, 4 * (blk % db), kp, sHJ, dp);
   __syncwarp();
   // G = J^T (H J)
-  if (live)
-    for (int blk = lane; blk < db * db; blk += team)
+  if (busy)
+    for (int blk = w; blk < db * db; blk += tpp)
       block4(sJ, dp, 4 * (blk / db), sHJ, dp, 4 * (blk % db), kp, sG, dp);
   __syncwarp();
-  if (live) {
-    T* o = out.p + b * out.sb;
-    for (int i = lane; i < d; i += team) o[i * out.sc] = sG[i * dp + i];
-    int slot = d;  // row i's first off-diagonal slot
-    for (int i = 0; i < d; ++i) {
-      for (int c = i + 1 + lane; c < d; c += team)
-        o[(slot + c - i - 1) * out.sc] = T(0.5) * (sG[i * dp + c] + sG[c * dp + i]);
-      slot += d - 1 - i;
+  if (busy) {
+    T* o = sJ;
+    for (int i = w; i < d; i += tpp) o[i] = sG[i * dp + i];
+    // upper slot d + u is entry (i, c), c > i, row by row: lane w walks
+    // u = w, w + tpp, ...
+    const int nup = d * (d - 1) / 2;
+    int i = 0, c = 1 + w;
+    for (int u = w; u < nup; u += tpp, c += tpp) {
+      while (c >= d) {
+        ++i;
+        c += i + 1 - d;
+      }
+      o[d + u] = T(0.5) * (sG[i * dp + c] + sG[c * dp + i]);
     }
   }
+  __syncthreads();
+  tile_store<T>(plan.out, b0, np, P, S, sm);
+}
+
+// Dynamic shared memory a block of jhj_tiles may take (it opts in above
+// the default 48 KB).
+constexpr int kJhjSmem = 96 * 1024;
+
+// The rolled tier's layout and launch shape. Lanes a problem: the power of
+// two at least the larger count of 4 x 4 blocks (HJ's, G's), at most a
+// warp. Region: J and HJ (kp dp each), then H in both triangles, later G
+// (the larger of kp^2, dp^2), at least the compact result past the start;
+// the compact H in HJ's place where it fits (it is dead once H is
+// expanded), after the rest otherwise. The region is whole 16-byte vectors
+// and its stride spreads the problems of a warp over the banks (two
+// problems half a bank row apart). Problems a block: 256 threads' worth
+// (128 in float64, whose blocks are twice the bytes: measured faster at
+// every shape but (16, 7)), as many as kJhjSmem holds, a multiple of the
+// vector width where it can be, so that each block's range of a
+// contiguous operand starts aligned.
+template <typename T>
+JhjPlan<T> jhj_plan(int k, int d, View<const T> jm, View<const T> hm, View<T> out) {
+  constexpr int kW = 16 / (int)sizeof(T);
+  auto up = [](int x, int q) { return (x + q - 1) / q * q; };
+  const int kp = round4(k), dp = round4(d), kk = k * (k + 1) / 2, dd = d * (d + 1) / 2;
+  const int kb = kp / 4, db = dp / 4, blocks = (kb > db ? kb : db) * db;
+  int tpp = 1;
+  while (tpp < kWarp && tpp < blocks) tpp *= 2;
+  JhjPlan<T> plan;
+  plan.tpp = tpp;
+  plan.oHJ = kp * dp;
+  plan.oG = up(2 * kp * dp > dd ? 2 * kp * dp : dd, kW);
+  const int g = kp > dp ? kp * kp : dp * dp;
+  plan.oHc = kk <= kp * dp ? plan.oHJ : plan.oG + g;
+  int sv = (plan.oHc == plan.oHJ ? plan.oG + g : plan.oHc + kk + kW - 1) / kW;  // vectors
+  if (tpp < kWarp) {
+    const int teams = kWarp / tpp, q = 8 / (teams < 8 ? teams : 8);
+    sv = up(sv, q);
+    if (sv / q % 2 == 0) sv += q;
+  }
+  plan.S = sv * kW;
+  int P = (sizeof(T) == 8 ? 128 : 256) / tpp;
+  if (P * plan.S * (int)sizeof(T) > kJhjSmem) P = kJhjSmem / (plan.S * (int)sizeof(T));
+  P = P >= kW ? P / kW * kW : (P < 1 ? 1 : P);
+  plan.P = P;
+  const bool jf = jm.sb == 1 && k * d > 1, hf = hm.sb == 1 && kk > 1;
+  plan.j = {jm, k * d, dp, 0, false, jf, tile_vec<T>(jm.p, jm.sb, jm.sc, k * d, P),
+            d % kW == 0 ? kLandWhole : kLandApart, fast_div(d), fast_div(jf ? P : k * d)};
+  plan.h = {hm, kk, kk, plan.oHc, false, hf, tile_vec<T>(hm.p, hm.sb, hm.sc, kk, P),
+            kk % kW == 0 ? kLandWhole : kLandApart, fast_div(kk), fast_div(hf ? P : kk)};
+  plan.out = tile_flat_out<T>(out, dd, P, plan.S);
+  return plan;
+}
+
+template <typename T>
+cudaError_t launch_jhj_tiles(int k, int d, long long nb, View<const T> jm, View<const T> hm,
+                             View<T> out, cudaStream_t s) {
+  const JhjPlan<T> plan = jhj_plan<T>(k, d, jm, hm, out);
+  const int bytes = plan.P * plan.S * (int)sizeof(T);
+  if (bytes > kDefaultSmem) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(jhj_tiles<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+  }
+  const int threads = (plan.P * plan.tpp + kWarp - 1) / kWarp * kWarp;
+  const unsigned g = (unsigned)((nb + plan.P - 1) / plan.P);
+  jhj_tiles<T><<<g, threads, bytes, s>>>(nb, k, d, plan);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -418,19 +473,7 @@ cudaError_t launch_jhj(int k, int d, long long nb, View<const T> jm, View<const 
     }
     return cudaGetLastError();
   }
-  // a team of lanes per problem, one 4 x 4 block of G each (the power of
-  // two >= the block count, at most a warp), wider where the warp's
-  // problems would not fit the default shared memory
-  const int blocks = (round4(d) / 4) * (round4(d) / 4);
-  const int bytes = jhj_values(k, d) * (int)sizeof(T);
-  int team = 1;
-  while (team < kWarp && (team < blocks || (kWarp / team) * bytes > kDefaultSmem)) team *= 2;
-  int warps = kThreads / kWarp;
-  while (warps > 1 && warps * (kWarp / team) * bytes > kDefaultSmem) warps /= 2;
-  const int per_block = warps * (kWarp / team);
-  const unsigned g = (unsigned)((nb + per_block - 1) / per_block);
-  jhj_rolled<T><<<g, warps * kWarp, per_block * bytes, s>>>(nb, k, d, team, jm, hm, out);
-  return cudaGetLastError();
+  return launch_jhj_tiles<T>(k, d, nb, jm, hm, out, s);
 }
 
 // float for dtype 0, double for dtype 1

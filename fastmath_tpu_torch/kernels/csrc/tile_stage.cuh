@@ -119,7 +119,10 @@ TileOut<T> tile_flat_out(View<T> v, int size, int P, int S) {
 // channel-first flat operand (tile_flat_operand, batch_fastest) of one
 // problem a thread: each thread reads its own problem channel by channel
 // (the warp's threads neighbours in each channel), with no division.
-template <typename T, bool kOwn = false, int kU = 8>
+// kAsync: vectors that land whole are copied with copy_async, every one of
+// a thread's in flight at once; the caller then calls copy_async_wait
+// before its barrier.
+template <typename T, bool kOwn = false, int kU = 8, bool kAsync = false>
 __device__ __forceinline__ void tile_stage(const TileOperand<T>& o, long long b0, int np, int P,
                                            int S, T* sm) {
   constexpr int kW = 16 / (int)sizeof(T);
@@ -153,38 +156,45 @@ __device__ __forceinline__ void tile_stage(const TileOperand<T>& o, long long b0
     const T* base = o.v.p + b0 * o.size;
     const int total = np * o.size, nv = total / kW;
     const V* src = reinterpret_cast<const V*>(base);
-    for (int e0 = threadIdx.x; e0 < nv; e0 += kU * blockDim.x) {
-      V x[kU];
+    if (kAsync && o.land == kLandWhole) {
+      for (int v = threadIdx.x; v < nv; v += blockDim.x) {
+        const int e = v * kW, p = fdiv(e, o.per), q = e - p * o.size, q1 = fdiv(q, o.inner);
+        copy_async(reinterpret_cast<V*>(at(p, q1, q - q1 * inner)), src + v);
+      }
+    } else {
+      for (int e0 = threadIdx.x; e0 < nv; e0 += kU * blockDim.x) {
+        V x[kU];
 #pragma unroll
-      for (int u = 0; u < kU; ++u)
-        if (e0 + u * (int)blockDim.x < nv) x[u] = src[e0 + u * blockDim.x];
+        for (int u = 0; u < kU; ++u)
+          if (e0 + u * (int)blockDim.x < nv) x[u] = src[e0 + u * blockDim.x];
 #pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        if (e0 + u * (int)blockDim.x < nv) {
-          // the vector's first value by division, the next ones by steps
-          const int e = (e0 + u * blockDim.x) * kW;
-          int p = fdiv(e, o.per), q = e - p * o.size;
-          int q1 = fdiv(q, o.inner), q2 = q - q1 * inner;
-          if (o.land == kLandWhole) {
-            *reinterpret_cast<V*>(at(p, q1, q2)) = x[u];
-            continue;
-          }
-          if (o.land == kLandRun) {
-            T* d = at(p, q1, q2);
-#pragma unroll
-            for (int c = 0; c < kW; ++c) d[c] = x[u].v[c];
-            continue;
-          }
-#pragma unroll
-          for (int c = 0; c < kW; ++c) {
-            *at(p, q1, q2) = x[u].v[c];
-            if (++q2 == inner) {
-              q2 = 0;
-              ++q1;
+        for (int u = 0; u < kU; ++u) {
+          if (e0 + u * (int)blockDim.x < nv) {
+            // the vector's first value by division, the next ones by steps
+            const int e = (e0 + u * blockDim.x) * kW;
+            int p = fdiv(e, o.per), q = e - p * o.size;
+            int q1 = fdiv(q, o.inner), q2 = q - q1 * inner;
+            if (o.land == kLandWhole) {
+              *reinterpret_cast<V*>(at(p, q1, q2)) = x[u];
+              continue;
             }
-            if (++q == o.size) {
-              q = q1 = q2 = 0;
-              ++p;
+            if (o.land == kLandRun) {
+              T* d = at(p, q1, q2);
+#pragma unroll
+              for (int c = 0; c < kW; ++c) d[c] = x[u].v[c];
+              continue;
+            }
+#pragma unroll
+            for (int c = 0; c < kW; ++c) {
+              *at(p, q1, q2) = x[u].v[c];
+              if (++q2 == inner) {
+                q2 = 0;
+                ++q1;
+              }
+              if (++q == o.size) {
+                q = q1 = q2 = 0;
+                ++p;
+              }
             }
           }
         }

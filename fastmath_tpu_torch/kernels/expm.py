@@ -7,8 +7,9 @@ Two kernels of ``csrc/expm.cu`` replace the Pallas ``_expm_kernel``
 a problem up to :data:`UNROLL_MAX` (by dtype), the problems staged through
 shared memory in tiles, the matrices in registers to d = 6 and Y in the
 thread's shared region above; ``expm_warp`` a group of 16 or 32 lanes a
-problem with the matrices in shared memory above; the source's header
-gives the design and what bounds it.
+problem above, the matrices in shared memory and each lane a register
+block of every product; the source's header gives the design and what
+bounds it.
 Each problem squares exactly its own s times.
 
 Entry points:

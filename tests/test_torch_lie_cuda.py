@@ -28,6 +28,9 @@ from fastmath_tpu_torch.kernels import logm as KL
 
 B = 4099  # ragged against both tiers' blocks
 DS = [1, 2, 3, 4, 5, 8, 9, 12, 16, 17, 24, 25, 32]
+# expm_warp's block shapes (4 x 4 blocks to d = 20, 4 x 8 above) at the
+# edges of their padding, too
+EXPM_DS = DS + [10, 20, 28, 31]
 # logm_unrolled's sizes, and the edges of logm_warp's lane groups (G = 8
 # to d = 8, 16 to 16, 32 above)
 EDGES = [2, 3, 4, 5, 8, 9, 12, 16, 17, 24, 25, 32]
@@ -77,7 +80,7 @@ def _logm_counter(d, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("d", DS)
+@pytest.mark.parametrize("d", EXPM_DS)
 def test_expm_matches_plain(d, dtype, rng):
     """Both scales, batch-major and channel-first on a ragged batch."""
     for x, tol in ((gauss(rng, B, d), TOL_EXPM[dtype]), (skew(rng, B, d, 128.0), TOL_DEEP[dtype])):
@@ -155,6 +158,31 @@ def test_expm_squaring_extremes_and_nan(d, dtype, rng):
     keep[[7, 150]] = False
     assert not torch.isfinite(got[7]).all() and not torch.isfinite(got[150]).all()
     assert torch.equal(got[keep], alone[keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [9, 12, 16, 17, 20, 24, 32])
+def test_expm_warp_nan_stays_in_its_problem(d, dtype, rng):
+    """A ragged batch (neither a whole number of groups nor of blocks) with a
+    NaN in one problem and an inf in another: those come back non-finite,
+    and every other problem, the neighbours in the same lane group and warp
+    too, keeps the bits it has alone and matches the plain version."""
+    b = 301
+    clean = torch.tensor(gauss(rng, b, d), dtype=dtype, device="cuda")
+    bad = clean.clone()
+    bad[100, 0, d - 1] = float("nan")
+    bad[201, d - 1, d // 2] = float("inf")
+    before = KE.expm_warp.launches
+    got, alone = KE.launch_expm(bad), KE.launch_expm(clean)
+    torch.cuda.synchronize()
+    assert KE.expm_warp.launches == before + 2
+    keep = torch.ones(b, dtype=torch.bool, device="cuda")
+    keep[[100, 201]] = False
+    assert not torch.isfinite(got[100]).all() and not torch.isfinite(got[201]).all()
+    assert torch.equal(got[keep], alone[keep])
+    for i in (99, 101, 200, 202):
+        assert normwise(got[i:i + 1], KE.expm_plain(clean[i:i + 1])) <= TOL_EXPM[dtype]
 
 
 @pytest.mark.cuda

@@ -19,6 +19,7 @@ import torch
 import fastmath_tpu_torch as T
 from fastmath_tpu_torch.kernels import (sym_addmatvec_cf, sym_matmul_cf, sym_matvec_cf,
                                         sym_outer_cf, sym_products, sym_submatvec_cf)
+from fastmath_tpu_torch.kernels._launch import launch, operand
 
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
@@ -83,7 +84,8 @@ def test_matvec_family_and_outer_match_plain(n, dtype, rng):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("k,d", [(1, 1), (3, 2), (4, 4), (6, 6), (7, 3), (3, 7), (16, 16),
-                                 (32, 32)])
+                                 (32, 32), (16, 7), (7, 16), (9, 9), (13, 5), (24, 24),
+                                 (32, 7)])
 def test_jhj_matches_plain(k, d, dtype, rng):
     j = torch.tensor(rng.standard_normal((1029, k * d)), dtype=dtype, device="cuda")
     h = _compact_sym(rng, 1029, k, dtype)
@@ -95,6 +97,52 @@ def test_jhj_matches_plain(k, d, dtype, rng):
         assert sym_matmul_cf.launches == before + 1
         torch.cuda.synchronize()
         assert _normwise(got, want) <= TOL[dtype]
+
+
+def _off_by_one(t):
+    """The same values, contiguous batch-major, one element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k,d", [(7, 3), (9, 9), (16, 16), (13, 5)])
+def test_jhj_staging_layouts_and_nan(k, d, dtype, rng):
+    """The rolled tier's staging in each of its orders gives the bits of
+    the contiguous call: a J at channel stride 2 and J and H one element
+    off a 16-byte boundary (element by element), batches that are not a
+    whole number of a block's problems (1, 5, 1029, 2053). A NaN in one
+    problem's J stays in that problem: every other problem keeps its
+    bits."""
+    b = 2053
+    j = torch.tensor(rng.standard_normal((b, k * d)), dtype=dtype, device="cuda")
+    h = _compact_sym(rng, b, k, dtype)
+    want = sym_products.launch_jhj(j, h, d)
+    torch.cuda.synchronize()
+    assert _normwise(want, sym_products.jhj_plain(j, h, d)) <= TOL[dtype]
+    # a J at channel stride 2, which the wrappers never pass: the entry
+    # point itself, which stages it element by element
+    strided = torch.repeat_interleave(j, 2, dim=1)[:, ::2]
+    got = torch.empty_like(want)
+    launch(sym_products._library(), sym_matmul_cf, "fm_sym_jhj", h, k, d, b, *operand(strided),
+           *operand(h), *operand(got))
+    assert torch.equal(got, want)
+    for jj, hh in ((_off_by_one(j), _off_by_one(h)), (j, _off_by_one(h))):
+        assert torch.equal(sym_products.launch_jhj(jj, hh, d), want)
+    for n in (1, 5, 1029):
+        assert torch.equal(sym_products.launch_jhj(j[:n].contiguous(), h[:n].contiguous(), d),
+                           want[:n])
+    bad = j.clone()
+    bad[700, k * d // 2] = float("nan")
+    got = sym_products.launch_jhj(bad, h, d)
+    keep = torch.ones(b, dtype=torch.bool, device="cuda")
+    keep[700] = False
+    assert torch.isnan(got[700]).any()
+    assert torch.equal(got[keep], want[keep])
 
 
 @pytest.mark.cuda
