@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time one source tree's full-storage solve, Cholesky, inverse, compact
 solve, product, matrix logarithm, rolled eig, chain and power-iteration
-kernels, the n <= 8 inverse and Cholesky tiers, the matrix exponential
-(both tiers), the 5 <= N <= 8 compact chain and the rolled JtHJ tier, on
-one NVIDIA GPU, to compare two versions of a kernel in one call.
+kernels, the n <= 8 inverse, Cholesky, determinant and solve tiers, the
+matrix exponential (both tiers), the 5 <= N <= 8 compact chain and the
+rolled JtHJ tier, on one NVIDIA GPU, to compare two versions of a kernel
+in one call.
 
     python3 /path/to/chip_ab.py TAG [--library] [--only GROUP[,GROUP...]]
 
@@ -15,9 +16,10 @@ groups it times, times each kernel three times with
 against its plain version, and prints one JSON line: ``tag``, each
 shape's three times and error, and the registers and spills (``-Xptxas
 -v``) of every kernel of those sources but the unrolled tiers (except
-``logm_unrolled``, and the inverse's, Cholesky's, expm's and the chain's
-with ``inv8``, ``chol8``, ``expm`` and ``chain8``). The groups (all by
-default): ``solve``
+``logm_unrolled``, and the inverse's, Cholesky's, expm's, the chain's,
+the determinant's and the solve's with ``inv8``, ``chol8``, ``expm``,
+``chain8``, ``det8`` and ``solve8``). The groups (all by default):
+``solve``
 (``csrc/batched.cu``: the solve 16x16 on 500k, 24x24 on 200k, 32x32 on
 100k with one column and 16x16 with 16; the inverse 16x16 and 32x32),
 ``chol`` (16x16, 24x24, 32x32), ``sym_solve`` (``csrc/sym_solve.cu``: N =
@@ -41,8 +43,7 @@ iteration, iters 32, r 8, at n = 9, 12, 16, 17, 24, 32 on the bytes of
 16x16 on 1M, ``chip_smoke.maxeig_input``; mu over the Gershgorin bound,
 v normwise), ``inv8`` (``csrc/batched.cu``'s n <= 8 inverse tier: 3x3,
 5x5 and 8x8 on 1M in float32, 8x8 in float64, and the channel-first 8x8;
-the solve's n <= 8 tier at 8x8 on 1M with one column; then the staging's
-ceiling, ``stage_copy``: ``csrc/tile_stage.cuh`` of the
+then the staging's ceiling, ``stage_copy``: ``csrc/tile_stage.cuh`` of the
 tree this script lies in, built here into a kernel that stages 8x8
 problems into shared memory and writes them back with no arithmetic, at P
 = 64, 128 and 256 problems a block, beside ``Tensor.copy_`` of the same
@@ -60,14 +61,23 @@ tree's sources), ``expm_warp`` (``csrc/expm.cu``'s lane groups at every
 squarings, 16x16 and 32x32 channel-first too, and each instantiation's
 SASS size) and ``jhj`` (``csrc/sym_products.cu``'s rolled JtHJ tier at
 ``JHJ_SHAPES`` in both dtypes, each on the bytes of K = D = 16 on 200k,
-with its bound, 16x16 float32 channel-first too). ``inv8``, ``chol8``,
-``expm``, ``chain8``, ``expm_warp`` and ``jhj`` also give each output's
-digest (SHA-256 of its bytes), so that two trees' outputs compare bit for
-bit, and their tiers' registers. ``--library`` also times
-``torch.linalg.solve_ex`` /
-``cholesky_ex`` (the compact solve's on the densified batch),
-``inv_ex``, ``torch.matmul`` and ``eigvalsh`` / ``eigh`` on the same
-inputs. It imports neither JAX nor ``fastmath_tpu``.
+with its bound, 16x16 float32 channel-first too), ``det8``
+(``csrc/batched.cu``'s det and log|det| at n = 4..8 on 1M in both dtypes,
+batch-major and channel-first, with their bounds; at 4x4 also the
+unstaged expansion, and at 8x8 float32 the staging alone and the
+arithmetic alone, from ``PROBE8``) and ``solve8`` (the n <= 8 solve at n
+= 1..8 on 1M with k = 1, 2 and n, and 8 at n <= 2, A as it is and
+transposed, in both dtypes, with its bound; at 8x8 float32 also k = 9,
+the first width past the staged one, the three operands channel-first at
+k = 1, and at k = 1 and 8 the staging alone and the arithmetic alone).
+``inv8``, ``chol8``, ``expm``, ``chain8``, ``expm_warp``, ``jhj``,
+``det8`` and ``solve8`` also give each output's digest (SHA-256 of its
+bytes), so that two trees' outputs compare bit for bit, and their tiers'
+registers (``det8`` and ``solve8`` also each instantiation's SASS size).
+``--library`` also times ``torch.linalg.solve_ex`` / ``cholesky_ex`` (the
+compact solve's on the densified batch), ``inv_ex``, ``torch.matmul``,
+``eigvalsh`` / ``eigh`` and ``det`` / ``slogdet`` on the same inputs. It
+imports neither JAX nor ``fastmath_tpu``.
 """
 import ctypes
 import hashlib
@@ -156,6 +166,171 @@ extern "C" int fm_probe_chain_groups8(int dtype, int n, long long nb, const void
 """
 
 
+# The staged n <= 8 determinant and solve of the measured tree taken apart
+# (built only from a tree whose batched.cu has them): det_unrolled at 4 x 4,
+# the unstaged expansion, where the tree's launcher stages; and, at 8 x 8
+# in float32, each staged kernel's staging alone (the same copies in and
+# out, no arithmetic) and its arithmetic alone (each thread fills its
+# regions from its index, then the same arithmetic and output).
+PROBE8 = r"""
+#include "batched.cu"
+
+namespace fm {
+template <typename T>
+__device__ __forceinline__ T fill(int p, int i, int j) {  // well-conditioned, pivoting
+  return i == ((j + p) & 7) ? T(8) : T(((p + 3 * i + 5 * j) & 15) - 7) * T(0.0625);
+}
+
+template <int P, int kMode>  // 0: staging alone, 1: arithmetic alone
+__global__ void __launch_bounds__(P)
+det8_part(long long nb, TileOperand<float> in, View<float> out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int N = 8, S = staged_stride<float>(N * N);
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  const long long b0 = blockIdx.x * (long long)P;
+  const int np = nb - b0 < P ? (int)(nb - b0) : P;
+  float* m = sm + threadIdx.x * S;
+  if (kMode == 0) {
+    tile_stage<float, false, staged_loads<float>(N * N), true>(in, b0, np, P, S, sm);
+    copy_async_wait();
+  } else {
+    for (int q = 0; q < N * N; ++q) m[q] = fill<float>((int)threadIdx.x, q / N, q % N);
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < np) {
+    float r;
+    if (kMode == 0) {
+      r = m[0];
+#pragma unroll
+      for (int q = 1; q < N * N; ++q) r += m[q];
+    } else {
+      r = det_one<float, N, false>([&](int i, int j) { return m[i * N + j]; });
+    }
+    out.p[(b0 + threadIdx.x) * out.sb] = r;
+  }
+}
+
+template <int P, int kMode>
+__global__ void __launch_bounds__(P) solve8_part(long long nb, int k, SolvePlan<float> plan) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int N = 8, SA = staged_stride<float>(N * N);
+  const int SB = staged_stride<float>(N * k);
+  float* sa = reinterpret_cast<float*>(smem_raw);
+  float* sb = sa + P * SA;
+  const long long b0 = blockIdx.x * (long long)P;
+  const int np = nb - b0 < P ? (int)(nb - b0) : P;
+  float* a = sa + threadIdx.x * SA;
+  float* m = sb + threadIdx.x * SB;
+  if (kMode == 0) {
+    tile_stage<float, false, staged_loads<float>(N * N), true>(plan.a, b0, np, P, SA, sa);
+    tile_stage<float, false, staged_loads<float>(N * N), true>(plan.b, b0, np, P, SB, sb);
+    copy_async_wait();
+  } else {
+    for (int q = 0; q < N * N; ++q) a[q] = fill<float>((int)threadIdx.x, q / N, q % N);
+    for (int q = 0; q < N * k; ++q) m[q] = float(q & 3) - 1.5f;
+  }
+  __syncthreads();
+  if (kMode == 1 && (int)threadIdx.x < np) {
+    float LU[N][N], inv_d[N];
+    int piv[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) LU[i][j] = a[i * N + j];
+    plu_factor<float, N>(LU, piv);
+#pragma unroll
+    for (int i = 0; i < N; ++i) inv_d[i] = 1.0f / LU[i][i];
+    for (int c = 0; c < k; ++c) {
+      float v[N], x[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = m[i * k + c];
+      plu_substitute<float, N>(LU, piv, inv_d, v, x);
+#pragma unroll
+      for (int i = 0; i < N; ++i) m[i * k + c] = x[i];
+    }
+  }
+  __syncthreads();
+  tile_store<float>(plan.out, b0, np, P, SB, sb);
+}
+}  // namespace fm
+
+extern "C" int fm_probe_det4(int dtype, long long nb, const void* mat, long long msb,
+                             long long msc, int log_abs, void* out, long long osb, long long osc,
+                             void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const unsigned g = fm::grid_for(nb);
+  if (dtype == 0) {
+    const auto m = fm::mat_view<float>(mat, msb, msc, 4, 4, 0);
+    const auto o = fm::view<float>(out, osb, osc);
+    if (log_abs) fm::det_unrolled<float, 4, true><<<g, fm::kThreads, 0, s>>>(nb, m, o);
+    else fm::det_unrolled<float, 4, false><<<g, fm::kThreads, 0, s>>>(nb, m, o);
+  } else {
+    const auto m = fm::mat_view<double>(mat, msb, msc, 4, 4, 0);
+    const auto o = fm::view<double>(out, osb, osc);
+    if (log_abs) fm::det_unrolled<double, 4, true><<<g, fm::kThreads, 0, s>>>(nb, m, o);
+    else fm::det_unrolled<double, 4, false><<<g, fm::kThreads, 0, s>>>(nb, m, o);
+  }
+  return cudaGetLastError();
+}
+
+// mode 0: staging alone, 1: arithmetic alone; float32 8 x 8, batch-major
+extern "C" int fm_probe_det8_part(int mode, long long nb, const void* mat, void* out,
+                                  void* stream) {
+  constexpr int P = fm::staged_threads<float>(64), S = fm::staged_stride<float>(64);
+  const auto in = fm::tile_flat_operand<float>(fm::cview<float>(mat, 64, 1), 64, P, S);
+  const auto o = fm::view<float>(out, 1, 1);
+  const unsigned g = (unsigned)((nb + P - 1) / P);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (mode == 0) fm::det8_part<P, 0><<<g, P, P * S * 4, s>>>(nb, in, o);
+  else fm::det8_part<P, 1><<<g, P, P * S * 4, s>>>(nb, in, o);
+  return cudaGetLastError();
+}
+
+extern "C" int fm_probe_solve8_part(int mode, int k, long long nb, const void* mat,
+                                    const void* rhs, void* out, void* stream) {
+  constexpr int P = fm::solve_staged_threads<float, 8>(), SA = fm::staged_stride<float>(64);
+  const int SB = fm::staged_stride<float>(8 * k);
+  const fm::SolvePlan<float> plan{
+      fm::tile_flat_operand<float>(fm::cview<float>(mat, 64, 1), 64, P, SA),
+      fm::tile_flat_operand<float>(fm::cview<float>(rhs, 8 * k, 1), 8 * k, P, SB),
+      fm::tile_flat_out<float>(fm::view<float>(out, 8 * k, 1), 8 * k, P, SB)};
+  const unsigned g = (unsigned)((nb + P - 1) / P);
+  const int smem = P * (SA + SB) * 4;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (mode == 0) fm::solve8_part<P, 0><<<g, P, smem, s>>>(nb, k, plan);
+  else fm::solve8_part<P, 1><<<g, P, smem, s>>>(nb, k, plan);
+  return cudaGetLastError();
+}
+"""
+
+
+def probe8_library(_build):
+    """Build PROBE8 against the measured tree's csrc into its build/chip_ab/
+    and load it; None where the tree's batched.cu has no staged
+    determinant."""
+    if "det_staged" not in (_build.CSRC / "batched.cu").read_text():
+        return None, ""
+    out = pathlib.Path.cwd() / "build" / "chip_ab"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / f"libprobe8_{_build.library_path('batched').parent.name}.so"
+    if not lib.exists():  # built once a tree
+        (out / "probe8.cu").write_text(PROBE8)
+        proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                               "-o", str(lib), str(out / "probe8.cu")], capture_output=True,
+                              text=True)
+        if proc.returncode:
+            raise RuntimeError(f"probe8 failed to build:\n{proc.stdout}{proc.stderr}")
+        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    cdll = ctypes.CDLL(str(lib))
+    cdll.fm_probe_det4.argtypes = [i, ll, p, ll, ll, i, p, ll, ll, p]
+    cdll.fm_probe_det8_part.argtypes = [i, ll, p, p, p]
+    cdll.fm_probe_solve8_part.argtypes = [i, i, ll, p, p, p, p]
+    for f in (cdll.fm_probe_det4, cdll.fm_probe_det8_part, cdll.fm_probe_solve8_part):
+        f.restype = i
+    return cdll, lib.with_suffix(".log").read_text()
+
+
 def tier_probe_library(_build):
     """Build TIER_PROBE against the measured tree's csrc (the working
     directory's package) into its build/chip_ab/ and load it."""
@@ -208,9 +383,9 @@ def sass_sizes(_build, lib, kernel):
                            str(_build.library_path(lib))], capture_output=True, text=True).stdout
     sizes, name = {}, None
     for line in sass.splitlines():
-        m = re.search(rf"Function : \S*{kernel}I([fd])((?:Li\d+E)+)E", line)
+        m = re.search(rf"Function : \S*{kernel}I([fd])((?:L[ib]\d+E)+)E", line)
         if m:
-            args = [m.group(1), *re.findall(r"Li(\d+)E", m.group(2))]
+            args = [m.group(1), *re.findall(r"L[ib](\d+)E", m.group(2))]
             name = f"{kernel}<{','.join(args)}>"
         elif "Function" in line:
             name = None
@@ -239,20 +414,22 @@ def main():
 
     tag, library = sys.argv[1], "--library" in sys.argv[2:]
     groups = {"solve", "chol", "sym_solve", "matmul", "logm", "logm4", "eig", "chain", "maxeig",
-              "inv8", "chol8", "expm", "chain8", "expm_warp", "jhj"}
+              "inv8", "chol8", "expm", "chain8", "expm_warp", "jhj", "det8", "solve8"}
     if "--only" in sys.argv:
         groups = set(sys.argv[sys.argv.index("--only") + 1].split(","))
     sources = {"solve": "batched", "chol": "batched", "sym_solve": "sym_solve",
                "matmul": "batched_products", "logm": "logm", "logm4": "logm", "eig": "eig",
                "chain": ("sym_iterate", "sym_solve"), "maxeig": "sym_iterate",
                "inv8": "batched", "chol8": "batched", "expm": "expm", "chain8": "sym_solve",
-               "expm_warp": "expm", "jhj": "sym_products"}
+               "expm_warp": "expm", "jhj": "sym_products", "det8": "batched",
+               "solve8": "batched"}
     libs = sorted({lib for g in groups for lib in
                    ((sources[g],) if isinstance(sources[g], str) else sources[g])})
     _build.build_all(sorted(set(libs) | ({"expm"} if groups & {"logm", "logm4"} else set())))
     res = {"tag": tag}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
 
     def timed(key, launch, plain, lib, error=None):
         got, want = launch(), plain()
@@ -313,14 +490,6 @@ def main():
             del xc
         del a, x
     if "inv8" in groups:
-        # the solve's n <= 8 tier, not staged: one column at 8x8 on 1M
-        b, n = 1_000_000, 8
-        a = C.spd_on_card(torch, gen, b, n)
-        f, r = a.reshape(b, n * n), torch.randn(b, n, generator=gen, device="cuda")
-        timed(f"solve {n}x{n} k=1 f32 on {b}", lambda: BC.launch_solve_full(f, r, 1),
-              lambda: BC.solve_full_plain(f, r, 1),
-              lambda: torch.linalg.solve_ex(a, r.reshape(b, n, 1)))
-        del a, f, r
         copy_lib, nvcc_log = stage_copy_library(_build)
         res["stage_copy ptxas"] = C.ptxas_summary(nvcc_log)
         for dt, dtype, ps in (("f32", torch.float32, (64, 128, 256)),
@@ -328,7 +497,6 @@ def main():
             b = 1_000_000
             x = torch.randn(b, 64, generator=gen, device="cuda").to(dtype)
             y = torch.empty_like(x)
-            stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
             for P in ps:
                 def run(P=P):
                     err = copy_lib.fm_stage_copy(int(dt == "f64"), P, b, x.data_ptr(),
@@ -345,6 +513,118 @@ def main():
             res[f"copy bound 8x8 {dt} on {b}"] = (2 * x.numel() * x.element_size()
                                                    / C.PEAK_BYTES * 1e3)
             del x, y
+    probe8 = probe8_library(_build) if groups & {"det8", "solve8"} else (None, "")
+    if probe8[1]:
+        res["probe8 ptxas"] = C.ptxas_summary(probe8[1])
+    probe8 = probe8[0]
+
+    def bounds(key, nbytes, nops, dt):
+        res[f"{key} bound"] = list(C.bound(nbytes, nops, "float32" if dt == "f32" else "float64"))
+
+    # the determinant and log|det| at n = 4..8 on 1M in both dtypes, inputs
+    # seeded by shape: batch-major (digest) and channel-first (digest), the
+    # bound; at 4 x 4 also the unstaged expansion (PROBE8), which the
+    # launcher does not take there; at 8 x 8 float32 the staging alone and
+    # the arithmetic alone
+    for n, dt, log in ((n, dt, log) for n in range(4, 9) for dt in ("f32", "f64")
+                       for log in (False, True)):
+        if "det8" not in groups:
+            break
+        b, dtype = 1_000_000, torch.float32 if dt == "f32" else torch.float64
+        g = torch.Generator(device="cuda")
+        g.manual_seed(3000 + 10 * n + (dt == "f64"))
+        a = C.spd_on_card(torch, g, b, n).to(dtype)
+        x, op = a.reshape(b, n * n), "logdet" if log else "det"
+        launch = BC.launch_logdet if log else BC.launch_det
+        plain = BC.logdet_plain if log else BC.det_plain
+        lib = (lambda a=a: torch.linalg.slogdet(a)) if log else (lambda a=a: torch.linalg.det(a))
+
+        def det_err(got, want):
+            return ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+
+        key = f"{op} {n}x{n} {dt} on {b}"
+        timed(key, lambda: launch(x), lambda: plain(x), lib, det_err)
+        res[f"{key} digest"] = digest(launch(x)[:, None])
+        bounds(key, b * (n * n + 1) * x.element_size(),
+               b * (C.ops_logdet(n) if log else C.ops_det(n)), dt)
+        xc = cf(x)
+        res[f"{key} channel-first"] = [
+            C.device_ms(torch, lambda: launch(xc, cf_out=True), reps=10) for _ in range(3)]
+        res[f"{key} channel-first digest"] = digest(launch(xc, cf_out=True)[:, None])
+        del xc
+        if n == 4 and probe8 is not None:
+            y = torch.empty(b, 1, dtype=dtype, device="cuda")
+
+            def unstaged4():
+                err = probe8.fm_probe_det4(int(dt == "f64"), b, x.data_ptr(), *x.stride(),
+                                           int(log), y.data_ptr(), *y.stride(), stream())
+                if err:
+                    raise RuntimeError(f"det_unrolled<{dt}, 4>: CUDA error {err}")
+                return y[:, 0]
+
+            timed(f"{key} det_unrolled", unstaged4, lambda: plain(x), None, det_err)
+            res[f"{key} det_unrolled digest"] = digest(unstaged4()[:, None])
+            del y
+        if (n, dt, log) == (8, "f32", False) and probe8 is not None:
+            y = torch.empty(b, dtype=dtype, device="cuda")
+            for mode, part in ((0, "staging alone"), (1, "arithmetic alone")):
+                def run(mode=mode):
+                    err = probe8.fm_probe_det8_part(mode, b, x.data_ptr(), y.data_ptr(),
+                                                    stream())
+                    if err:
+                        raise RuntimeError(f"det8 {part}: CUDA error {err}")
+                run()
+                res[f"{key} {part}"] = [C.device_ms(torch, run, reps=10) for _ in range(3)]
+            del y
+        del a, x
+    # the solve at n = 1..8 on 1M, k = 1, 2 and n (and 8 at n <= 2: both
+    # sides of the staged tier's smallest problem), A read as it is and
+    # transposed, in both dtypes, inputs seeded by shape: batch-major
+    # (digest), the bound; at 8 x 8 float32 also k = 9 (the first width past
+    # the staged one, solve_full_unrolled in either tree), the three operands
+    # channel-first at k = 1, and at k = 1 and 8 the staging alone and the
+    # arithmetic alone
+    for n, k, trans, dt in ((n, k, trans, dt) for n in range(1, 9)
+                            for k in sorted({1, 2, n} | ({8} if n <= 2 else set()))
+                            for trans in (False, True) for dt in ("f32", "f64")):
+        if "solve8" not in groups:
+            break
+        b, dtype = 1_000_000, torch.float32 if dt == "f32" else torch.float64
+        g = torch.Generator(device="cuda")
+        g.manual_seed(4000 + 100 * n + 10 * k + 2 * trans + (dt == "f64"))
+        a = C.spd_on_card(torch, g, b, n).to(dtype)
+        f = a.reshape(b, n * n)
+        ks = (k, 9) if (n, k, trans, dt) == (8, 8, False, "f32") else (k,)
+        for kk in ks:
+            r = torch.randn(b, n * kk, generator=g, device="cuda").to(dtype)
+            am = a.mT if trans else a
+            key = f"solve {n}x{n} k={kk}{' trans' if trans else ''} {dt} on {b}"
+            timed(key, lambda: BC.launch_solve_full(f, r, kk, trans),
+                  lambda: BC.solve_full_plain(f, r, kk, trans),
+                  lambda: torch.linalg.solve_ex(am, r.reshape(b, n, kk)))
+            res[f"{key} digest"] = digest(BC.launch_solve_full(f, r, kk, trans))
+            bounds(key, b * (n * n + 2 * n * kk) * f.element_size(), b * C.ops_plu(n, kk), dt)
+            if (n, kk, trans, dt) == (8, 1, False, "f32"):
+                fc, rc = cf(f), cf(r)
+                res[f"{key} channel-first"] = [
+                    C.device_ms(torch, lambda: BC.launch_solve_full(fc, rc, 1, cf_out=True),
+                                reps=10) for _ in range(3)]
+                res[f"{key} channel-first digest"] = digest(
+                    BC.launch_solve_full(fc, rc, 1, cf_out=True))
+                del fc, rc
+            if n == 8 and kk in (1, 8) and not trans and dt == "f32" and probe8 is not None:
+                y = torch.empty_like(r)
+                for mode, part in ((0, "staging alone"), (1, "arithmetic alone")):
+                    def run(mode=mode, kk=kk, r=r):
+                        err = probe8.fm_probe_solve8_part(mode, kk, b, f.data_ptr(),
+                                                          r.data_ptr(), y.data_ptr(), stream())
+                        if err:
+                            raise RuntimeError(f"solve8 {part}: CUDA error {err}")
+                    run()
+                    res[f"{key} {part}"] = [C.device_ms(torch, run, reps=10) for _ in range(3)]
+                del y
+            del r
+        del a, f
     for n, b in ((16, 500_000), (24, 200_000), (32, 100_000)):
         if "chol" not in groups:
             break
@@ -479,7 +759,6 @@ def main():
     if probe is not None:
         res["tier_probe ptxas"] = C.ptxas_summary(probe[1])
         probe = probe[0]
-    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     # expm at d = 1..8 in both dtypes on the bytes of 4x4 on 1M (8x8 on
     # 250k), inputs seeded by shape: the tree's tier batch-major (digest) and
     # channel-first (digest), and at d = 4 and 8 in float32 the same
@@ -544,6 +823,10 @@ def main():
             del x
     if "expm_warp" in groups:
         res["expm_warp sass instructions"] = sass_sizes(_build, "expm", "expm_warp")
+    for group, kernel in (("det8", "det_staged"), ("det8", "det_unrolled"),
+                          ("solve8", "solve_full_staged"), ("solve8", "solve_full_unrolled")):
+        if group in groups:
+            res[f"{kernel} sass instructions"] = sass_sizes(_build, "batched", kernel)
     # the rolled JtHJ tier (max(K, D) >= 7) in both dtypes, each shape on the
     # bytes of K = D = 16 on 200k, inputs seeded by shape: batch-major
     # (digest), the 16 x 16 float32 channel-first too, and the bound
@@ -620,6 +903,8 @@ def main():
                   None, chain_err(c))
             del full, m, v, c, mc, vc, cc, got, y
     unrolled = ("logm_unrolled",) + (("inv_unrolled",) if "inv8" in groups else ()) + (
+        ("det_unrolled",) if "det8" in groups else ()) + (
+        ("solve_full_unrolled",) if "solve8" in groups else ()) + (
         ("chol_unrolled",) if "chol8" in groups else ()) + (
         ("expm_unrolled",) if "expm" in groups else ()) + (
         ("chain_unrolled",) if "chain8" in groups else ())

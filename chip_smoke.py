@@ -461,7 +461,11 @@ def general(rng, b, n):
 # every n of the unrolled tiers (the inverse's and Cholesky's staged), and
 # the lane-group LU's edges (G = 16 to n = 16, 32 above)
 FACTOR_CHECK_NS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 16, 17, 24, 32)
-SOLVE_CHECK_NS = (1, 2, 3, 4, 5, 8, 9, 16, 32)
+SOLVE_CHECK_NS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 32)
+# the n <= 8 solve's widths: one column, a few, k = n, the staged width
+# (batched.cu's kSolveStagedK), the first width past it, and 40 (solve_full_cf
+# takes any k)
+SOLVE_SMALL_KS = (1, 3, 8, 9, 40)
 # the lane-group solve's widths: one column, a block of G = 16 columns and
 # one ragged column past it, and 40 (two blocks and a ragged one at G = 16,
 # one and a ragged one at G = 32)
@@ -494,7 +498,7 @@ def phase_batched_vs_plain(torch, rng):
                           BC.launch_inv(m, cf_out=layout == "cf"), plain, inv64, dt_name)
                 if n not in SOLVE_CHECK_NS:
                     continue
-                for k in ((1, 3, 8) if n <= 8 else SOLVE_GROUP_KS):
+                for k in (sorted({n, *SOLVE_SMALL_KS}) if n <= 8 else SOLVE_GROUP_KS):
                     rhs = torch.tensor(rng.standard_normal((B_CHECK, n * k)), dtype=dtype,
                                        device=DEV)
                     r64 = rhs.double().cpu().numpy().reshape(B_CHECK, n, k)
@@ -1361,10 +1365,12 @@ INV_SHAPES = ((3, 1_000_000), (8, 1_000_000), (16, 500_000), (24, 200_000))
 # timed beside its library call, not part of the path: the inverse's
 # G = 32 lane groups at their widest
 INV_TIMED = ((32, 100_000),)
-# the solve's lane groups timed beside their library call, not part of the
-# path: (n, batch, k) at the inverse's shapes with one column, and 16
-# columns at 16 x 16
-SOLVE_TIMED = ((24, 200_000, 1), (32, 100_000, 1), (16, 500_000, 16))
+# the solve timed beside its library call, not part of the path: (n,
+# batch, k), the lane groups at the inverse's shapes with one column and
+# 16 columns at 16 x 16; the staged n <= 8 tier at 8 x 8 on 1M with one
+# column and eight
+SOLVE_TIMED = ((24, 200_000, 1), (32, 100_000, 1), (16, 500_000, 16), (8, 1_000_000, 1),
+               (8, 1_000_000, 8))
 N_GATE, B_GATE = 16, 500_000
 N_DENSE, B_DENSE = 40, 4096  # compact N > 32: sym_solve's torch.linalg tier
 
@@ -1539,10 +1545,11 @@ LOGDET_SHAPES = ((16, 500_000), (32, 100_000))
 DET_SHAPES = ((3, 1_000_000), (8, 1_000_000))
 SYM_SHAPES = ((4, 1_000_000), (16, 262_144))
 # timed beside their library calls, not part of the path: the determinant
-# at log|det|'s shapes and the compact determinant at N = 32, on
-# (a a^T + n I) / n (in float32 range at 32), and the compact inverse at
-# N = 32
-DET_TIMED = ((16, 500_000), (32, 100_000))
+# at log|det|'s shapes and at 4 x 4 on 1M (the smallest staged n), and the
+# compact determinant at N = 32, on (a a^T + n I) / n (in float32 range at
+# 32); log|det| at 8 x 8 on 1M (staged); the compact inverse at N = 32
+DET_TIMED = ((16, 500_000), (32, 100_000), (4, 1_000_000))
+LOGDET_TIMED = ((8, 1_000_000),)
 SYM_DET_TIMED = ((32, 65_536),)
 SYM_INVERT_TIMED = ((32, 65_536),)
 # the Cholesky factor's G = 32 lane groups at their widest
@@ -1607,7 +1614,8 @@ def phase_factor(torch, rng, mat4):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=DEV)
     gen.manual_seed(int(rng.integers(2 ** 31)))
-    sizes = sorted({*CHOL_SHAPES, *LOGDET_SHAPES, *DET_SHAPES, *CHOL_TIMED})
+    sizes = sorted({*CHOL_SHAPES, *LOGDET_SHAPES, *DET_SHAPES, *CHOL_TIMED, *DET_TIMED,
+                    *LOGDET_TIMED})
     full = {nb: spd_on_card(torch, gen, nb[1], nb[0]) for nb in sizes}
     comp = {(4, B_MAIN): mat4,
             SYM_SHAPES[1]: full_to_sym(spd_on_card(torch, gen, SYM_SHAPES[1][1],
@@ -1679,7 +1687,8 @@ def phase_factor(torch, rng, mat4):
                        "sym_pallas.py:493", "sym_factor.cu"),
     }
     kernels, timed = [], {op: [] for op in spec}
-    for op, shapes in (("chol", CHOL_SHAPES + CHOL_TIMED), ("logdet", LOGDET_SHAPES),
+    for op, shapes in (("chol", CHOL_SHAPES + CHOL_TIMED),
+                       ("logdet", LOGDET_SHAPES + LOGDET_TIMED),
                        ("det", DET_SHAPES + DET_TIMED), ("sym_det", SYM_SHAPES + SYM_DET_TIMED),
                        ("sym_invert", SYM_SHAPES + SYM_INVERT_TIMED)):
         for n, b in shapes:

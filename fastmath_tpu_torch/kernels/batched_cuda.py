@@ -10,8 +10,10 @@ versions and autograd.
 (``fastmath_tpu/kernels/batched_pallas.py``). The first five kernels live
 in ``csrc/batched.cu``, where one thread owns one problem (a group of 16
 or 32 lanes in the 9 <= n <= 32 tiers, ``csrc/lu_groups.cuh``; the n <= 8
-inverse and Cholesky stage their blocks' problems in shared memory,
-``csrc/tile_stage.cuh``);
+inverse and Cholesky, the 5 <= n <= 8 determinant and the n <= 8 solve
+with up to 8 columns stage their blocks' problems in shared memory,
+``csrc/tile_stage.cuh``; the determinant and the solve read channel-first
+operands straight from device memory);
 the two products in ``csrc/batched_products.cu``, where one thread owns a
 problem (matvec), and a block stages its problems' operands in shared
 memory and each thread accumulates a 4 x 4 tile of C (matmul; one thread

@@ -24,7 +24,14 @@
 //                   then eliminated and back-substituted on its own
 //                   (multipliers by the reciprocal pivot, times 1/U_ii,
 //                   the reference's _plu_grid_solve), so k costs no
-//                   registers and is taken at run time;
+//                   registers and is taken at run time; on staged tiles
+//                   (solve_full_staged, below) for k <= kSolveStagedK = 8
+//                   and problems (A, B, X) of 96 bytes or more, except
+//                   where A, B and X are all channel-first, and at k = 1
+//                   only float n >= 7 and float64 odd n (solve_staged: the
+//                   card's measurements); the rest, and every k > 8, one
+//                   thread a problem straight from device memory
+//                   (solve_full_unrolled);
 //   inverse, n <= 4 generated cofactors times 1/det (batched_adjugate.cuh);
 //   inverse, 5..8   the unrolled solve against the identity's columns,
 //                   each solved column written to shared memory at once;
@@ -48,6 +55,9 @@
 //                   magnitude and the logs of the scales are added, so the
 //                   expansion stays in range at any scale;
 //   det, 5..8       the unrolled LU, sign * prod U_ii, or sum log|U_ii|;
+//                   from n = kDetStagedN = 4 on staged tiles (det_staged),
+//                   unless the operand is channel-first (det_unrolled,
+//                   as below n = 4);
 //   det, 9..32      the lane-group LU (lu_groups.cuh, det_groups): G = 16
 //                   lanes a problem to n = 16, 32 above, row i in lane i's
 //                   registers, the plain rolled_factor's pivots and multipliers
@@ -71,9 +81,9 @@
 // One thread a problem that reads and writes its own entries one by one
 // wastes most of each sector it touches: in the batch-major layout
 // neighbouring threads sit 4 n^2 bytes apart, so each warp-wide access
-// moves 32 sectors for 128 useful bytes (the inverse and the Cholesky at
-// 8 x 8 reached 10.5% and 13% of their byte bounds that way; the solve
-// and the determinant still do). The n <= 8 inverse and Cholesky tiers
+// moves 32 sectors for 128 useful bytes (at 8 x 8 the inverse, the
+// Cholesky factor, the determinant and the one-column solve reached 10.5%,
+// 13%, 31% and 31% of their byte bounds that way). The n <= 8 tiers
 // therefore stage their blocks' problems through shared memory
 // (tile_stage.cuh, staged_stride), with the same arithmetic, so the same
 // bits. On an H100 80GB HBM3 at 700 W (chip_ab.py, 1M problems, float32)
@@ -82,9 +92,17 @@
 // (86%), the 3 x 3 inverse and Cholesky 79% and 83%: inv_unrolled<float,
 // 8> holds 96 registers and 33 KB of regions, 5 blocks of 128 an SM, and
 // what is left is its arithmetic, which the other blocks' copies overlap
-// only in part.
+// only in part. The 8 x 8 determinant takes 0.093 ms (84%; its staging
+// alone 0.089, its arithmetic alone 0.046), the 4 x 4 0.026 (78%, where
+// the unstaged expansion took 0.036), the 8 x 8 solve 0.156 ms with one
+// column (61%; staging alone 0.110, arithmetic alone 0.086) and 0.43 with
+// eight (54%). The solve stages A and B in areas of their own, so that
+// where n^2 or n k is not whole vectors an area packs and its vectors
+// land whole; its k columns stay a run-time loop.
 // In float64 the 8 x 8 inverse (168 registers, a 64-byte local array, 64
-// problems a block) reaches 36%; the double-precision 8 x 8 solve spills.
+// problems a block) reaches 36%, the 8 x 8 determinant 82% and the
+// solve with eight columns 39% (an 8N-byte local array, as in the
+// unstaged kernel).
 // From n = 9 on the arithmetic grows past the bytes: the lane groups of
 // the 9..32 tiers keep a row a lane (about n^2 / 2 FMAs a lane in
 // the factor, n^2 more in each column's two triangular solves); what
@@ -117,6 +135,9 @@ __device__ __forceinline__ void load_full(const T* __restrict__ m, const MatView
 // unrolled tiers: n <= 8
 // ---------------------------------------------------------------------------
 
+// One thread a problem, straight from device memory: the n <= 8 solve's
+// tier for what solve_staged does not stage (k > kSolveStagedK, small
+// problems, channel-first operands).
 template <typename T, int N>
 __global__ void __launch_bounds__(kThreads)
 solve_full_unrolled(long long nb, int k, MatView<T> mat, View<const T> rhs, View<T> out) {
@@ -196,6 +217,78 @@ __global__ void __launch_bounds__(P) inv_unrolled(long long nb, StagedPlan<T> pl
   }
   __syncthreads();
   tile_store<T, kCF>(plan.out, b0, np, P, S, sm);
+}
+
+// The widest B the solve stages with A (the public ops pass k <= 8 at
+// n <= 8); wider k takes solve_full_unrolled.
+constexpr int kSolveStagedK = 8;
+// The smallest problem (A, B and X: n^2 + 2 n k values) the solve stages:
+// below it one thread a problem reads as fast, its neighbours' entries
+// sharing its sectors.
+constexpr int kSolveStagedBytes = 96;
+
+// Problems a block of the staged solve at order N: 128, or 64 or 32 where
+// 128 problems' A and widest staged B would pass 48 KB.
+template <typename T, int N>
+constexpr int solve_staged_threads() {
+  constexpr int bytes =
+      (staged_stride<T>(N * N) + staged_stride<T>(N * kSolveStagedK)) * (int)sizeof(T);
+  return 128 * bytes <= 48 * 1024 ? 128 : (64 * bytes <= 48 * 1024 ? 64 : 32);
+}
+
+// The staged solve's operands, each in an area of the block of its own:
+// the P problems' A as stored first, a region of staged_stride(N^2) values
+// each, then their B, staged_stride(N k) each; X goes out of B's area.
+template <typename T>
+struct SolvePlan {
+  TileOperand<T> a, b;
+  TileOut<T> out;
+};
+
+// One thread a problem on the block's staged problems (as inv_unrolled;
+// if kAsync, vectors that land whole, where an area's regions are packed,
+// by copy_async): the thread takes A from its region into registers (A^T
+// if trans: the staging copies as stored, whatever the thread reads),
+// factors it, then solves column by column as solve_full_unrolled does,
+// each solution written over its column of B, which nothing reads after
+// it; the block writes X out of B's area in order.
+template <typename T, int N, int P, bool kAsync>
+__global__ void __launch_bounds__(P)
+solve_full_staged(long long nb, int k, bool trans, SolvePlan<T> plan) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int SA = staged_stride<T>(N * N);
+  const int SB = staged_stride<T>(N * k);
+  T* sa = reinterpret_cast<T*>(smem_raw);
+  T* sb = sa + P * SA;
+  const long long b0 = blockIdx.x * (long long)P;
+  const int np = nb - b0 < P ? (int)(nb - b0) : P;
+  tile_stage<T, false, staged_loads<T>(N * N), kAsync>(plan.a, b0, np, P, SA, sa);
+  tile_stage<T, false, staged_loads<T>(N * N), kAsync>(plan.b, b0, np, P, SB, sb);
+  if constexpr (kAsync) copy_async_wait();
+  __syncthreads();
+  if ((int)threadIdx.x < np) {
+    const T* a = sa + threadIdx.x * SA;
+    T* x = sb + threadIdx.x * SB;
+    T LU[N][N], inv_d[N];
+    int piv[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) LU[i][j] = a[trans ? j * N + i : i * N + j];
+    plu_factor<T, N>(LU, piv);
+#pragma unroll
+    for (int i = 0; i < N; ++i) inv_d[i] = T(1) / LU[i][i];
+    for (int c = 0; c < k; ++c) {
+      T v[N], y[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = x[i * k + c];
+      plu_substitute<T, N>(LU, piv, inv_d, v, y);
+#pragma unroll
+      for (int i = 0; i < N; ++i) x[i * k + c] = y[i];
+    }
+  }
+  __syncthreads();
+  tile_store<T>(plan.out, b0, np, P, SB, sb);
 }
 
 // ---------------------------------------------------------------------------
@@ -298,26 +391,28 @@ __global__ void inv_groups(long long nb, int n, MatView<T> mat, View<T> out) {
 // determinant and log-determinant
 // ---------------------------------------------------------------------------
 
-template <typename T, int N, bool kLog>
-__global__ void __launch_bounds__(kThreads)
-det_unrolled(long long nb, MatView<T> mat, View<T> out) {
-  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (b >= nb) return;
-  const T* m = mat.p + b * mat.sb;
-  T r;
+// The determinant, or log|det| if kLog, of one N x N problem whose entry
+// (i, j) is at(i, j): the generated expansion for N <= 4; above, the
+// unrolled pivoted LU, sign * prod U_ii or sum log|U_ii|.
+template <typename T, int N, bool kLog, typename At>
+__device__ __forceinline__ T det_one(At at) {
   if constexpr (N <= 4) {
     T a[N * N];
 #pragma unroll
     for (int i = 0; i < N; ++i)
 #pragma unroll
-      for (int j = 0; j < N; ++j) a[i * N + j] = m[i * mat.rs + j * mat.cs];
-    if constexpr (kLog) r = full_logdet(a);
-    else r = full_det(a);
+      for (int j = 0; j < N; ++j) a[i * N + j] = at(i, j);
+    if constexpr (kLog) return full_logdet(a);
+    else return full_det(a);
   } else {
     T LU[N][N];
     int piv[N];
-    load_full<T, N>(m, mat, LU);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) LU[i][j] = at(i, j);
     plu_factor<T, N>(LU, piv);
+    T r;
     if constexpr (kLog) {
       r = fm_log(fm_abs(LU[0][0]));
 #pragma unroll
@@ -328,8 +423,44 @@ det_unrolled(long long nb, MatView<T> mat, View<T> out) {
       for (int i = 1; i < N; ++i) r = r * LU[i][i];
       if (plu_sign<N>(piv) < 0) r = -r;
     }
+    return r;
   }
-  out.p[b * out.sb] = r;
+}
+
+// One thread a problem, straight from device memory: the determinant's
+// tier for n < kDetStagedN, and for a channel-first operand (each
+// warp-wide load is then one contiguous run already).
+template <typename T, int N, bool kLog>
+__global__ void __launch_bounds__(kThreads)
+det_unrolled(long long nb, MatView<T> mat, View<T> out) {
+  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  const T* m = mat.p + b * mat.sb;
+  out.p[b * out.sb] =
+      det_one<T, N, kLog>([&](int i, int j) { return m[i * mat.rs + j * mat.cs]; });
+}
+
+// One thread a problem on the block's staged problems (as inv_unrolled;
+// vectors that land whole, where the regions are packed, by copy_async):
+// the thread takes its problem from its region and writes its one value
+// straight to device memory, where the block's values are neighbours in
+// either layout of the result.
+template <typename T, int N, int P, bool kLog>
+__global__ void __launch_bounds__(P) det_staged(long long nb, TileOperand<T> in, View<T> out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int S = staged_stride<T>(N * N);
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const long long b0 = blockIdx.x * (long long)P;
+  const int np = nb - b0 < P ? (int)(nb - b0) : P;
+  tile_stage<T, false, staged_loads<T>(N * N), true>(in, b0, np, P, S, sm);
+  copy_async_wait();
+  __syncthreads();
+  if ((int)threadIdx.x < np) {
+    const T* m = sm + threadIdx.x * S;
+    out.p[(b0 + threadIdx.x) * out.sb] = det_one<T, N, kLog>([&](int i, int j) {
+      return m[i * N + j];
+    });
+  }
 }
 
 // A group of G lanes a problem (lu_groups.cuh): the operand staged and
@@ -458,14 +589,52 @@ __global__ void chol_groups(long long nb, int n, View<const T> mat, View<T> out)
 // launchers
 // ---------------------------------------------------------------------------
 
+// Whether the n <= 8 solve stages its problems (solve_full_staged), as the
+// card measured it: k <= kSolveStagedK, problems of kSolveStagedBytes or
+// more, not all of A, B and X channel-first (each thread's own accesses
+// are then one contiguous run a warp already), and at k = 1 only from n =
+// 7 in float and at odd n in float64 (at even n both areas pad and none of
+// their vectors is copied whole); solve_full_unrolled takes the rest.
 template <typename T>
-cudaError_t launch_solve_full(int n, int k, long long nb, MatView<T> mat, View<const T> rhs,
-                              View<T> out, cudaStream_t s) {
+bool solve_staged(int n, int k, long long asb, long long bsb, long long osb) {
+  const bool one = k == 1 && (sizeof(T) == 4 ? n < 7 : n % 2 == 0);
+  return k <= kSolveStagedK && (n * n + 2 * n * k) * (int)sizeof(T) >= kSolveStagedBytes &&
+         !(asb == 1 && bsb == 1 && osb == 1) && !one;
+}
+
+template <typename T, int N>
+void launch_solve_small(int k, long long nb, View<const T> a, bool trans, View<const T> b,
+                        View<T> out, cudaStream_t s) {
+  constexpr bool kStages = (N * N + 2 * N * kSolveStagedK) * (int)sizeof(T) >= kSolveStagedBytes;
+  if constexpr (kStages) {
+    if (solve_staged<T>(N, k, a.sb, b.sb, out.sb)) {
+      constexpr int P = solve_staged_threads<T, N>(), SA = staged_stride<T>(N * N);
+      const int SB = staged_stride<T>(N * k);
+      const SolvePlan<T> plan{tile_flat_operand<T>(a, N * N, P, SA),
+                              tile_flat_operand<T>(b, N * k, P, SB),
+                              tile_flat_out<T>(out, N * k, P, SB)};
+      // copy_async in float only at k = 1: beside it ptxas keeps a float
+      // kernel's pivots or reciprocals in a local array, which each
+      // column reads again (float64 keeps one either way)
+      const auto kern = k == 1 ? solve_full_staged<T, N, P, true>
+                               : solve_full_staged<T, N, P, sizeof(T) == 8>;
+      const unsigned g = (unsigned)((nb + P - 1) / P);
+      kern<<<g, P, P * (SA + SB) * (int)sizeof(T), s>>>(nb, k, trans, plan);
+      return;
+    }
+  }
+  solve_full_unrolled<T, N><<<grid_for(nb), kThreads, 0, s>>>(
+      nb, k, mat_view<T>(a.p, a.sb, a.sc, N, N, trans), b, out);
+}
+
+template <typename T>
+cudaError_t launch_solve_full(int n, int k, long long nb, View<const T> a, bool trans,
+                              View<const T> rhs, View<T> out, cudaStream_t s) {
   if (k < 1) return cudaErrorInvalidValue;
-  const unsigned g = grid_for(nb);
+  const MatView<T> mat = mat_view<T>(a.p, a.sb, a.sc, n, n, trans);
   switch (n) {
 #define FM_SOLVE_FULL_CASE(K) \
-  case K: solve_full_unrolled<T, K><<<g, kThreads, 0, s>>>(nb, k, mat, rhs, out); break;
+  case K: launch_solve_small<T, K>(k, nb, a, trans, rhs, out, s); break;
     FM_SOLVE_FULL_CASE(1) FM_SOLVE_FULL_CASE(2) FM_SOLVE_FULL_CASE(3) FM_SOLVE_FULL_CASE(4)
     FM_SOLVE_FULL_CASE(5) FM_SOLVE_FULL_CASE(6) FM_SOLVE_FULL_CASE(7) FM_SOLVE_FULL_CASE(8)
 #undef FM_SOLVE_FULL_CASE
@@ -525,12 +694,33 @@ cudaError_t launch_inv(int n, long long nb, View<const T> in, View<T> out, cudaS
   return cudaGetLastError();
 }
 
+// The smallest n whose determinant is staged (det_staged) where the
+// operand is not channel-first.
+constexpr int kDetStagedN = 4;
+
+// The n <= 8 determinant: det_staged, P problems a block, their regions in
+// dynamic shared memory, from n = kDetStagedN where the operand is not
+// channel-first; det_unrolled otherwise.
+template <typename T, int N, bool kLog>
+void launch_det_small(long long nb, View<const T> in, View<T> out, cudaStream_t s) {
+  if constexpr (N >= kDetStagedN) {
+    if (in.sb != 1) {
+      constexpr int P = staged_threads<T>(N * N), S = staged_stride<T>(N * N);
+      det_staged<T, N, P, kLog><<<(unsigned)((nb + P - 1) / P), P, P * S * (int)sizeof(T), s>>>(
+          nb, tile_flat_operand<T>(in, N * N, P, S), out);
+      return;
+    }
+  }
+  det_unrolled<T, N, kLog><<<grid_for(nb), kThreads, 0, s>>>(
+      nb, mat_view<T>(in.p, in.sb, in.sc, N, N, 0), out);
+}
+
 template <typename T, bool kLog>
-cudaError_t launch_det(int n, long long nb, MatView<T> mat, View<T> out, cudaStream_t s) {
-  const unsigned g = grid_for(nb);
+cudaError_t launch_det(int n, long long nb, View<const T> in, View<T> out, cudaStream_t s) {
+  const MatView<T> mat = mat_view<T>(in.p, in.sb, in.sc, n, n, 0);
   switch (n) {
 #define FM_DET_CASE(K) \
-  case K: det_unrolled<T, K, kLog><<<g, kThreads, 0, s>>>(nb, mat, out); break;
+  case K: launch_det_small<T, K, kLog>(nb, in, out, s); break;
     FM_DET_CASE(1) FM_DET_CASE(2) FM_DET_CASE(3) FM_DET_CASE(4)
     FM_DET_CASE(5) FM_DET_CASE(6) FM_DET_CASE(7) FM_DET_CASE(8)
 #undef FM_DET_CASE
@@ -580,11 +770,11 @@ extern "C" int fm_solve_full(int dtype, int n, int k, long long nb,
   if (nb <= 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return fm::launch_solve_full<float>(n, k, nb, fm::mat_view<float>(mat, msb, msc, n, n, trans),
+    return fm::launch_solve_full<float>(n, k, nb, fm::cview<float>(mat, msb, msc), trans != 0,
                                         fm::cview<float>(rhs, rsb, rsc),
                                         fm::view<float>(out, osb, osc), s);
   if (dtype == 1)
-    return fm::launch_solve_full<double>(n, k, nb, fm::mat_view<double>(mat, msb, msc, n, n, trans),
+    return fm::launch_solve_full<double>(n, k, nb, fm::cview<double>(mat, msb, msc), trans != 0,
                                          fm::cview<double>(rhs, rsb, rsc),
                                          fm::view<double>(out, osb, osc), s);
   return cudaErrorInvalidValue;
@@ -611,13 +801,13 @@ extern "C" int fm_det(int dtype, int n, long long nb,
   if (nb <= 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    const auto m = fm::mat_view<float>(mat, msb, msc, n, n, 0);
+    const auto m = fm::cview<float>(mat, msb, msc);
     const auto o = fm::view<float>(out, osb, osc);
     return log_abs ? fm::launch_det<float, true>(n, nb, m, o, s)
                : fm::launch_det<float, false>(n, nb, m, o, s);
   }
   if (dtype == 1) {
-    const auto m = fm::mat_view<double>(mat, msb, msc, n, n, 0);
+    const auto m = fm::cview<double>(mat, msb, msc);
     const auto o = fm::view<double>(out, osb, osc);
     return log_abs ? fm::launch_det<double, true>(n, nb, m, o, s)
                : fm::launch_det<double, false>(n, nb, m, o, s);

@@ -157,6 +157,102 @@ def test_staged_inverse_keeps_a_bad_problem_to_itself(n, dtype, rng):
         assert _normwise(got[keep.to(a.device)], want) <= TOL[dtype]
 
 
+# the n <= 8 solve stages A and up to 8 columns of B, 128 problems a block
+# (64 or 32 at the wider n and in float64), and takes wider B unstaged: one
+# column, the staged width and either side of it, and 40; batches of one, a
+# few, either side of a block, and many
+SOLVE_STAGED_KS = (1, 7, 8, 9, 40)
+SOLVE_BATCHES = (1, 5, 127, 129, 4099)
+
+
+def _stride2(x):
+    """``x`` (B, K) as a view at channel stride 2."""
+    view = torch.zeros(x.shape[0], 2 * x.shape[1], dtype=x.dtype, device=x.device)[:, ::2]
+    view.copy_(x)
+    return view
+
+
+def _entry_solve(a, rhs, k, trans, out):
+    """``fm_solve_full`` on the operands' own strides (the wrappers take
+    channel stride 1 only)."""
+    n = round(a.shape[1] ** 0.5)
+    err = batched_cuda._library().fm_solve_full(
+        0 if a.dtype == torch.float32 else 1, n, k, a.shape[0], a.data_ptr(), *a.stride(),
+        int(trans), rhs.data_ptr(), *rhs.stride(), out.data_ptr(), *out.stride(),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_staged_solve_batches_and_views(n, dtype, rng):
+    # the staged tier's three orders of device memory (16-byte vectors,
+    # batch-fastest, element by element), A read as it is and transposed,
+    # at every edge of its blocks and of its width
+    for b in SOLVE_BATCHES:
+        a = torch.tensor(_matrices(rng, b, n, "pivoting").reshape(b, n * n), dtype=dtype,
+                         device="cuda")
+        a64 = a.double().cpu().reshape(b, n, n)
+        for k in sorted({n, *SOLVE_STAGED_KS}):
+            rhs = torch.tensor(rng.standard_normal((b, n * k)), dtype=dtype, device="cuda")
+            for trans in (False, True):
+                want = batched_cuda.solve_full_plain(a, rhs, k, trans)
+                oracle = torch.linalg.solve(a64.mT if trans else a64,
+                                            rhs.double().cpu().reshape(b, n, k)).reshape(b, -1)
+                views = ((a, rhs, False), (_cf(a), _cf(rhs), True), (_cf(a), _cf(rhs), False),
+                         (a, rhs, True), (_misaligned(a), _misaligned(rhs), False))
+                for m, r, cf in views:
+                    before = solve_full_cf.launches
+                    got = batched_cuda.launch_solve_full(m, r, k, trans, cf_out=cf)
+                    assert solve_full_cf.launches == before + 1
+                    torch.cuda.synchronize()
+                    case = (b, k, trans, m.stride(), cf)
+                    assert _normwise(got, want) <= TOL[dtype], case
+                    assert _normwise(got, oracle) <= TOL[dtype], case
+                for m, r, out in ((_stride2(a), rhs, torch.empty_like(want)),
+                                  (a, _stride2(rhs), torch.empty_like(want)),
+                                  (a, rhs, _stride2(want))):
+                    got = _entry_solve(m, r, k, trans, out)
+                    torch.cuda.synchronize()
+                    case = (b, k, trans, m.stride(), r.stride(), out.stride())
+                    assert torch.equal(got, batched_cuda.launch_solve_full(a, rhs, k, trans)), case
+                    assert _normwise(got, want) <= TOL[dtype], case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 3, 5, 8])
+def test_staged_solve_keeps_a_bad_problem_to_itself(n, dtype, rng):
+    # singular and NaN problems either side of the edges of blocks of 32,
+    # 64 and 128: their solutions are not finite, and every other problem's
+    # are the bits of a batch without them
+    b, bad = 1029, (31, 32, 127, 128)
+    a = torch.tensor(_matrices(rng, b, n, "pivoting").reshape(b, n * n), dtype=dtype,
+                     device="cuda")
+    keep = torch.ones(b, dtype=torch.bool)
+    keep[list(bad)] = False
+    for k in sorted({1, n, 8}):
+        rhs = torch.tensor(rng.standard_normal((b, n * k)), dtype=dtype, device="cuda")
+        for trans in (False, True):
+            m0 = a.clone()
+            good = batched_cuda.launch_solve_full(m0, rhs, k, trans)
+            m0[bad[0]] = 0
+            m0[bad[1], 0] = float("nan")
+            m0[bad[2], -1] = float("nan")
+            m0[bad[3]] = 0
+            for m, r, cf in ((m0, rhs, False), (_cf(m0), _cf(rhs), True),
+                             (_misaligned(m0), _misaligned(rhs), False)):
+                got = batched_cuda.launch_solve_full(m, r, k, trans, cf_out=cf)
+                torch.cuda.synchronize()
+                for i in bad:
+                    assert not torch.isfinite(got[i]).all(), (i, k, trans, cf)
+                assert torch.equal(got.cpu()[keep], good.cpu()[keep]), (k, trans, cf)
+                want = batched_cuda.solve_full_plain(m0[keep.cuda()], rhs[keep.cuda()], k, trans)
+                assert _normwise(got[keep.cuda()], want) <= TOL[dtype]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cf_wrappers_take_strided_operands(dtype, rng):

@@ -196,6 +196,99 @@ def test_staged_cholesky_keeps_a_bad_problem_to_itself(n, dtype, rng):
         assert _rel(got[keep.to(c.device)], want) <= TOL[dtype]
 
 
+def _entry_det(a, log, out):
+    """``fm_det`` on the operands' own strides (the wrappers take channel
+    stride 1 only); ``out`` is (B, 1)."""
+    n = round(a.shape[1] ** 0.5)
+    err = batched_cuda._library().fm_det(
+        0 if a.dtype == torch.float32 else 1, n, a.shape[0], a.data_ptr(), *a.stride(), int(log),
+        out.data_ptr(), *out.stride(), torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return out[:, 0]
+
+
+def _stride2(x):
+    """``x`` (B, K) as a view at channel stride 2."""
+    view = torch.zeros(x.shape[0], 2 * x.shape[1], dtype=x.dtype, device=x.device)[:, ::2]
+    view.copy_(x)
+    return view
+
+
+DETS = ((batched_cuda.launch_det, det_cf, batched_cuda.det_plain, False),
+        (batched_cuda.launch_logdet, logdet_cf, batched_cuda.logdet_plain, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_staged_det_batches_and_views(n, dtype, rng):
+    # det and log|det| in the staged tier's three orders of device memory
+    # (16-byte vectors, batch-fastest, element by element; n >= 5) and the
+    # unstaged expansion's (n <= 4), at every edge of the blocks, and a
+    # channel stride of 2 through the entry point
+    for b in STAGED_BATCHES + (4099,):
+        a = torch.tensor(_general(rng, b, n).reshape(b, n * n), dtype=dtype, device="cuda")
+        a_ = a.double().cpu().numpy().reshape(b, n, n)
+        for launch, wrapper, plain, log in DETS:
+            want = plain(a)
+            oracle = torch.from_numpy(np.linalg.slogdet(a_)[1] if log else np.linalg.det(a_))
+            err = _log_err if log else _rel
+            views = ((a, False), (_cf(a), True), (_cf(a), False), (a, True),
+                     (_misaligned(a), False))
+            for m, cf in views:
+                before = wrapper.launches
+                got = launch(m, cf_out=cf)
+                assert wrapper.launches == before + 1
+                torch.cuda.synchronize()
+                assert err(got, want) <= TOL[dtype], (b, log, m.stride(), cf)
+                assert err(got, oracle) <= TOL[dtype], (b, log, m.stride(), cf)
+            got = _entry_det(_stride2(a), log, torch.empty(b, 1, dtype=dtype, device="cuda"))
+            torch.cuda.synchronize()
+            assert torch.equal(got, launch(a)), (b, log)
+    # a broadcast batch (stride 0), through the channel-first wrappers and
+    # the public ops
+    one = torch.tensor(_general(rng, 1, n).reshape(n * n, 1), dtype=dtype, device="cuda")
+    for wrapper, public, err in ((det_cf, T.batchdet, _rel), (logdet_cf, T.batchlogdet, _log_err)):
+        got = wrapper(one.expand(-1, 515))
+        assert err(got, wrapper(one.cpu().expand(-1, 515))) <= TOL[dtype]
+        got = public(one.reshape(1, n, n).expand(515, n, n))
+        assert err(got, public(one.reshape(1, n, n).cpu()).expand(515)) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_staged_det_keeps_a_bad_problem_to_itself(n, dtype, rng):
+    # singular and NaN problems, either side of two block edges: a singular
+    # problem's det is 0 or NaN and its log|det| not finite, a NaN
+    # problem's both NaN, and every other problem's are the bits of a batch
+    # without them
+    b, bad = 1029, (63, 64, 127, 128)
+    a = torch.tensor(_general(rng, b, n).reshape(b, n * n), dtype=dtype, device="cuda")
+    keep = torch.ones(b, dtype=torch.bool)
+    keep[list(bad)] = False
+    for launch, _, plain, log in DETS:
+        good = launch(a)
+        m0 = a.clone()
+        m0[bad[0]] = 0
+        m0[bad[1], 0] = float("nan")
+        m0[bad[2], -1] = float("nan")
+        m0[bad[3]] = 0
+        for m, cf in ((m0, False), (_cf(m0), True), (_misaligned(m0), False)):
+            got = launch(m, cf_out=cf).cpu()
+            torch.cuda.synchronize()
+            for i in (bad[0], bad[3]):
+                if log:
+                    assert not torch.isfinite(got[i]), (i, cf)
+                else:
+                    assert got[i] == 0 or torch.isnan(got[i]), (i, cf)
+            for i in (bad[1], bad[2]):
+                assert torch.isnan(got[i]), (i, log, cf)
+            assert torch.equal(got[keep], good.cpu()[keep]), (log, cf)
+            want = plain(m0[keep.cuda()])
+            assert (_log_err if log else _rel)(got[keep], want) <= TOL[dtype]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cf_wrappers_take_strided_operands(dtype, rng):
