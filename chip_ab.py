@@ -2,9 +2,10 @@
 """Time one source tree's full-storage solve, Cholesky, inverse, compact
 solve, product, matrix logarithm, rolled eig, chain and power-iteration
 kernels, the n <= 8 inverse, Cholesky, determinant and solve tiers, the
-matrix exponential (both tiers), the 5 <= N <= 8 compact chain and the
-rolled JtHJ tier, on one NVIDIA GPU, to compare two versions of a kernel
-in one call.
+matrix exponential (both tiers), the 5 <= N <= 8 compact chain, the
+rolled JtHJ tier, the N <= 8 compact inverse, solve and determinant and
+the n <= 8 eig tier, on one NVIDIA GPU, to compare two versions of a
+kernel in one call.
 
     python3 /path/to/chip_ab.py TAG [--library] [--only GROUP[,GROUP...]]
 
@@ -17,8 +18,9 @@ against its plain version, and prints one JSON line: ``tag``, each
 shape's three times and error, and the registers and spills (``-Xptxas
 -v``) of every kernel of those sources but the unrolled tiers (except
 ``logm_unrolled``, and the inverse's, Cholesky's, expm's, the chain's,
-the determinant's and the solve's with ``inv8``, ``chol8``, ``expm``,
-``chain8``, ``det8`` and ``solve8``). The groups (all by default):
+the determinant's, the solve's, the compact inverse's and eig's with
+``inv8``, ``chol8``, ``expm``, ``chain8``, ``det8``, ``solve8``,
+``syminv8`` and ``eig8``). The groups (all by default):
 ``solve``
 (``csrc/batched.cu``: the solve 16x16 on 500k, 24x24 on 200k, 32x32 on
 100k with one column and 16x16 with 16; the inverse 16x16 and 32x32),
@@ -69,15 +71,28 @@ arithmetic alone, from ``PROBE8``) and ``solve8`` (the n <= 8 solve at n
 = 1..8 on 1M with k = 1, 2 and n, and 8 at n <= 2, A as it is and
 transposed, in both dtypes, with its bound; at 8x8 float32 also k = 9,
 the first width past the staged one, the three operands channel-first at
-k = 1, and at k = 1 and 8 the staging alone and the arithmetic alone).
-``inv8``, ``chol8``, ``expm``, ``chain8``, ``expm_warp``, ``jhj``,
-``det8`` and ``solve8`` also give each output's digest (SHA-256 of its
-bytes), so that two trees' outputs compare bit for bit, and their tiers'
-registers (``det8`` and ``solve8`` also each instantiation's SASS size).
-``--library`` also times ``torch.linalg.solve_ex`` / ``cholesky_ex`` (the
-compact solve's on the densified batch), ``inv_ex``, ``torch.matmul``,
-``eigvalsh`` / ``eigh`` and ``det`` / ``slogdet`` on the same inputs. It
-imports neither JAX nor ``fastmath_tpu``.
+k = 1, and at k = 1 and 8 the staging alone and the arithmetic alone),
+``syminv8`` (``csrc/sym_factor.cu``'s compact inverse at N = 1..8 on 1M
+in both dtypes, batch-major and channel-first in and out, with its bound;
+at N = 4 and 8 in float32 also channel-first in and batch-major out),
+``compact8`` (the compact solve and determinant at N = 5..8 in float32 on
+262,144 and on 1M, with their bounds) and ``eig8`` (``csrc/eig.cu``'s
+unrolled tier at n = 2..8 in both dtypes, values and vectors, on the bytes
+of 4x4 on 1M, batch-major full storage and channel-first compact, with
+its bound, its special-function bound and the mean sweeps beside the
+mean of each warp's largest; at 4x4 and 8x8 float32 also the problems
+sorted by their sweeps, the staging alone (the tree's kernel at sweeps =
+0) and the arithmetic alone, from ``EIG_PROBE``; each instantiation's SASS
+size and MUFU count). ``inv8``, ``chol8``, ``expm``, ``chain8``,
+``expm_warp``, ``jhj``, ``det8``, ``solve8``, ``syminv8`` and ``eig8``
+also give each output's digest (SHA-256 of its bytes), so that two
+trees' outputs compare bit for bit, and their tiers' registers (``det8``
+and ``solve8`` also each instantiation's SASS size). ``--library`` also
+times ``torch.linalg.solve_ex`` / ``cholesky_ex`` (the compact solve's on
+the densified batch), ``inv_ex`` (the compact inverse's on the densified
+batch), ``torch.matmul``, ``eigvalsh`` / ``eigh`` and ``det`` /
+``slogdet`` on the same inputs. It imports neither JAX nor
+``fastmath_tpu``.
 """
 import ctypes
 import hashlib
@@ -331,42 +346,137 @@ def probe8_library(_build):
     return cdll, lib.with_suffix(".log").read_text()
 
 
-def tier_probe_library(_build):
-    """Build TIER_PROBE against the measured tree's csrc (the working
-    directory's package) into its build/chip_ab/ and load it."""
+def build_probe(_build, name, source, csrc, flags=()):
+    """Build ``source`` against the headers and sources in ``csrc`` into
+    build/chip_ab/lib<name>.so of the working directory and load it:
+    (the library, nvcc's output)."""
     out = pathlib.Path.cwd() / "build" / "chip_ab"
     out.mkdir(parents=True, exist_ok=True)
-    (out / "tier_probe.cu").write_text(TIER_PROBE)
-    lib = out / "libtier_probe.so"
-    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
-                           str(lib), str(out / "tier_probe.cu")], capture_output=True, text=True)
+    (out / f"{name}.cu").write_text(source)
+    lib = out / f"lib{name}.so"
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-I", str(csrc), "-o",
+                           str(lib), str(out / f"{name}.cu")], capture_output=True, text=True)
     if proc.returncode:
-        raise RuntimeError(f"tier_probe failed to build:\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"{name} failed to build:\n{proc.stdout}{proc.stderr}")
+    return ctypes.CDLL(str(lib)), proc.stdout + proc.stderr
+
+
+def tier_probe_library(_build):
+    """Build TIER_PROBE against the measured tree's csrc (the working
+    directory's package) and load it."""
+    cdll, log = build_probe(_build, "tier_probe", TIER_PROBE, _build.CSRC)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    cdll = ctypes.CDLL(str(lib))
     cdll.fm_probe_chain_groups8.argtypes = [i, i, ll, p, ll, ll, p, ll, ll, p, ll, ll, p, ll, ll,
                                             i, p]
     cdll.fm_probe_chain_groups8.restype = i
-    return cdll, proc.stdout + proc.stderr
+    return cdll, log
+
+
+# eig_unrolled's arithmetic alone, float32 at 4 x 4 and 8 x 8, built against
+# the measured tree's eig.cu: each thread makes a symmetric problem (uniform
+# entries in [-1, 1) plus n on the diagonal) from its index in registers,
+# runs the tree's sweeps and stores one value, the sum of its eigenvalues.
+# A tree whose eig.cu has no eig_sweeps gets the loop of its eig_unrolled
+# restated here. (Its staging alone is the tree's own kernel at sweeps = 0.)
+EIG_PROBE = r"""
+#include "eig.cu"
+
+namespace fm {
+template <int N>
+__device__ __forceinline__ void eig_fill(long long b, float (&A)[N * (N + 1) / 2]) {
+  unsigned h = 2654435761u * (unsigned)(b + 1);
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = i; j < N; ++j) {
+      h = h * 1664525u + 1013904223u;
+      A[up(i, j, N)] = float((int)(h >> 8) - (1 << 23)) * (1.0f / (1 << 23)) + (i == j ? N : 0);
+    }
+}
+
+#ifdef FM_TREE_SWEEPS
+template <int N>
+__device__ __forceinline__ void probe_sweeps(float (&A)[N * (N + 1) / 2], int sweeps) {
+  float V[1];
+  eig_sweeps<float, N, false>(A, V, sweeps);
+}
+#else
+template <int N>
+__device__ __forceinline__ void probe_sweeps(float (&A)[N * (N + 1) / 2], int sweeps) {
+  const float eps = eps_of(0.0f);
+  const float tol = sum_squares<float, N>(A, true) * (16.0f * eps * eps);
+  for (int sweep = 0; sweep < sweeps; ++sweep) {
+    if (!(sum_squares<float, N>(A, false) > tol)) break;
+#pragma unroll
+    for (int p = 0; p < N - 1; ++p)
+#pragma unroll
+      for (int q = p + 1; q < N; ++q) {
+        const float app = A[p], aqq = A[q], apq = A[up(p, q, N)];
+        float c, s;
+        jacobi_rotation(app, aqq, apq, c, s);
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          if (j == p || j == q) continue;
+          const int kp = p < j ? up(p, j, N) : up(j, p, N);
+          const int kq = q < j ? up(q, j, N) : up(j, q, N);
+          const float xp = A[kp], xq = A[kq];
+          A[kp] = c * xp + s * xq;
+          A[kq] = c * xq - s * xp;
+        }
+        const float rpp = c * app + s * apq, rpq = c * apq + s * aqq;
+        const float rqp = c * apq - s * app, rqq = c * aqq - s * apq;
+        A[p] = c * rpp + s * rpq;
+        A[q] = c * rqq - s * rqp;
+        A[up(p, q, N)] = 0.0f;
+      }
+  }
+}
+#endif
+
+template <int N>
+__global__ void __launch_bounds__(128) eig_arith(long long nb, int sweeps, float* out) {
+  const long long b = blockIdx.x * 128LL + threadIdx.x;
+  float A[N * (N + 1) / 2];
+  eig_fill<N>(b, A);
+  probe_sweeps<N>(A, sweeps);
+  float r = A[0];
+#pragma unroll
+  for (int i = 1; i < N; ++i) r += A[i];
+  if (b < nb) out[b] = r;
+}
+}  // namespace fm
+
+extern "C" int fm_probe_eig_arith(int n, int sweeps, long long nb, void* out, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const unsigned g = (unsigned)((nb + 127) / 128);
+  float* o = static_cast<float*>(out);
+  if (n == 4) fm::eig_arith<4><<<g, 128, 0, s>>>(nb, sweeps, o);
+  else if (n == 8) fm::eig_arith<8><<<g, 128, 0, s>>>(nb, sweeps, o);
+  else return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+"""
+
+
+def eig_probe_library(_build):
+    """Build EIG_PROBE against the measured tree's csrc and load it."""
+    flags = ["-DFM_TREE_SWEEPS"] if "eig_sweeps" in (_build.CSRC / "eig.cu").read_text() else []
+    cdll, log = build_probe(_build, "eig_probe", EIG_PROBE, _build.CSRC, flags)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    cdll.fm_probe_eig_arith.argtypes = [i, i, ll, p, p]
+    cdll.fm_probe_eig_arith.restype = i
+    return cdll, log
 
 
 def stage_copy_library(_build):
-    """Build STAGE_COPY against this script's tree's tile_stage.cuh into
-    build/chip_ab/ of the working directory and load it."""
+    """Build STAGE_COPY against this script's tree's tile_stage.cuh and load
+    it."""
     csrc = pathlib.Path(__file__).resolve().parent / "fastmath_tpu_torch" / "kernels" / "csrc"
-    out = pathlib.Path.cwd() / "build" / "chip_ab"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "stage_copy.cu").write_text(STAGE_COPY)
-    lib = out / "libstage_copy.so"
-    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
-                           str(lib), str(out / "stage_copy.cu")], capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"stage_copy failed to build:\n{proc.stdout}{proc.stderr}")
+    cdll, log = build_probe(_build, "stage_copy", STAGE_COPY, csrc)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    cdll = ctypes.CDLL(str(lib))
     cdll.fm_stage_copy.argtypes = [i, i, ll, p, ll, ll, p, ll, ll, p]
     cdll.fm_stage_copy.restype = i
-    return cdll, proc.stdout + proc.stderr
+    return cdll, log
 
 
 # expm_warp's sizes: each block shape's edges and the bench suite's d
@@ -376,9 +486,10 @@ EXPM_WARP_DS = (9, 10, 12, 13, 16, 17, 20, 21, 24, 25, 28, 29, 31, 32)
 JHJ_SHAPES = ((16, 16), (7, 3), (3, 7), (16, 7), (7, 16), (32, 32))
 
 
-def sass_sizes(_build, lib, kernel):
+def sass_sizes(_build, lib, kernel, opcode=None):
     """SASS instructions of each instantiation of ``kernel`` in the tree's
-    built ``lib`` (``cuobjdump -sass``)."""
+    built ``lib`` (``cuobjdump -sass``); with ``opcode`` (e.g. ``MUFU``),
+    the instructions of that opcode instead."""
     sass = subprocess.run([str(pathlib.Path(_build.nvcc_path()).with_name("cuobjdump")), "-sass",
                            str(_build.library_path(lib))], capture_output=True, text=True).stdout
     sizes, name = {}, None
@@ -389,7 +500,8 @@ def sass_sizes(_build, lib, kernel):
             name = f"{kernel}<{','.join(args)}>"
         elif "Function" in line:
             name = None
-        if name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+        if name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line) and (
+                opcode is None or re.search(rf"\b{opcode}\b", line)):
             sizes[name] = sizes.get(name, 0) + 1
     return sizes
 
@@ -408,13 +520,15 @@ def main():
     from fastmath_tpu_torch.kernels import expm as KE
     from fastmath_tpu_torch.kernels import logm as KL
     from fastmath_tpu_torch.kernels import sym_cuda as SC
+    from fastmath_tpu_torch.kernels import sym_factor as SF
     from fastmath_tpu_torch.kernels import sym_iterate as SI
     from fastmath_tpu_torch.kernels import sym_products as SP
     from fastmath_tpu_torch.layouts import full_to_sym, sym_to_full
 
     tag, library = sys.argv[1], "--library" in sys.argv[2:]
     groups = {"solve", "chol", "sym_solve", "matmul", "logm", "logm4", "eig", "chain", "maxeig",
-              "inv8", "chol8", "expm", "chain8", "expm_warp", "jhj", "det8", "solve8"}
+              "inv8", "chol8", "expm", "chain8", "expm_warp", "jhj", "det8", "solve8",
+              "syminv8", "compact8", "eig8"}
     if "--only" in sys.argv:
         groups = set(sys.argv[sys.argv.index("--only") + 1].split(","))
     sources = {"solve": "batched", "chol": "batched", "sym_solve": "sym_solve",
@@ -422,7 +536,8 @@ def main():
                "chain": ("sym_iterate", "sym_solve"), "maxeig": "sym_iterate",
                "inv8": "batched", "chol8": "batched", "expm": "expm", "chain8": "sym_solve",
                "expm_warp": "expm", "jhj": "sym_products", "det8": "batched",
-               "solve8": "batched"}
+               "solve8": "batched", "syminv8": "sym_factor",
+               "compact8": ("sym_solve", "sym_factor"), "eig8": "eig"}
     libs = sorted({lib for g in groups for lib in
                    ((sources[g],) if isinstance(sources[g], str) else sources[g])})
     _build.build_all(sorted(set(libs) | ({"expm"} if groups & {"logm", "logm4"} else set())))
@@ -902,12 +1017,144 @@ def main():
             timed(f"{key} chain_groups8", groups8, lambda: SC.chain_plain(m, v, c, None, k),
                   None, chain_err(c))
             del full, m, v, c, mc, vc, cc, got, y
+    # the compact inverse at N = 1..8 on 1M in both dtypes, inputs seeded by
+    # shape: batch-major (digest), channel-first in and out (digest), the
+    # bound; at N = 4 and 8 in float32 also channel-first in and batch-major
+    # out (the determinant's gradient)
+    for n, dt in ((n, dt) for n in range(1, 9) for dt in ("f32", "f64")):
+        if "syminv8" not in groups:
+            break
+        b, dtype = 1_000_000, torch.float32 if dt == "f32" else torch.float64
+        g = torch.Generator(device="cuda")
+        g.manual_seed(12000 + 10 * n + (dt == "f64"))
+        a = C.spd_on_card(torch, g, b, n).to(dtype)
+        m = full_to_sym(a).contiguous()
+        key = f"sym_invert N={n} {dt} on {b}"
+        timed(key, lambda: SF.launch_sym_invert(m), lambda: SF.invert_plain(m),
+              lambda a=a: torch.linalg.inv_ex(a))
+        res[f"{key} digest"] = digest(SF.launch_sym_invert(m))
+        nn = n * (n + 1) // 2
+        bounds(key, 2 * b * nn * m.element_size(), b * C.ops_sym_invert(n), dt)
+        mc = cf(m)
+        res[f"{key} channel-first"] = [
+            C.device_ms(torch, lambda: SF.launch_sym_invert(mc, cf_out=True), reps=10)
+            for _ in range(3)]
+        res[f"{key} channel-first digest"] = digest(SF.launch_sym_invert(mc, cf_out=True))
+        if dt == "f32" and n in (4, 8):
+            res[f"{key} channel-first in"] = [
+                C.device_ms(torch, lambda: SF.launch_sym_invert(mc), reps=10) for _ in range(3)]
+            res[f"{key} channel-first in digest"] = digest(SF.launch_sym_invert(mc))
+        del a, m, mc
+    # the compact solve (no refinement) and determinant at N = 5..8 on
+    # 262,144 and on 1M in float32, with their bounds: the one-thread tiers
+    # that chip_smoke.py does not time (262,144 problems' bytes stay in the
+    # 50 MB L2 from one launch to the next; 1M problems' do not)
+    for n, b in ((n, b) for b in (262_144, 1_000_000) for n in range(5, 9)):
+        if "compact8" not in groups:
+            break
+        g = torch.Generator(device="cuda")
+        g.manual_seed(13000 + n)
+        a = C.spd_on_card(torch, g, b, n)
+        m = full_to_sym(a).contiguous()
+        v = torch.randn(b, n, generator=g, device="cuda")
+        nn = n * (n + 1) // 2
+        key = f"sym_solve N={n} on {b}"
+        timed(key, lambda: SC.launch_solve(m, v, None, 0), lambda: SC.solve_plain(m, v, None, 0),
+              lambda a=a, v=v: torch.linalg.solve_ex(a, v[..., None]))
+        bounds(key, b * (nn + 2 * n) * 4, b * C.ops_sym_solve(n, 0), "f32")
+        key = f"sym_det N={n} on {b}"
+        timed(key, lambda: SF.launch_sym_det(m), lambda: SF.sym_det_plain(m),
+              lambda a=a: torch.linalg.det(a),
+              lambda got, want: ((got - want).abs() / want.abs()).max().item())
+        bounds(key, b * (nn + 1) * 4, b * C.ops_det(n), "f32")
+        del a, m, v
+    # eig_unrolled at n = 2..8 in both dtypes, values and vectors, on the
+    # bytes of 4x4 on 1M, inputs seeded by shape: batch-major full storage
+    # (digests) and channel-first compact (digests), the largest eigenvalue
+    # difference from the plain version over ||A||_F, the bound with its
+    # special-function part, the mean sweeps and the mean of each warp's
+    # largest (32 neighbours, from the plain version on 65,536 problems); at
+    # 4x4 and 8x8 float32 also the problems sorted by their sweeps (each
+    # warp's problems sweep alike), the staging alone and the arithmetic
+    # alone (EIG_PROBE)
+    eprobe = eig_probe_library(_build) if "eig8" in groups else None
+    if eprobe is not None:
+        res["eig_probe ptxas"] = [r for r in C.ptxas_summary(eprobe[1]) if "eig_arith" in r]
+        eprobe = eprobe[0]
+    for n, dt in ((n, dt) for n in range(2, 9) for dt in ("f32", "f64")):
+        if "eig8" not in groups:
+            break
+        b, dtype = 16_000_000 // (n * n), torch.float32 if dt == "f32" else torch.float64
+        g = torch.Generator(device="cuda")
+        g.manual_seed(11000 + 10 * n + (dt == "f64"))
+        a = C.spd_on_card(torch, g, b, n).to(dtype)
+        fro = torch.linalg.matrix_norm(a)
+        sweeps = KEIG.sweeps_for(n)
+        ran = KEIG.sweep_counts(a[:65536], sweeps)
+        mean_sweeps = ran.double().mean().item()
+        res[f"eig {n}x{n} {dt} sweeps (mean, mean of warp max)"] = [
+            mean_sweeps, ran.view(-1, 32).amax(dim=1).double().mean().item()]
+        del ran
+
+        def eig_err(got, want):  # sorted eigenvalues over ||A||_F
+            return ((got.sort(-1).values - want.sort(-1).values).abs().amax(-1)
+                    / fro).max().item()
+
+        m = full_to_sym(a).contiguous()
+        mc = cf(m)
+        for vec in (False, True):
+            key = f"eig {n}x{n}{' vectors' if vec else ''} {dt} on {b}"
+            timed(key, lambda: KEIG.launch_eig_full(a, True, vec, sweeps)[0],
+                  lambda: KEIG.eig_plain(a, vec, sweeps)[0], None, eig_err)
+            if library:
+                res[f"{key} library"] = C.library_eig_ms(torch, a, vec)
+            w, u = KEIG.launch_eig_full(a, True, vec, sweeps)
+            res[f"{key} digest"] = [digest(w)] + ([digest(u.reshape(b, n * n))] if vec else [])
+            rot = mean_sweeps * n * (n - 1) / 2
+            bounds(key, b * (n * n + n + (n * n if vec else 0)) * a.element_size(),
+                   b * C.ops_eig(n, vec, mean_sweeps), dt)
+            # two special-function operations a rotation at the least (the
+            # square roots of the tangent's hypotenuse and of the half angle),
+            # at 16 a clock an SM against 128 float32 lanes' 2 operations
+            res[f"{key} special-function bound"] = 2 * b * rot / (C.PEAK_OPS["float32"] / 16) * 1e3
+            res[f"{key} channel-first"] = [
+                C.device_ms(torch, lambda: KEIG.launch_eig_compact(mc, n, vec, sweeps, True),
+                            reps=10) for _ in range(3)]
+            w, u = KEIG.launch_eig_compact(mc, n, vec, sweeps, True)
+            res[f"{key} channel-first digest"] = [digest(w)] + ([digest(u)] if vec else [])
+            del w, u
+        if dt == "f32" and n in (4, 8):
+            order = torch.argsort(KEIG.sweep_counts(a, sweeps), stable=True)
+            a_s = a[order].contiguous()
+            res[f"eig {n}x{n} {dt} on {b} sorted by sweeps"] = [
+                C.device_ms(torch, lambda: KEIG.launch_eig_full(a_s, True, False, sweeps),
+                            reps=10) for _ in range(3)]
+            del a_s, order
+            res[f"eig {n}x{n} {dt} on {b} staging alone"] = [
+                C.device_ms(torch, lambda: KEIG.launch_eig_full(a, True, False, 0), reps=10)
+                for _ in range(3)]
+            y = torch.empty(b, dtype=dtype, device="cuda")
+
+            def arith():
+                err = eprobe.fm_probe_eig_arith(n, sweeps, b, y.data_ptr(), stream())
+                if err:
+                    raise RuntimeError(f"eig {n}x{n} arithmetic alone: CUDA error {err}")
+            arith()
+            res[f"eig {n}x{n} {dt} on {b} arithmetic alone"] = [C.device_ms(torch, arith, reps=10)
+                                                                for _ in range(3)]
+            del y
+        del a, fro, m, mc
+    if "eig8" in groups:
+        res["eig_unrolled sass instructions"] = sass_sizes(_build, "eig", "eig_unrolled")
+        res["eig_unrolled MUFU instructions"] = sass_sizes(_build, "eig", "eig_unrolled", "MUFU")
     unrolled = ("logm_unrolled",) + (("inv_unrolled",) if "inv8" in groups else ()) + (
         ("det_unrolled",) if "det8" in groups else ()) + (
         ("solve_full_unrolled",) if "solve8" in groups else ()) + (
         ("chol_unrolled",) if "chol8" in groups else ()) + (
         ("expm_unrolled",) if "expm" in groups else ()) + (
-        ("chain_unrolled",) if "chain8" in groups else ())
+        ("chain_unrolled",) if "chain8" in groups else ()) + (
+        ("sym_invert_unrolled",) if "syminv8" in groups else ()) + (
+        ("eig_unrolled",) if "eig8" in groups else ())
     res["ptxas"] = [row for lib in libs
                     for row in C.ptxas_summary(_build.build_log(lib).read_text())
                     if "unrolled" not in row or row.startswith(unrolled)]

@@ -1547,11 +1547,12 @@ SYM_SHAPES = ((4, 1_000_000), (16, 262_144))
 # timed beside their library calls, not part of the path: the determinant
 # at log|det|'s shapes and at 4 x 4 on 1M (the smallest staged n), and the
 # compact determinant at N = 32, on (a a^T + n I) / n (in float32 range at
-# 32); log|det| at 8 x 8 on 1M (staged); the compact inverse at N = 32
+# 32); log|det| at 8 x 8 on 1M (staged); the compact inverse at N = 32 and
+# at N = 8 on 1M (the widest staged one-thread problem)
 DET_TIMED = ((16, 500_000), (32, 100_000), (4, 1_000_000))
 LOGDET_TIMED = ((8, 1_000_000),)
 SYM_DET_TIMED = ((32, 65_536),)
-SYM_INVERT_TIMED = ((32, 65_536),)
+SYM_INVERT_TIMED = ((32, 65_536), (8, 1_000_000))
 # the Cholesky factor's G = 32 lane groups at their widest
 CHOL_TIMED = ((32, 100_000),)
 # the shape of each kernel's row in the kernels line
@@ -2210,9 +2211,10 @@ def phase_eig_gradients(torch, rng):
 # bench/suite.py's eig_sym shapes (float32, spd_batch): 2x2 and 3x3 on 1M
 # (:667-690, the closed forms), 4x4 on 1M (:620-661), 12x12 and 16x16 on
 # 200k (:567-575, :693-701), 24x24 and 32x32 on 100k (:553-563,
-# :577-585); with vectors and the default polish, 4x4 on 1M and 16x16 on
+# :577-585), and 8x8 on 250k (the widest unrolled problem, on the bytes of
+# 4x4 on 1M); with vectors and the default polish, 4x4 on 1M and 16x16 on
 # 200k; sugar.lmdiv, lu and chol, 16x16 with a vector on 500k (:497-505)
-EIG_SHAPES = ((2, 1_000_000), (3, 1_000_000), (4, 1_000_000), (12, 200_000),
+EIG_SHAPES = ((2, 1_000_000), (3, 1_000_000), (4, 1_000_000), (8, 250_000), (12, 200_000),
               (16, 200_000), (24, 100_000), (32, 100_000))
 EIG_VEC_SHAPES = ((4, 1_000_000), (16, 200_000))
 LMDIV_SHAPE = (16, 500_000)
@@ -2231,6 +2233,20 @@ def ops_eig(n, compute_u, sweeps):
     problems."""
     per_rot = 16 + 3 * (2 * (n - 2) + 6) + (6 * n if compute_u else 0)
     return n * (n + 1) + (sweeps + 1) * n * (n - 1) + sweeps * n * (n - 1) // 2 * per_rot
+
+
+# special-function results an SM gives a clock (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0: reciprocal,
+# reciprocal square root) against its 128 float32 lanes' two operations
+PEAK_SPECIAL = PEAK_OPS["float32"] / 16
+
+
+def eig_special_ms(n, sweeps):
+    """The least time one problem's rotations take on the special-function
+    units, in ms per problem: two results a rotation (the square roots of
+    the tangent's hypotenuse and of the half angle), n(n-1)/2 rotations a
+    sweep; ``sweeps`` may be a mean."""
+    return 2 * sweeps * n * (n - 1) / 2 / PEAK_SPECIAL * 1e3
 
 
 def library_eig_ms(torch, a, vec):
@@ -2343,7 +2359,7 @@ def phase_eig(torch, rng):
 
     # each kernel alone at every kernel shape against its bound, its plain
     # version and the library call (timed only, never called by the port)
-    kernels = []
+    kernels, timed = [], {"eig_unrolled": [], "eig_rolled": []}
     shapes = [(n, b, False) for n, b in EIG_SHAPES if n >= 4] + \
         [(n, b, True) for n, b in EIG_VEC_SHAPES]
     for n, b, vec in shapes:
@@ -2363,12 +2379,17 @@ def phase_eig(torch, rng):
         mean_sweeps = KE.sweep_counts(a[:4096], sweeps).double().mean().item()
         b_ms, b_by = bound(b * (n * n + n + (n * n if vec else 0)) * 4,
                            b * ops_eig(n, vec, mean_sweeps), "float32")
+        sf_ms = b * eig_special_ms(n, mean_sweeps)
+        if sf_ms > b_ms:
+            b_ms, b_by = sf_ms, "operations"
         name = "eig_unrolled" if n <= KE.UNROLL_MAX else "eig_rolled"
         log(f"  {name} {n}x{n} on {b}{' with vectors' if vec else ''} kernel: {ms:.4f} ms "
-            f"(bound {b_ms:.4f} ms by {b_by} at {mean_sweeps:.2f} sweeps, "
-            f"{b_ms / ms * 100:.1f}% of it), plain {plain_ms:.4f} ms, "
+            f"(bound {b_ms:.4f} ms by {b_by} at {mean_sweeps:.2f} sweeps, special functions "
+            f"{sf_ms:.4f} ms, {b_ms / ms * 100:.1f}% of it), plain {plain_ms:.4f} ms, "
             f"{'eigh' if vec else 'eigvalsh'} {lib_ms:.4f} ms, kernel vs plain max abs {err:.3e}, "
             f"errors {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e}")
+        timed[name].append(shape_row(f"{n}x{n} on {b}{' vectors' if vec else ''}", ms,
+                                     plain_ms, b_ms, b_by, lib_ms))
         if (n, b) == EIG_ROWS[name] and not vec:
             line = 82 if name == "eig_unrolled" else 205
             kernels.append({
@@ -2377,6 +2398,8 @@ def phase_eig(torch, rng):
                 "replaces": f"fastmath_tpu/kernels/eig_pallas.py:{line}",
                 "launches": launches[name], "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+    for k in kernels:
+        k["shapes"] = timed[k["name"]]
     return kernels
 
 

@@ -161,13 +161,6 @@ solve_full_unrolled(long long nb, int k, MatView<T> mat, View<const T> rhs, View
   }
 }
 
-// The block's operand and result.
-template <typename T>
-struct StagedPlan {
-  TileOperand<T> in;
-  TileOut<T> out;
-};
-
 // One thread a problem, on the block's staged problems: the thread reads
 // its problem from its own region, and writes its inverse back into it (it
 // alone reads or writes that region between the two barriers). n <= 4:

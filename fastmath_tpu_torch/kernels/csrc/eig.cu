@@ -16,12 +16,18 @@
 // tau = (a_qq - a_pp) / (2 |a_pq|), t = -sign(tau) / (|tau| +
 // sqrt(1 + tau^2)) (0 where a_pq = 0), c = 1 / sqrt(1 + t^2), s = t c
 // sign(a_pq); rows p, q become (c row_p + s row_q, c row_q - s row_p),
-// then columns p, q the same, and V's columns the same.
+// then columns p, q the same, and V's columns the same. The rolled tier
+// computes (c, s) with IEEE divisions and square roots (jacobi_rotation);
+// the unrolled tier from four special-function instructions, each within
+// an ulp or two (jacobi_rotation_fast), so its results move a few ulp
+// from the plain version's, as the contracted multiply-adds do.
 //   eig_unrolled: the cyclic order (p = 0..n-2, q = p+1..n-1) of
 //     _jacobi_sweep_registers, one thread per problem, every index a
 //     compile-time constant: the upper triangle (n(n+1)/2 values; the
 //     rotated matrix stays exactly symmetric) and V (n^2) in registers.
-//     a_pq is set to 0 after its rotation, as the reference does.
+//     a_pq is set to 0 after its rotation, as the reference does. A
+//     batch-major operand is staged through shared memory (tile_stage.cuh,
+//     EigTiles), any other read and written by each thread.
 //   eig_rolled<T, M, U>: the round-robin order of _round_robin (n - 1
 //     rounds, n for odd n, of floor(n/2) disjoint rotations), a group of
 //     16 lanes a problem to n = 16 (two a warp), 32 above; one kernel for
@@ -57,11 +63,20 @@
 // n(n+1)/2 compact) and writes n (+ n^2 with vectors), while one sweep
 // costs about 3 n^3 flops (6 n^3 with vectors), and a problem needs a
 // handful of sweeps: every size but the smallest is bound by operations,
-// not bytes. The unrolled tier stages the block's input and output rows
-// through shared memory, so device memory sees coalesced runs (a thread
-// storing its own rows reached 10-28% of the byte bound in the other
-// kernels of this package, staged rows 76-98%). The rolled tier spreads
-// one problem's n^3 work over a lane group: per round each lane does about
+// not bytes. Each rotation needs two special-function results at the least
+// (the square roots of the tangent's hypotenuse and of the half angle), at
+// 16 a clock an SM: below the bytes at 4 x 4 on an H100 (0.0095 ms on 1M
+// problems at 3.31 sweeps against 0.0239 of bytes). On an H100 80GB HBM3 at
+// 700 W (chip_ab.py eig8, float32, 1M 4 x 4 values) the unrolled tier took
+// 0.107 ms with IEEE divisions and square roots (5-6 MUFU instructions a
+// rotation inside refinements, range checks and slow-path branches) and
+// staging 4-byte elements through 64-problem blocks (0.043 ms alone); with
+// jacobi_rotation_fast (4 MUFU) and tile_stage it takes 0.062: staging
+// alone 0.030, arithmetic alone 0.048, bound by instruction throughput
+// (about 48 instructions a rotation), and 11% more where a warp runs its
+// slowest problem's sweeps (mean 3.31, the warps' largest 4.02; the
+// problems sorted by sweeps 0.055). The rolled tier spreads one problem's
+// n^3 work over a lane group: per round each lane does about
 // 4 n multiply-adds (6 n with vectors) for 3 n / 4 vector accesses of
 // shared memory (n / 2 in float64), two barriers and its share of the
 // rotations' divisions and square roots.
@@ -74,20 +89,14 @@
 #include <cuda_runtime.h>
 
 #include "lu_groups.cuh"
+#include "tile_stage.cuh"
 
 namespace fm {
 
-// Problems per block of the unrolled tier: a block stages up to 64 rows
-// of n^2 doubles (33 KB at n = 8) in static shared memory.
-constexpr int kEigThreads = 64;
 constexpr int kEigUnrollMax = 8;
 
 __device__ __forceinline__ float eps_of(float) { return FLT_EPSILON; }
 __device__ __forceinline__ double eps_of(double) { return DBL_EPSILON; }
-
-// Odd row stride of a shared tile, so threads walking a column hit
-// distinct banks.
-__host__ __device__ constexpr int odd_stride(int w) { return w | 1; }
 
 // One symmetric input matrix per problem. Full storage: entry (i, j),
 // i <= j, at p[b * sb + i * rs + j * cs]. Compact (compact != 0): entry
@@ -118,6 +127,72 @@ __device__ __forceinline__ void jacobi_rotation(T app, T aqq, T apq, T& c, T& s)
   s = t * c * (apq >= T(0) ? T(1) : T(-1));
 }
 
+// One special-function instruction each (MUFU): 1 / x and 1 / sqrt(x),
+// within about 1 ulp (rsqrt 2^-22.9 relative); every argument below is
+// normal, or infinite, so flushing subnormals changes nothing.
+__device__ __forceinline__ float rcp_approx(float x) {
+#ifdef __CUDA_ARCH__
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+#else
+  return 1.0f / x;
+#endif
+}
+
+__device__ __forceinline__ float rsqrt_approx(float x) {
+#ifdef __CUDA_ARCH__
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+#else
+  return 1.0f / sqrtf(x);
+#endif
+}
+
+// The unrolled tier's rotation: the same (c, s) as jacobi_rotation to a
+// few ulp, from four special-function instructions where jacobi_rotation's
+// three IEEE divisions and two square roots take five, each inside a
+// sequence of refinements, range checks and a branch to a slow path.
+//   tau = (a_qq - a_pp) * rcp(2 |a_pq|), 2 |a_pq| held at FLT_MIN or above
+//     (a subnormal a_pq: tau is then as large, and t as near 0, as the
+//     division makes them);
+//   sqrt(1 + tau^2) = h rsqrt(h), kept infinite where tau^2 overflows
+//     (fminf drops the NaN of inf * 0), so t = -sign(tau) rcp(|tau| +
+//     sqrt(1 + tau^2)) is 0 there, as jacobi_rotation's is;
+//   c = rsqrt(1 + t^2) and one Newton step, so that c^2 (1 + t^2) is 1 to
+//     an ulp or two (each rotation then scales A by no more than
+//     jacobi_rotation's does) and c = 1 exactly where t^2 < 2^-24.
+// Float64 takes correctly rounded reciprocals (__drcp_rn) and rsqrt (1
+// ulp) in place of its divisions and square roots.
+__device__ __forceinline__ void jacobi_rotation_fast(float app, float aqq, float apq, float& c,
+                                                     float& s) {
+  const float r = fabsf(apq);
+  const bool active = r > 0.0f;
+  const float tau = (aqq - app) * rcp_approx(active ? fmaxf(2.0f * r, FLT_MIN) : 1.0f);
+  const float h = fmaf(tau, tau, 1.0f);
+  const float sq = fminf(h * rsqrt_approx(h), h);
+  const float sgn = tau >= 0.0f ? 1.0f : -1.0f;
+  const float t = active ? -sgn * rcp_approx(fabsf(tau) + sq) : 0.0f;
+  const float u = fmaf(t, t, 1.0f);
+  const float c0 = rsqrt_approx(u);
+  c = c0 * fmaf(-0.5f * u * c0, c0, 1.5f);
+  s = t * c * (apq >= 0.0f ? 1.0f : -1.0f);
+}
+
+__device__ __forceinline__ void jacobi_rotation_fast(double app, double aqq, double apq,
+                                                     double& c, double& s) {
+  const double r = fabs(apq);
+  const bool active = r > 0.0;
+  const double tau = (aqq - app) * __drcp_rn(active ? fmax(2.0 * r, DBL_MIN) : 1.0);
+  const double h = fma(tau, tau, 1.0);
+  const double sq = fmin(h * rsqrt(h), h);
+  const double sgn = tau >= 0.0 ? 1.0 : -1.0;
+  const double t = active ? -sgn * __drcp_rn(fabs(tau) + sq) : 0.0;
+  c = rsqrt(fma(t, t, 1.0));
+  s = t * c * (apq >= 0.0 ? 1.0 : -1.0);
+}
+
 // ---------------------------------------------------------------------------
 // unrolled tier: n <= 8, one thread per problem
 // ---------------------------------------------------------------------------
@@ -125,62 +200,19 @@ __device__ __forceinline__ void jacobi_rotation(T app, T aqq, T apq, T& c, T& s)
 // Slot of entry (i, j) in the upper-triangle array: the compact index.
 __host__ __device__ constexpr int up(int i, int j, int n) { return tri_index(i, j, n); }
 
-// Each thread's upper triangle. A full batch-major block (the public op's
-// (B, n, n), either triangle) is staged through `tile` with coalesced
-// loads; other layouts (compact channel-first: coalesced across the warp
-// already; strided or broadcast batches) are read directly. Every thread
-// of the block calls this (it synchronizes); rows past nb read as 0.
-template <typename T, int N>
-__device__ __forceinline__ void load_upper(T* tile, const SymIn<T>& in, long long nb,
-                                           T (&A)[N * (N + 1) / 2]) {
-  constexpr int W = N * N, P = odd_stride(W);
-  const long long b0 = blockIdx.x * (long long)kEigThreads;
-  const long long b = b0 + threadIdx.x;
-  const bool staged = !in.compact && in.sb == W &&
-                      ((in.rs == N && in.cs == 1) || (in.rs == 1 && in.cs == N));
-  if (staged) {
-    const long long rows = nb - b0 < kEigThreads ? nb - b0 : kEigThreads;
-    const T* src = in.p + b0 * W;
-    for (int e = threadIdx.x; e < rows * W; e += kEigThreads) tile[(e / W) * P + e % W] = src[e];
-    __syncthreads();
-    const T* row = tile + threadIdx.x * P;
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-#pragma unroll
-      for (int j = i; j < N; ++j)
-        A[up(i, j, N)] = b < nb ? row[i * in.rs + j * in.cs] : T(0);
-    __syncthreads();
-  } else {
-    const T* base = in.p + b * in.sb;
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-#pragma unroll
-      for (int j = i; j < N; ++j) A[up(i, j, N)] = b < nb ? sym_in(in, base, i, j, N) : T(0);
-  }
-}
-
-// Each thread's W results of a (B, W) output: a batch-major contiguous
-// output goes through `tile` and leaves the block as one coalesced run;
-// other layouts (channel-first: coalesced across the warp) are written
-// directly. Every thread of the block calls this (it synchronizes).
-template <typename T, int W>
-__device__ __forceinline__ void store_rows(T* tile, View<T> out, long long nb, const T (&y)[W]) {
-  constexpr int P = odd_stride(W);
-  const long long b0 = blockIdx.x * (long long)kEigThreads;
-  const long long b = b0 + threadIdx.x;
-  if (out.sc == 1 && out.sb == W) {
-#pragma unroll
-    for (int i = 0; i < W; ++i) tile[threadIdx.x * P + i] = y[i];
-    __syncthreads();
-    const long long rows = nb - b0 < kEigThreads ? nb - b0 : kEigThreads;
-    T* dst = out.p + b0 * W;
-    for (int e = threadIdx.x; e < rows * W; e += kEigThreads) dst[e] = tile[(e / W) * P + e % W];
-    __syncthreads();
-  } else if (b < nb) {
-#pragma unroll
-    for (int i = 0; i < W; ++i) out.p[b * out.sb + i * out.sc] = y[i];
-  }
-}
+// The unrolled tier's device memory: each batch-major operand (the input's
+// n^2 full or n(n+1)/2 compact values, w's n, u's n^2, contiguous a
+// problem) is staged through the problem's region of staged_stride(n^2)
+// values (tile_stage.cuh) by the block in order; any other layout (the
+// channel-first compact operands of eig_sym_cf, which the warp reads a
+// channel at a time already, strided or broadcast batches) is read and
+// written by each thread for its own problem.
+template <typename T>
+struct EigTiles {
+  TileOperand<T> in;
+  TileOut<T> w, u;
+  bool in_staged, w_staged, u_staged;
+};
 
 // Squares of the symmetric matrix summed row by row over j from the first
 // term: all of them (diag = true), or the off-diagonal ones.
@@ -198,23 +230,14 @@ __device__ __forceinline__ T sum_squares(const T (&A)[N * (N + 1) / 2], bool dia
   return acc;
 }
 
+// The cyclic sweeps of one problem in registers (A its upper triangle, V
+// the eigenvectors if U), each sweep after the problem's own test, at most
+// `sweeps` of them.
 template <typename T, int N, bool U>
-__global__ void __launch_bounds__(kEigThreads)
-eig_unrolled(long long nb, int sweeps, SymIn<T> in, View<T> w, View<T> u) {
-  constexpr int NN = N * (N + 1) / 2;
-  __shared__ T tile[kEigThreads * odd_stride(N * N)];
-  T A[NN];
-  load_upper<T, N>(tile, in, nb, A);
-  T V[U ? N * N : 1];
-  if constexpr (U) {
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-#pragma unroll
-      for (int j = 0; j < N; ++j) V[i * N + j] = i == j ? T(1) : T(0);
-  }
+__device__ __forceinline__ void eig_sweeps(T (&A)[N * (N + 1) / 2], T (&V)[U ? N * N : 1],
+                                           int sweeps) {
   const T eps = eps_of(T(0));
   const T tol = sum_squares<T, N>(A, true) * (T(16) * eps * eps);
-  // rows past nb are zero, so their loop ends at once
   for (int sweep = 0; sweep < sweeps; ++sweep) {
     if (!(sum_squares<T, N>(A, false) > tol)) break;
 #pragma unroll
@@ -223,7 +246,7 @@ eig_unrolled(long long nb, int sweeps, SymIn<T> in, View<T> w, View<T> u) {
       for (int q = p + 1; q < N; ++q) {
         const T app = A[p], aqq = A[q], apq = A[up(p, q, N)];
         T c, s;
-        jacobi_rotation(app, aqq, apq, c, s);
+        jacobi_rotation_fast(app, aqq, apq, c, s);
 #pragma unroll
         for (int j = 0; j < N; ++j) {
           if (j == p || j == q) continue;
@@ -249,11 +272,68 @@ eig_unrolled(long long nb, int sweeps, SymIn<T> in, View<T> w, View<T> u) {
         }
       }
   }
-  T d[N];
+}
+
+// One thread a problem, P problems a block: the problem's upper triangle
+// (zero past nb, whose loop then ends at once) from its region or device
+// memory, its sweeps (eig_sweeps), and its eigenvalues, then its
+// eigenvectors, through its region or straight to device memory. Every
+// thread of the block reaches every barrier.
+template <typename T, int N, bool U, int P>
+__global__ void __launch_bounds__(P)
+eig_unrolled(long long nb, int sweeps, SymIn<T> in, View<T> w, View<T> u, EigTiles<T> t) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int NN = N * (N + 1) / 2, S = staged_stride<T>(N * N);
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  T* m = sm + threadIdx.x * S;
+  const long long b0 = blockIdx.x * (long long)P, b = b0 + threadIdx.x;
+  const int np = nb - b0 < P ? (int)(nb - b0) : P;
+  T A[NN];
+  if (t.in_staged) {
+    tile_stage<T, false, staged_loads<T>(N * N)>(t.in, b0, np, P, S, sm);
+    __syncthreads();
 #pragma unroll
-  for (int i = 0; i < N; ++i) d[i] = A[i];
-  store_rows<T, N>(tile, w, nb, d);
-  if constexpr (U) store_rows<T, N * N>(tile, u, nb, V);
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = i; j < N; ++j)
+        A[up(i, j, N)] = b >= nb ? T(0) : m[in.compact ? up(i, j, N) : i * in.rs + j * in.cs];
+  } else {
+    const T* base = in.p + b * in.sb;
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = i; j < N; ++j) A[up(i, j, N)] = b < nb ? sym_in(in, base, i, j, N) : T(0);
+  }
+  T V[U ? N * N : 1];
+  if constexpr (U) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) V[i * N + j] = i == j ? T(1) : T(0);
+  }
+  eig_sweeps<T, N, U>(A, V, sweeps);
+  // the region is the thread's own since the first barrier
+  if (t.w_staged) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) m[i] = A[i];
+    __syncthreads();
+    tile_store<T>(t.w, b0, np, P, S, sm);
+  } else if (b < nb) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) w.p[b * w.sb + i * w.sc] = A[i];
+  }
+  if constexpr (U) {
+    if (t.u_staged) {
+      __syncthreads();  // w is written out before V takes the regions
+#pragma unroll
+      for (int k = 0; k < N * N; ++k) m[k] = V[k];
+      __syncthreads();
+      tile_store<T>(t.u, b0, np, P, S, sm);
+    } else if (b < nb) {
+#pragma unroll
+      for (int k = 0; k < N * N; ++k) u.p[b * u.sb + k * u.sc] = V[k];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -481,16 +561,34 @@ __global__ void eig_rolled(long long nb, int n, int sweeps, SymIn<T> in, View<T>
 // launcher
 // ---------------------------------------------------------------------------
 
+// The unrolled tier at order N: P = staged_threads(N^2) problems a block
+// (64 where 128 regions of float64 pass 48 KB), each operand staged where
+// it is contiguous batch-major (a full input whose strides read either
+// triangle of its row-major storage, or a compact one).
+template <typename T, int N, bool U>
+void launch_eig_unrolled(long long nb, int sweeps, SymIn<T> in, View<T> w, View<T> u,
+                         cudaStream_t s) {
+  constexpr int P = staged_threads<T>(N * N), S = staged_stride<T>(N * N);
+  const int size = in.compact ? N * (N + 1) / 2 : N * N;
+  const bool flat = in.sb == size && (in.compact ? in.cs == 1
+                                                 : (in.rs == N && in.cs == 1) ||
+                                                       (in.rs == 1 && in.cs == N));
+  const EigTiles<T> t{tile_flat_operand<T>(View<const T>{in.p, in.sb, 1}, size, P, S),
+                      tile_flat_out<T>(w, N, P, S), tile_flat_out<T>(u, N * N, P, S), flat,
+                      w.sb == N && w.sc == 1, U && u.sb == N * N && u.sc == 1};
+  eig_unrolled<T, N, U, P><<<(unsigned)((nb + P - 1) / P), P, P * S * (int)sizeof(T), s>>>(
+      nb, sweeps, in, w, u, t);
+}
+
 template <typename T>
 cudaError_t launch_eig(int n, int sweeps, int compute_u, long long nb, SymIn<T> in, View<T> w,
                        View<T> u, cudaStream_t s) {
   if (sweeps < 0 || n < 1 || n > kMaxN) return cudaErrorInvalidValue;
   if (n <= kEigUnrollMax) {
-    const unsigned g = (unsigned)((nb + kEigThreads - 1) / kEigThreads);
     switch (2 * n + (compute_u ? 1 : 0)) {
-#define FM_EIG_CASE(K)                                                                \
-  case 2 * K: eig_unrolled<T, K, false><<<g, kEigThreads, 0, s>>>(nb, sweeps, in, w, u); break; \
-  case 2 * K + 1: eig_unrolled<T, K, true><<<g, kEigThreads, 0, s>>>(nb, sweeps, in, w, u); break;
+#define FM_EIG_CASE(K)                                                       \
+  case 2 * K: launch_eig_unrolled<T, K, false>(nb, sweeps, in, w, u, s); break; \
+  case 2 * K + 1: launch_eig_unrolled<T, K, true>(nb, sweeps, in, w, u, s); break;
       FM_EIG_CASE(1) FM_EIG_CASE(2) FM_EIG_CASE(3) FM_EIG_CASE(4)
       FM_EIG_CASE(5) FM_EIG_CASE(6) FM_EIG_CASE(7) FM_EIG_CASE(8)
 #undef FM_EIG_CASE

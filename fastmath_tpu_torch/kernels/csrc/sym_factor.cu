@@ -18,9 +18,9 @@
 //   5 <= N <= 8  LU with first-max partial pivoting, unrolled in registers
 //              (fm::plu_factor): det = sign * prod U_ii; the inverse
 //              solves against the identity's columns one at a time and
-//              keeps only the strict lower part of what it has solved,
-//              which the later columns need for the symmetrized upper
-//              slots 0.5 * (X_ij + X_ji);
+//              keeps the strict lower part of what it has solved, which
+//              the later columns need for the symmetrized upper slots
+//              0.5 * (X_ij + X_ji);
 //   9 <= N <= 32 the lane-group LU (lu_groups.cuh), G = 16 lanes a
 //              problem to N = 16, 32 above, the plain rolled_factor's pivots without
 //              moving a row: the determinant (sym_det_groups) the signed
@@ -29,11 +29,25 @@
 //              (sym_invert_groups) on [A | I], each lane then solving for
 //              one column, the upper slots symmetrized the same way.
 //
+// Staging: the inverse at 3 <= N <= 8 stages its blocks' problems through
+// shared memory (tile_stage.cuh; sym_invert_staged), with the arithmetic
+// of the unstaged kernel, so the same bits, and each solved column's
+// strict lower part kept in the problem's region; N <= 2, and an operand
+// and result both channel-first, stay one thread a problem straight from
+// device memory (sym_invert_unrolled), which the card measured faster
+// there. The determinant writes one value a problem and reads as the
+// staged tiers do (79% of its byte bound at N = 4, 70-77% at 5..8 on 1M).
+//
 // What bounds them on the card: per problem the determinant moves
-// N(N+1)/2 + 1 values and the inverse N(N+1), for O(N^3) flops; at N <= 4
-// device memory bounds them, and each operand is read once with the work
-// in registers. The lane groups hold a row in registers (about N^2 / 2
-// FMAs a lane), and the inverse's then a column (about N^2 more) with U in
+// N(N+1)/2 + 1 values and the inverse N(N+1), for O(N^3) flops; at N <= 6
+// device memory bounds them. An inverse that stores its own N(N+1)/2
+// slots a thread reached 10-28% of its byte bound; staged, on an H100
+// 80GB HBM3 at 700 W (chip_ab.py syminv8, 1M problems, float32), N = 4
+// takes 0.030 ms (79%; 0.094 unstaged) and N = 5, 6 72% and 55%. From N =
+// 7 its arithmetic outlasts its bytes: at 7 and 8 (39%, 26%) each thread
+// keeps its unrolled LU and columns in 106-147 registers; in float64
+// (22-34% at 5..8) in 100-254 registers and a local array of 40-96 bytes. The lane groups hold a row in registers (about N^2 / 2 FMAs a
+// lane), and the inverse's then a column (about N^2 more) with U in
 // shared memory; what bounds them is instruction issue: each elimination
 // step's reductions, division and broadcast reads, then the inverse's two
 // triangular solves of dependent FMAs.
@@ -46,6 +60,7 @@
 #include "lu_groups.cuh"
 #include "sym_adjugate.cuh"
 #include "sym_common.cuh"
+#include "tile_stage.cuh"
 
 namespace fm {
 
@@ -54,6 +69,42 @@ __device__ __forceinline__ void load_compact(const T* __restrict__ m, long long 
                                              T (&c)[N * (N + 1) / 2]) {
 #pragma unroll
   for (int k = 0; k < N * (N + 1) / 2; ++k) c[k] = m[k * sc];
+}
+
+// plu_substitute's operations in its order, each pivot's swap of the
+// right-hand side written as selects. Where the swap is a branch per row,
+// nvcc keeps the right-hand side of the staged float inverse at N = 7, 8 in
+// a local array indexed by the pivot (566 local stores at N = 8); with
+// selects it keeps none, and runs 1.5x (N = 7) and 1.15x (N = 8) faster on
+// the card, the same bits (chip_ab.py syminv8). At N <= 6, and in float64,
+// whose selects cost twice the instructions, it runs slower: those keep
+// plu_substitute.
+template <typename T, int N>
+__device__ __forceinline__ void plu_substitute_sel(const T (&LU)[N][N], const int (&piv)[N],
+                                                   const T (&inv_d)[N], const T (&rhs)[N],
+                                                   T (&x)[N]) {
+  T r[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = rhs[i];
+#pragma unroll
+  for (int k = 0; k < N - 1; ++k) {
+    const T rk = r[k];
+#pragma unroll
+    for (int i = k + 1; i < N; ++i) {
+      const bool sw = piv[k] == i;
+      r[k] = sw ? r[i] : r[k];
+      r[i] = sw ? rk : r[i];
+    }
+#pragma unroll
+    for (int i = k + 1; i < N; ++i) r[i] = r[i] - LU[i][k] * r[k];
+  }
+#pragma unroll
+  for (int i = N - 1; i >= 0; --i) {
+    T acc = r[i];
+#pragma unroll
+    for (int j = i + 1; j < N; ++j) acc = acc - LU[i][j] * x[j];
+    x[i] = acc * inv_d[i];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -104,6 +155,12 @@ __global__ void sym_det_groups(long long nb, int n, View<const T> mat, View<T> o
 // inverse
 // ---------------------------------------------------------------------------
 
+// One thread a problem, straight from device memory: N <= 4 the generated
+// cofactors times 1/det; 5..8 the unrolled pivoted LU, then the identity's
+// columns substituted in turn, the strict lower part of each solved column
+// kept in registers (low) for the later columns' symmetrized upper slots.
+// The compact inverse's tier for what sym_invert_staged does not stage
+// (below: N <= 2, channel-first in and out).
 template <typename T, int N>
 __global__ void __launch_bounds__(kThreads)
 sym_invert_unrolled(long long nb, View<const T> mat, View<T> out) {
@@ -137,6 +194,64 @@ sym_invert_unrolled(long long nb, View<const T> mat, View<T> out) {
       for (int r = c + 1; r < N; ++r) low[r][c] = x[r];
     }
   }
+}
+
+// One thread a problem on the block's staged compact problems (as
+// batched.cu's inv_unrolled): the thread reads its problem from its own
+// region into registers and writes its compact inverse back into it (it
+// alone reads or writes that region between the two barriers), and the
+// block writes the regions out in order. N <= 4: the generated cofactors
+// times 1/det. 5..8: the unrolled pivoted LU, then the identity's columns
+// substituted in turn; column c writes its X_cc to slot c and its strict
+// lower part X_rc (r > c) to slot (c, r), whose input nothing reads again,
+// and the slot takes 0.5 (X_cr + X_rc) when column r is solved: the region
+// holds the solved lower part that the later columns need, and no register
+// array does. The loops unrolled as sym_invert_unrolled's, the same
+// operations in the same order: the same bits.
+template <typename T, int N, int P>
+__global__ void __launch_bounds__(P) sym_invert_staged(long long nb, StagedPlan<T> plan) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int NN = N * (N + 1) / 2, S = staged_stride<T>(NN);
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const long long b0 = blockIdx.x * (long long)P;
+  const int np = nb - b0 < P ? (int)(nb - b0) : P;
+  tile_stage<T, false, staged_loads<T>(NN)>(plan.in, b0, np, P, S, sm);
+  __syncthreads();
+  if ((int)threadIdx.x < np) {
+    T* m = sm + threadIdx.x * S;
+    if constexpr (N <= 4) {
+      T c[NN], inv[NN];
+#pragma unroll
+      for (int k = 0; k < NN; ++k) c[k] = m[k];
+      compact_inverse(c, inv);
+#pragma unroll
+      for (int k = 0; k < NN; ++k) m[k] = inv[k];
+    } else {
+      T LU[N][N], inv_d[N];
+      int piv[N];
+      load_sym<T, N>(m, 1, nullptr, LU);
+      plu_factor<T, N>(LU, piv);
+#pragma unroll
+      for (int i = 0; i < N; ++i) inv_d[i] = T(1) / LU[i][i];
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        T e[N], x[N];  // x = column c of the inverse
+#pragma unroll
+        for (int i = 0; i < N; ++i) e[i] = i == c ? T(1) : T(0);
+        if constexpr (sizeof(T) == 4 && N >= 7)
+          plu_substitute_sel<T, N>(LU, piv, inv_d, e, x);
+        else
+          plu_substitute<T, N>(LU, piv, inv_d, e, x);
+        m[c] = x[c];
+#pragma unroll
+        for (int r = 0; r < c; ++r) m[tri_index(r, c, N)] = T(0.5) * (x[r] + m[tri_index(r, c, N)]);
+#pragma unroll
+        for (int r = c + 1; r < N; ++r) m[tri_index(c, r, N)] = x[r];
+      }
+    }
+  }
+  __syncthreads();
+  tile_store<T>(plan.out, b0, np, P, S, sm);
 }
 
 // A group of G lanes a problem (lu_groups.cuh): the lane-group LU with
@@ -200,13 +315,32 @@ cudaError_t launch_sym_det(int n, long long nb, View<const T> mat, View<T> out, 
   return cudaGetLastError();
 }
 
+// The compact inverse at N <= 8: sym_invert_staged, P problems a block,
+// their regions in dynamic shared memory; sym_invert_unrolled where the card
+// measured it faster (chip_ab.py syminv8): N <= 2, whose problems share
+// sectors with their neighbours', and an operand and result both
+// channel-first, which the warp reads and writes a channel at a time.
+template <typename T, int N>
+void launch_sym_invert_small(long long nb, View<const T> mat, View<T> out, cudaStream_t s) {
+  if constexpr (N > 2) {
+    if (mat.sb != 1 || out.sb != 1) {
+      constexpr int NN = N * (N + 1) / 2, P = staged_threads<T>(NN), S = staged_stride<T>(NN);
+      const StagedPlan<T> plan{tile_flat_operand<T>(mat, NN, P, S),
+                               tile_flat_out<T>(out, NN, P, S)};
+      sym_invert_staged<T, N, P><<<(unsigned)((nb + P - 1) / P), P, P * S * (int)sizeof(T), s>>>(
+          nb, plan);
+      return;
+    }
+  }
+  sym_invert_unrolled<T, N><<<grid_for(nb), kThreads, 0, s>>>(nb, mat, out);
+}
+
 template <typename T>
 cudaError_t launch_sym_invert(int n, long long nb, View<const T> mat, View<T> out,
                               cudaStream_t s) {
-  const unsigned g = grid_for(nb);
   switch (n) {
 #define FM_SYM_INVERT_CASE(K) \
-  case K: sym_invert_unrolled<T, K><<<g, kThreads, 0, s>>>(nb, mat, out); break;
+  case K: launch_sym_invert_small<T, K>(nb, mat, out, s); break;
     FM_SYM_INVERT_CASE(1) FM_SYM_INVERT_CASE(2) FM_SYM_INVERT_CASE(3) FM_SYM_INVERT_CASE(4)
     FM_SYM_INVERT_CASE(5) FM_SYM_INVERT_CASE(6) FM_SYM_INVERT_CASE(7) FM_SYM_INVERT_CASE(8)
 #undef FM_SYM_INVERT_CASE

@@ -1,8 +1,10 @@
 // Staged tiles: a block of P problems moves its operands between device
 // memory and shared memory in order, so that the threads that work on them
 // never touch device memory one problem at a time (batched_products.cu:
-// matmul_tiles; batched.cu: the n <= 8 inverse and Cholesky tiers; expm.cu:
-// expm_unrolled; sym_solve.cu: the compact chain at 5 <= N <= 8).
+// matmul_tiles; batched.cu: the n <= 8 inverse, Cholesky, determinant and
+// solve tiers; sym_factor.cu: the compact inverse at N <= 8; expm.cu:
+// expm_unrolled; sym_solve.cu: the compact chain at 5 <= N <= 8;
+// sym_products.cu: jhj_tiles).
 //
 // Each problem owns a region of S values in shared memory. The block reads
 // each operand into the regions (tile_stage) and writes each result out of
@@ -292,7 +294,8 @@ __device__ __forceinline__ void tile_store(const TileOut<T>& o, long long b0, in
 }
 
 // The one-thread-a-problem tiers that stage their problems here (batched.cu:
-// the n <= 8 inverse and Cholesky; expm.cu: expm_unrolled; sym_solve.cu:
+// the n <= 8 inverse, Cholesky, determinant and solve; sym_factor.cu: the
+// compact inverse at N <= 8; expm.cu: expm_unrolled; sym_solve.cu:
 // chain_inverse at 5 <= N <= 8): a block of P problems, one thread each,
 // each problem's `size` values kept in one run of its region. Where a
 // problem is whole 16-byte vectors the region stride is size + 1, odd, so
@@ -319,5 +322,13 @@ __host__ __device__ constexpr int staged_loads(int size) {
   const int kW = 16 / (int)sizeof(T), u = (size + kW - 1) / kW;
   return u < 8 ? u : 8;
 }
+
+// The operand and result of a one-thread-a-problem staged tier (batched.cu:
+// inv_unrolled, chol_unrolled; sym_factor.cu: sym_invert_staged).
+template <typename T>
+struct StagedPlan {
+  TileOperand<T> in;
+  TileOut<T> out;
+};
 
 }  // namespace fm

@@ -26,7 +26,9 @@ Entry points:
 Each launches a kernel on a CUDA tensor and runs the plain version, which
 repeats the kernel's arithmetic in PyTorch (same rotations, same order,
 converged problems frozen by a per-problem mask, so both run the same
-sweeps), on a CPU tensor. ``eig_unrolled.launches`` and
+sweeps; the unrolled kernel takes each rotation's reciprocals and square
+roots from special-function instructions, a few ulp from the plain
+version's divisions and square roots), on a CPU tensor. ``eig_unrolled.launches`` and
 ``eig_rolled.launches`` count the launches of each kernel, and nothing
 else.
 """

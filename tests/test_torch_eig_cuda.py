@@ -173,6 +173,48 @@ def test_groups_exit_on_their_own(n, dtype, rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 6, 7, 8])
+def test_unrolled_tier_layouts_and_a_nan_problem(n, dtype, rng):
+    """eig_unrolled at every n of its tier on a ragged batch: batch-major
+    full storage, its lower triangle through swapped strides, compact
+    batch-major and channel-first, values and vectors, every layout the
+    same bits, against the plain version (whose divisions and square roots
+    the kernel's rotation takes from fewer special-function instructions)
+    and float64 eigvalsh. Problems with a NaN on the diagonal, either side
+    of two block edges, give NaN eigenvalues, and every other problem is
+    the bits of a batch without them."""
+    a = torch.tensor(rng.standard_normal((B, n, n)), dtype=dtype, device="cuda")
+    sweeps = KE.sweeps_for(n)
+    sym = sym_from_triangle(a, True)
+    cm = full_to_sym(sym).contiguous()
+    wp, up = KE.eig_plain(sym, True, sweeps)
+    bad = [63, 64, 127, 128]
+    keep = torch.ones(B, dtype=torch.bool, device="cuda")
+    keep[bad] = False
+    a_nan = a.clone()
+    a_nan[bad, 1, 1] = float("nan")
+    for vec in (False, True):
+        w, u = KE.launch_eig_full(a, True, vec, sweeps)
+        _check(w, u, sym, wp, TOL[dtype])
+        _check(w, None, sym, torch.linalg.eigvalsh(sym.double()), TOL[dtype])
+        outs = [KE.launch_eig_full(a.mT, False, vec, sweeps),
+                KE.launch_eig_compact(cm, n, vec, sweeps),
+                KE.launch_eig_compact(cm.t().contiguous().t(), n, vec, sweeps, cf_out=True)]
+        torch.cuda.synchronize()
+        for wo, uo in outs:
+            assert torch.equal(wo, w)
+            if vec:
+                assert torch.equal(uo.reshape(B, n, n), u)
+        wn, un = KE.launch_eig_full(a_nan, True, vec, sweeps)
+        torch.cuda.synchronize()
+        assert torch.isnan(wn[bad]).any(dim=1).all()
+        assert torch.equal(wn[keep], w[keep])
+        if vec:
+            assert torch.equal(un[keep], u[keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_public_eig_sym_routes(dtype, rng):
     """eig_sym on a CUDA tensor: real 4 <= n <= 32 launches the kernel
     ("auto", the default), n <= 3 takes the closed forms (no launch) unless

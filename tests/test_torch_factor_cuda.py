@@ -289,6 +289,75 @@ def test_staged_det_keeps_a_bad_problem_to_itself(n, dtype, rng):
             assert (_log_err if log else _rel)(got[keep], want) <= TOL[dtype]
 
 
+def _entry_sym_invert(m, out):
+    """``fm_sym_invert`` on the operands' own strides (the wrappers take
+    channel stride 1 only); returns ``out``."""
+    n = round(((8 * m.shape[1] + 1) ** 0.5 - 1) / 2)
+    err = sym_factor._library().fm_sym_invert(
+        0 if m.dtype == torch.float32 else 1, n, m.shape[0], m.data_ptr(), *m.stride(),
+        out.data_ptr(), *out.stride(), torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return out
+
+
+# the staged compact inverse's blocks hold 128 problems at every N <= 8 in
+# both dtypes: one problem, a few, one less and one more than a block, and
+# a ragged batch of many
+SYM_INVERT_BATCHES = (1, 5, 127, 129, 4099)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_staged_sym_invert_batches_and_views(n, dtype, rng):
+    # the staged tier's three orders of device memory (16-byte vectors,
+    # batch-fastest, element by element) on indefinite problems (pivoting
+    # at 5..8), every view the same bits, and a channel stride of 2 in and
+    # out through the entry point
+    for b in SYM_INVERT_BATCHES:
+        c = torch.tensor(_compact(_symmetric(rng, b, n)), dtype=dtype, device="cuda")
+        want = sym_factor.invert_plain(c)
+        oracle = torch.from_numpy(_compact(np.linalg.inv(sym_to_full(c.double().cpu()).numpy())))
+        first = sym_factor.launch_sym_invert(c)
+        views = ((c, False), (_cf(c), True), (_cf(c), False), (c, True), (_misaligned(c), False))
+        for m, cf in views:
+            before = sym_invert_cf.launches
+            got = sym_factor.launch_sym_invert(m, cf_out=cf)
+            assert sym_invert_cf.launches == before + 1
+            torch.cuda.synchronize()
+            assert torch.equal(got, first), (b, m.stride(), cf)
+            assert _rel(got, want) <= TOL[dtype], (b, m.stride(), cf)
+            assert _rel(got, oracle) <= TOL[dtype], (b, m.stride(), cf)
+        got = _entry_sym_invert(_stride2(c), _stride2(torch.empty_like(c)))
+        torch.cuda.synchronize()
+        assert torch.equal(got, first), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_staged_sym_invert_keeps_a_bad_problem_to_itself(n, dtype, rng):
+    # a singular (zero) and a NaN problem either side of a block edge: each
+    # inverse holds a value that is not finite, and every other problem's
+    # is the bits of a batch without them
+    b, bad = 1029, (127, 128)
+    c = torch.tensor(_compact(_symmetric(rng, b, n)), dtype=dtype, device="cuda")
+    good = sym_factor.launch_sym_invert(c)
+    m0 = c.clone()
+    m0[bad[0]] = 0
+    m0[bad[1], 0] = float("nan")
+    keep = torch.ones(b, dtype=torch.bool)
+    keep[list(bad)] = False
+    for m, cf in ((m0, False), (_cf(m0), True), (_misaligned(m0), False)):
+        got = sym_factor.launch_sym_invert(m, cf_out=cf).cpu()
+        torch.cuda.synchronize()
+        for i in bad:
+            assert not torch.isfinite(got[i]).all(), (i, cf)
+        assert torch.equal(got[keep], good.cpu()[keep]), cf
+        want = sym_factor.invert_plain(m0[keep.cuda()])
+        assert _rel(got[keep], want) <= TOL[dtype], cf
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cf_wrappers_take_strided_operands(dtype, rng):
