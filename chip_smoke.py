@@ -114,7 +114,23 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
     residual at 1e-10), per-call, host and device times, the two SPD
     routes per call, each kernel alone against its bound, its plain
     version and, for expm, ``torch.linalg.matrix_exp``;
-11. one JSON line of per-kernel times beside their bounds (the batched
+11. the numerics path at the bench suite's shapes (float32), the modules
+    with no kernel: ``nansum`` and ``median`` (dim=-1) on 1M x 64 with 20%
+    NaN; ``besseli(0, z, "norm")`` on 1M z in [0, 30), its chain z <-
+    besseli(0, z) + z (k = 32) and ``besseli(3.7, z, "log")``;
+    ``logsumexp`` and ``softmax`` with the implicit class on 1M x 8; DCT-II
+    n = 64 ortho on 1M and n = 2048 on 65,536, DCT-I/III/IV and DST-IV n =
+    64 on 200k, ``dctn`` 32x32 on 8,192; ``trapprox`` (Hutchinson and
+    Hutch++, s = 64), ``vbald`` and ``maxeig_power`` (max_iter 256) on 512
+    SPD 64x64 as one block-diagonal operator and with ``sym_matvec`` on the
+    1M x 4 compact batch as the operator (which must launch kernel #3);
+    per-call, host and device times beside the bound by bytes, the error
+    against float64 numpy / scipy at the float32 tolerance of the JAX
+    package's test of the function (else 1e-5 normwise; the estimators at
+    their sampling tolerance); then the sweep of the DCT-II basis product
+    against the FFT path at n = 64 to 8192 on 256 MB batches, which sets
+    ``realtransforms.MATMUL_MAX_N``; one JSON line of these rows;
+12. one JSON line of per-kernel times beside their bounds (the batched
     and factor kernels also at each shape phases 6 and 7 time).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -2842,6 +2858,273 @@ def phase_lie(torch, rng):
     return kernels
 
 
+# --- phase 11 ----------------------------------------------------------------
+
+NUM_BIG, NUM_MID = 1_000_000, 200_000  # bench/suite.py's BIG and MID batches
+NUM_ORACLE = 65_536  # values held against float64 numpy / scipy
+DCT_ORACLE = 4096  # rows (images) held against float64 scipy
+DCT_WIDE = (2048, 65_536)  # n, rows
+DCTN_SHAPE = (8192, 32, 32)
+EST_BLOCKS = (512, 64)  # 512 SPD 64 x 64 as one block-diagonal operator
+EST_SAMPLES, EST_MAX_ITER = 64, 256
+CHAIN_BESSEL = 32
+DCT_SWEEP_NS = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
+DCT_SWEEP_BYTES = 256 << 20  # each sweep batch's input
+# float32 gates: the float32 tolerance of the JAX package's own test of the
+# function where it has one (besseli "norm": rtol 2e-5, atol 1e-8), else
+# 1e-5 normwise; trapprox and vbald at the tolerances of the reference's
+# tests (Hutchinson 0.1, Hutch++ 0.05, vbald 0.35). maxeig_power runs its
+# 256 steps (tol=0) and is held at 1e-5 against the same iteration in
+# float64 from the same start: how close 256 steps come to the largest
+# eigenvalue depends on the gap at the top of the spectrum, which the data
+# set (0.1-1% apart on these operators), so that distance is reported, not
+# gated
+GATE_BESSEL = (2e-5, 1e-8)
+GATE_EST = {"trapprox": 0.1, "trapprox_hutchpp": 0.05, "vbald": 0.35, "maxeig_power": GATE}
+
+
+def vec_err(got, want):
+    """||got - want|| / ||want|| over a whole vector (float64 host)."""
+    got, want = np.asarray(got, np.float64).ravel(), np.asarray(want, np.float64).ravel()
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def allclose_excess(got, want, rtol_atol):
+    """max (|got - want| - atol) / |want|: at most rtol where
+    ``np.testing.assert_allclose(got, want, rtol, atol)`` passes."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.maximum(np.abs(got - want) - rtol_atol[1], 0) / np.abs(want)))
+
+
+def lower_median(x):
+    """numpy oracle of reduce.median: the (count - 1) // 2-th of the sorted
+    non-NaN values of each row, NaN where a row has none."""
+    s = np.sort(x, axis=-1)  # NaN sorts last
+    cnt = np.sum(~np.isnan(x), axis=-1)
+    k = np.maximum(cnt - 1, 0) // 2
+    out = np.take_along_axis(s, k[:, None], axis=-1)[:, 0]
+    return np.where(cnt == 0, np.nan, out)
+
+
+def dct_sweep(torch, gen):
+    """DCT-II ortho by the basis product and by the FFT, device time on
+    about 256 MB of float32 at each n, both paths held against each other."""
+    from fastmath_tpu_torch.ops import realtransforms as RT
+
+    rows = []
+    for n in DCT_SWEEP_NS:
+        b = DCT_SWEEP_BYTES // (4 * n)
+        x = torch.randn(b, n, generator=gen, device=DEV)
+        paths = {"matmul": RT._matmul_last, "fft": RT._fft_last}
+        ms = {k: kernel_ms(torch, lambda f=f: f(x, "dct", 2, "ortho"), f"dct {k} n={n}", reps=5)
+              for k, f in paths.items()}
+        y_mm = RT._matmul_last(x[:256], "dct", 2, "ortho").double()
+        y_ff = RT._fft_last(x[:256], "dct", 2, "ortho").double()
+        err = ((y_mm - y_ff).norm(dim=-1) / y_ff.norm(dim=-1)).max().item()
+        if not err <= GATE:
+            fail(f"dct n={n}: the two paths differ by {err:.3e}")
+        log(f"  dct-II ortho n={n} on {b}: basis product {ms['matmul']:.4f} ms, "
+            f"FFT {ms['fft']:.4f} ms, paths apart {err:.2e}")
+        rows.append({"n": n, "rows": b, "matmul_ms": ms["matmul"], "fft_ms": ms["fft"],
+                     "paths_err": err})
+        del x, y_mm, y_ff
+    first_fft = next((r["n"] for r in rows if r["fft_ms"] < r["matmul_ms"]), None)
+    cut = max((r["n"] for r in rows if first_fft is None or r["n"] < first_fft), default=0)
+    log(f"  measured cut: basis product to n = {cut} (FFT faster from n = {first_fft}); "
+        f"realtransforms.MATMUL_MAX_N = {RT.MATMUL_MAX_N}")
+    RT._basis_t.cache_clear()
+    return {"rows": rows, "measured_cut": cut, "matmul_max_n": RT.MATMUL_MAX_N}
+
+
+def phase_numerics(torch, rng):
+    """The numerics path at the bench suite's shapes (float32), through the
+    public ops: the NaN reductions, besseli, the implicit-class simplex ops,
+    DCT/DST, and the stochastic estimators on a tensor operator and on the
+    compact 1M x 4 batch through sym_matvec (which must launch kernel #3).
+    Each row: per-call, host and device ms, the bound by bytes, the error
+    against float64 numpy / scipy at its gate. Then the sweep that sets the
+    realtransforms cut."""
+    import scipy.fft as sfft
+    import scipy.special as ssp
+
+    import fastmath_tpu_torch as T
+    from fastmath_tpu_torch.kernels import sym_matvec_cf
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the basis product must run in full float32")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(int(rng.integers(2 ** 31)))
+    rows = []
+
+    def row(name, fn, nbytes, err, gate, reps=10, queue=True, **extra):
+        t_call = call_ms(torch, fn, reps=reps, warmup=1)
+        t_host = host_ms(torch, fn, reps=reps)
+        t_dev = device_ms(torch, fn, reps=reps) if queue else None
+        b_ms = nbytes / PEAK_BYTES * 1e3
+        r = {"name": name, "ms": t_call, "host_ms": t_host, "device_ms": t_dev,
+             "bound_ms": b_ms, "bound_by": "bytes", "err": err, "gate": gate, **extra}
+        dev = "not measured (reads on the host)" if t_dev is None else f"{t_dev:.4f} ms"
+        log(f"  {name}: {t_call:.4f} ms per call, host {t_host:.4f} ms, device {dev}, "
+            f"bound {b_ms:.4f} ms (bytes); err {err:.3e} (gate {gate:.0e})"
+            + "".join(f", {k} {v}" for k, v in extra.items()))
+        if not err <= gate:
+            fail(f"{name}: error {err:.3e} above its gate {gate:.0e}")
+        rows.append(r)
+
+    # NaN-omitting reductions, 1M x 64, 20% NaN (bench/suite.py "reduce")
+    xx = rng.standard_normal((NUM_BIG, 64)).astype(np.float32)
+    xx[rng.random(xx.shape) < 0.2] = np.nan
+    x = torch.from_numpy(xx).to(DEV)
+    o = slice(0, NUM_ORACLE)
+    nb = x.numel() * 4 + NUM_BIG * 4
+    got = T.nansum(x, dim=-1)[o].cpu().numpy()
+    row(f"nansum dim=-1 {NUM_BIG}x64", lambda: T.nansum(x, dim=-1), nb,
+        vec_err(got, np.nansum(xx[o].astype(np.float64), -1)), GATE)
+    got = T.median(x, dim=-1)[o].cpu().numpy()
+    row(f"median dim=-1 {NUM_BIG}x64", lambda: T.median(x, dim=-1), nb,
+        vec_err(got, lower_median(xx[o].astype(np.float64))), GATE)
+    del x, xx
+
+    # besseli on 1M z in [0, 30)
+    zz = (rng.random(NUM_BIG) * 30.0).astype(np.float32)
+    z = torch.from_numpy(zz).to(DEV)
+    z64 = zz[o].astype(np.float64)
+    nb = 2 * NUM_BIG * 4
+    got = T.besseli(0, z, mode="norm")[o].cpu().numpy()
+    row(f"besseli nu=0 norm {NUM_BIG}", lambda: T.besseli(0, z, mode="norm"), nb,
+        allclose_excess(got, ssp.i0e(z64), GATE_BESSEL), GATE_BESSEL[0])
+
+    def chain():
+        c = z
+        for _ in range(CHAIN_BESSEL):
+            c = T.besseli(0, c, mode="norm") + c
+        return c
+
+    want = z64.copy()
+    for _ in range(CHAIN_BESSEL):
+        want = ssp.i0e(want) + want
+    row(f"besseli nu=0 norm chain k={CHAIN_BESSEL} {NUM_BIG}", chain, nb,
+        allclose_excess(chain()[o].cpu().numpy(), want, GATE_BESSEL), GATE_BESSEL[0], reps=5)
+    got = T.besseli(3.7, z, mode="log")[o].cpu().numpy()
+    # about 200 launches a call: 3 calls stay inside the card's launch queue
+    row(f"besseli nu=3.7 log {NUM_BIG}", lambda: T.besseli(3.7, z, mode="log"), nb,
+        vec_err(got, np.log(ssp.ive(3.7, z64)) + z64), GATE, reps=3)
+    del z
+
+    # implicit-class logsumexp / softmax over K-1 = 8 logits
+    xl = rng.standard_normal((NUM_BIG, 8)).astype(np.float32)
+    x = torch.from_numpy(xl).to(DEV)
+    x64 = np.concatenate([xl[o], np.zeros((NUM_ORACLE, 1), np.float32)], -1).astype(np.float64)
+    got = T.logsumexp(x, dim=-1, implicit=True)[o].cpu().numpy()
+    row(f"logsumexp implicit K=9 {NUM_BIG}", lambda: T.logsumexp(x, dim=-1, implicit=True),
+        x.numel() * 4 + NUM_BIG * 4, vec_err(got, ssp.logsumexp(x64, axis=-1)), GATE)
+    got = T.softmax(x, dim=-1, implicit=(True, True))[o].cpu().numpy()
+    row(f"softmax implicit (True, True) K=9 {NUM_BIG}",
+        lambda: T.softmax(x, dim=-1, implicit=(True, True)), 2 * x.numel() * 4,
+        normwise(got, ssp.softmax(x64, axis=-1)[:, :8]).max(), GATE)
+    del x
+
+    # DCT / DST (bench/suite.py "dct" and the types row)
+    def transform_row(name, fn, oracle, shape, reps=10):
+        xd = rng.standard_normal(shape).astype(np.float32)
+        xt = torch.from_numpy(xd).to(DEV)
+        got = fn(xt[:DCT_ORACLE]).double().cpu().numpy().reshape(min(DCT_ORACLE, shape[0]), -1)
+        want = oracle(xd[:DCT_ORACLE].astype(np.float64)).reshape(got.shape)
+        row(name, lambda: fn(xt), 2 * xt.numel() * 4, normwise(got, want).max(), GATE,
+            reps=reps)
+
+    transform_row(f"dct-II n=64 ortho {NUM_BIG}", lambda t: T.dct(t, norm="ortho"),
+                  lambda a: sfft.dct(a, norm="ortho"), (NUM_BIG, 64))
+    n, b = DCT_WIDE
+    transform_row(f"dct-II n={n} ortho {b}", lambda t: T.dct(t, norm="ortho"),
+                  lambda a: sfft.dct(a, norm="ortho"), (b, n), reps=5)
+    for fam, typ in (("dct", 1), ("dct", 3), ("dct", 4), ("dst", 4)):
+        transform_row(f"{fam}-{'I' * typ if typ < 4 else 'IV'} n=64 ortho {NUM_MID}",
+                      lambda t, f=fam, ty=typ: getattr(T, f)(t, type=ty, norm="ortho"),
+                      lambda a, f=fam, ty=typ: getattr(sfft, f)(a, type=ty, norm="ortho"),
+                      (NUM_MID, 64))
+    transform_row(f"dctn 32x32 ortho {DCTN_SHAPE[0]}",
+                  lambda t: T.dctn(t, dim=(-2, -1), norm="ortho"),
+                  lambda a: sfft.dctn(a, axes=(-2, -1), norm="ortho"), DCTN_SHAPE)
+
+    # the stochastic estimators on 512 SPD 64 x 64 as one operator
+    bst, nst = EST_BLOCKS
+    a = rng.standard_normal((bst, nst, nst)).astype(np.float32)
+    spd_np = np.einsum("...ij,...kj->...ik", a, a) / nst + np.eye(nst, dtype=np.float32)
+    spd64 = spd_np.astype(np.float64)
+    ops = torch.from_numpy(spd_np).to(DEV)
+    estimator_rows(torch, row, f"{bst}x{nst}x{nst}", ops, None, spd64, ops.numel() * 4)
+    del ops
+
+    # ... and with sym_matvec on bench.py's 1M x 4 compact batch as the operator
+    full = spd(rng, B_MAIN, N_MAIN)
+    mat = torch.from_numpy(compact(full)).to(DEV)
+    sym_matvec_cf.launches = 0
+    launched = estimator_rows(torch, row, f"{B_MAIN}x{N_MAIN} compact (sym_matvec)",
+                              lambda v: T.sym_matvec(mat, v), (B_MAIN, N_MAIN),
+                              full.astype(np.float64), mat.numel() * 4,
+                              launches=lambda: sym_matvec_cf.launches)
+    if not launched:
+        fail("the compact-operator estimators did not launch sym_matvec_cf")
+    del mat, full
+    torch.cuda.synchronize()
+    sweep = dct_sweep(torch, gen)
+    line = json.dumps({"numerics": rows, "dct_sweep": sweep})
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "numerics.json").write_text(line + "\n")
+    log(line)
+
+
+def power_oracle(torch, full64, v0, steps):
+    """The Rayleigh quotient after ``steps`` power-iteration steps from
+    ``v0`` on the block-diagonal operator ``full64``, in float64 on the
+    card."""
+    a = torch.from_numpy(full64).to(DEV)
+    v, mu = v0.double(), float("inf")
+    for _ in range(steps):
+        w = (a @ v[..., None])[..., 0]
+        mu = torch.sum(v * w)
+        v = w / torch.sqrt(torch.sum(w * w))
+    return float(mu)
+
+
+def estimator_rows(torch, row, what, op, shape, full64, nbytes, launches=None):
+    """trapprox (Hutchinson and Hutch++, s = 64), vbald and maxeig_power
+    (256 steps) on one operator, each against its float64 oracle; with
+    ``launches``, the kernel launches counted over the first call of each
+    (the timed calls come after)."""
+    import fastmath_tpu_torch as T
+    from fastmath_tpu_torch.ops.stochastic import _sample
+
+    kw = {} if shape is None else {"shape": shape, "device": DEV, "dtype": torch.float32}
+    gen = lambda: torch.Generator(device=DEV).manual_seed(SEED)  # noqa: E731
+    top = float(np.linalg.eigvalsh(full64)[:, -1].max())
+    v0 = _sample(gen(), "rademacher", full64.shape[:-1], torch.float32, DEV)
+    calls = {
+        "trapprox": (lambda: T.trapprox(op, samples=EST_SAMPLES, generator=gen(), **kw),
+                     float(np.trace(full64, axis1=-2, axis2=-1).sum())),
+        "trapprox_hutchpp": (lambda: T.trapprox(op, samples=EST_SAMPLES, hutchpp=True,
+                                                generator=gen(), **kw),
+                             float(np.trace(full64, axis1=-2, axis2=-1).sum())),
+        "vbald": (lambda: T.vbald(op, generator=gen(), **kw),
+                  float(np.linalg.slogdet(full64)[1].sum())),
+        "maxeig_power": (lambda: T.maxeig_power(op, max_iter=EST_MAX_ITER, tol=0.0,
+                                                generator=gen(), **kw),
+                         power_oracle(torch, full64, v0, EST_MAX_ITER)),
+    }
+    counted = 0
+    for name, (fn, want) in calls.items():
+        before = launches() if launches else 0
+        got = float(fn())
+        extra = {"to_top": abs(got - top) / top} if name == "maxeig_power" else {}
+        if launches:
+            extra["launches"] = launches() - before
+            counted += extra["launches"] > 0
+        row(f"{name} {what}", fn, nbytes, abs(got - want) / abs(want), GATE_EST[name], reps=3,
+            queue=name.startswith("trapprox"), **extra)
+    return counted == len(calls)
+
+
 def main():
     import torch
 
@@ -2889,7 +3172,10 @@ def main():
     kernels += phase_eig(torch, rng)
     log("== phase 10: the Lie path (expm, logm, meanm) at full size")
     kernels += phase_lie(torch, rng)
+    log("== phase 11: the numerics path at full size")
+    phase_numerics(torch, rng)
     torch.cuda.synchronize()
+    log("== phase 12: the kernels line")
     log(f"total_seconds={time.perf_counter() - t0:.1f}")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -4,16 +4,26 @@
 Same public names, storage layouts and semantics as the JAX package;
 every Pallas TPU kernel becomes a CUDA kernel written for Hopper
 (``kernels/csrc``), with a plain PyTorch version beside it that serves
-CPU tensors. This package imports neither JAX nor ``fastmath_tpu``.
+CPU tensors. The modules that have no kernel in the JAX package
+(``reduce``, ``special``, ``simplex``, ``realtransforms``, ``stochastic``)
+are plain PyTorch on the input's device. This package imports neither
+JAX nor ``fastmath_tpu``.
 """
-from . import core, kernels, layouts
+from . import core, kernels, layouts, typing, utils
 from .kernels import sym_invert_cf, sym_matvec_cf, sym_solve_cf
-from .ops import batched, lie, qr, sugar, sym
+from .ops import batched, lie, qr, realtransforms, reduce, simplex, special, stochastic, sugar, sym
 from .ops.batched import (batchchol, batchdet, batchinv, batchlmdiv, batchlogdet,
                           batchmatmul, batchmatvec, batchrmdiv)
 from .ops.lie import expm, expm_derivatives, logm, meanm
 from .ops.qr import (eig_sym, givens, givens_apply, hessenberg, hessenberg_sym, householder,
                      householder_apply, qr_hessenberg, rq_hessenberg)
+from .ops.realtransforms import dct, dctn, dst, dstn, idct, idctn, idst, idstn
+from .ops.reduce import (max, mean, median, min, nanmax, nanmean, nanmin, nanstd, nansum, nanvar,
+                         std, sum, var)
+from .ops.simplex import log_softmax, logit, logsumexp, softmax, softmax_lse
+from .ops.special import (besseli, besseli_ratio, digamma, erfinv, gammainc, gammaincc,
+                          mvdigamma)
+from .ops.stochastic import maxeig_power, trapprox, vbald
 from .ops.sugar import (dot, inv, is_orthonormal, kron2, lmdiv, matvec, mdot, outer, rmdiv,
                         round, solvevec, trace)
 from .ops.sym import (full_to_sym, sym_addmatvec, sym_addmatvec_, sym_det, sym_diag,
@@ -29,5 +39,11 @@ __all__ = ["sym_to_full", "full_to_sym", "sym_diag", "sym_solve", "sym_solve_",
            "qr_hessenberg", "rq_hessenberg", "hessenberg", "hessenberg_sym", "householder",
            "householder_apply", "givens", "givens_apply", "kron2", "lmdiv", "rmdiv", "inv",
            "matvec", "solvevec", "outer", "trace", "dot", "mdot", "is_orthonormal", "round",
-           "expm", "logm", "meanm", "expm_derivatives", "core", "layouts", "kernels", "batched",
-           "lie", "qr", "sugar", "sym", "sym_solve_cf", "sym_matvec_cf", "sym_invert_cf"]
+           "expm", "logm", "meanm", "expm_derivatives", "dct", "idct", "dst", "idst", "dctn",
+           "idctn", "dstn", "idstn", "min", "max", "nanmin", "nanmax", "median", "sum", "nansum",
+           "mean", "nanmean", "var", "nanvar", "std", "nanstd", "logsumexp", "softmax",
+           "log_softmax", "logit", "softmax_lse", "mvdigamma", "besseli", "besseli_ratio",
+           "erfinv", "gammainc", "gammaincc", "digamma", "trapprox", "vbald", "maxeig_power",
+           "core", "layouts", "typing", "utils", "kernels", "batched", "lie", "qr",
+           "realtransforms", "reduce", "simplex", "special", "stochastic", "sugar", "sym",
+           "sym_solve_cf", "sym_matvec_cf", "sym_invert_cf"]

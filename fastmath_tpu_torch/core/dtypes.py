@@ -1,16 +1,25 @@
-"""Dtype promotion for the linalg tier: half types compute in float32.
+"""Dtype utilities: machine epsilon, promotion rules, float checks.
 
-PyTorch counterpart of ``fastmath_tpu/core/dtypes.py`` (``upcast_half``
-and ``downcast``). One difference is deliberate: where every input is
-an integer or bool, JAX under x64 promotes to float64, while this
-package promotes to ``torch.get_default_dtype()`` (float32 unless the
-caller changed it).
+PyTorch counterpart of ``fastmath_tpu/core/dtypes.py``: the same names and
+rules. One difference is deliberate, and holds for ``upcast_half`` and
+``as_float`` (the linalg tier, the reductions and the special functions):
+where every input is an integer or bool, JAX under x64 promotes to
+float64, while this package promotes to ``torch.get_default_dtype()``
+(float32 unless the caller changed it). ``promote_transform_dtype`` keeps
+scipy's rule instead (integers to float64), as the JAX package does.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["upcast_half", "downcast"]
+__all__ = [
+    "eps",
+    "as_float",
+    "result_real_dtype",
+    "promote_transform_dtype",
+    "upcast_half",
+    "downcast",
+]
 
 _HALF_DTYPES = (torch.float16, torch.bfloat16)
 
@@ -43,3 +52,35 @@ def downcast(x, half):
     """Round ``x`` back to the ``half`` dtype reported by
     :func:`upcast_half` (identity when ``half`` is ``None``)."""
     return x if half is None else x.to(half)
+
+
+def eps(dtype) -> float:
+    """Machine epsilon of a floating dtype; for a complex dtype, that of
+    its real component."""
+    if not (dtype.is_floating_point or dtype.is_complex):
+        raise TypeError(f"eps() requires a floating dtype, got {dtype}")
+    return float(torch.finfo(dtype).eps)
+
+
+def as_float(dtype):
+    """The floating dtype arithmetic should happen in: floats and complex
+    pass through, integers and bool give ``torch.get_default_dtype()``."""
+    if dtype.is_floating_point or dtype.is_complex:
+        return dtype
+    return torch.get_default_dtype()
+
+
+def result_real_dtype(dtype):
+    """The real dtype underlying ``dtype`` (identity for real floats)."""
+    return dtype.to_real() if dtype.is_complex else dtype
+
+
+def promote_transform_dtype(dtype):
+    """Promotion rule for DCT/DST inputs, scipy's: integers and bool give
+    float64 (not the default dtype: this rule is the transforms' own),
+    float16 and bfloat16 give float32, everything else is unchanged."""
+    if not (dtype.is_floating_point or dtype.is_complex):
+        return torch.float64
+    if dtype in _HALF_DTYPES:
+        return torch.float32
+    return dtype
