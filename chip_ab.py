@@ -76,7 +76,11 @@ k = 1, and at k = 1 and 8 the staging alone and the arithmetic alone),
 in both dtypes, batch-major and channel-first in and out, with its bound;
 at N = 4 and 8 in float32 also channel-first in and batch-major out),
 ``compact8`` (the compact solve and determinant at N = 5..8 in float32 on
-262,144 and on 1M, with their bounds) and ``eig8`` (``csrc/eig.cu``'s
+262,144 and on 1M, with their bounds), ``route`` (the host side of the
+main path, the public ``sym_solve`` on ``chip_smoke.py``'s 1M x 4 x 4
+batch under ``auto``: its routing decision alone, ``ops.sym._route``
+as the call makes it, in microseconds a call over 20 x 20,000 calls, and the whole call's ``chip_smoke.host_ms`` over 15 x 50 calls,
+each list with its median and quartiles; no kernel is timed) and ``eig8`` (``csrc/eig.cu``'s
 unrolled tier at n = 2..8 in both dtypes, values and vectors, on the bytes
 of 4x4 on 1M, batch-major full storage and channel-first compact, with
 its bound, its special-function bound and the mean sweeps beside the
@@ -506,6 +510,57 @@ def sass_sizes(_build, lib, kernel, opcode=None):
     return sizes
 
 
+def quartiles(xs):
+    """[lower quartile, median, upper quartile] of ``xs``."""
+    import statistics
+
+    q = statistics.quantiles(xs, n=4)
+    return [q[0], statistics.median(xs), q[2]]
+
+
+def route_host(torch, C, res):
+    """The ``route`` group: the main path's routing decision alone and its
+    public call's host time, in the tree of the working directory (one
+    with ``ops/_routing.py`` passes ``_route`` the size of the broadcast
+    batch shape, which both trees compute for the launch, and its product
+    is part of the decision)."""
+    import inspect
+    import math
+    import timeit
+
+    import numpy as np
+
+    import fastmath_tpu_torch as T
+    from fastmath_tpu_torch.layouts.sym import classify_layout
+    from fastmath_tpu_torch.ops import sym as S
+
+    rng = np.random.default_rng(0)
+    mat = torch.from_numpy(C.compact(C.spd(rng, C.B_MAIN, C.N_MAIN))).cuda()
+    vec = torch.from_numpy(rng.standard_normal((C.B_MAIN, C.N_MAIN)).astype(np.float32)).cuda()
+    n = vec.shape[-1]
+    layout = classify_layout(mat.shape[-1], n)
+    shape = torch.broadcast_shapes(mat.shape[:-1], vec.shape[:-1])
+    if "batch" in inspect.signature(S._route).parameters:
+        def decide():
+            return S._route("auto", layout, n, mat, "sym_solve", math.prod(shape))
+    else:
+        def decide():
+            return S._route("auto", layout, n, mat, "sym_solve")
+    if decide() != (True, True):
+        raise RuntimeError(f"route: the main path's decision is {decide()}, not the kernel")
+    us = [timeit.timeit(decide, number=20_000) / 20_000 * 1e6 for _ in range(20)]
+    res["route decision us"] = us
+    res["route decision us quartiles"] = quartiles(us)
+
+    def call():
+        return T.sym_solve(mat, vec)
+    call()
+    torch.cuda.synchronize()
+    host = [C.host_ms(torch, call, reps=50) for _ in range(15)]
+    res["sym_solve host ms"] = host
+    res["sym_solve host ms quartiles"] = quartiles(host)
+
+
 def main():
     import torch
 
@@ -528,7 +583,7 @@ def main():
     tag, library = sys.argv[1], "--library" in sys.argv[2:]
     groups = {"solve", "chol", "sym_solve", "matmul", "logm", "logm4", "eig", "chain", "maxeig",
               "inv8", "chol8", "expm", "chain8", "expm_warp", "jhj", "det8", "solve8",
-              "syminv8", "compact8", "eig8"}
+              "syminv8", "compact8", "eig8", "route"}
     if "--only" in sys.argv:
         groups = set(sys.argv[sys.argv.index("--only") + 1].split(","))
     sources = {"solve": "batched", "chol": "batched", "sym_solve": "sym_solve",
@@ -537,7 +592,7 @@ def main():
                "inv8": "batched", "chol8": "batched", "expm": "expm", "chain8": "sym_solve",
                "expm_warp": "expm", "jhj": "sym_products", "det8": "batched",
                "solve8": "batched", "syminv8": "sym_factor",
-               "compact8": ("sym_solve", "sym_factor"), "eig8": "eig"}
+               "compact8": ("sym_solve", "sym_factor"), "eig8": "eig", "route": "sym_solve"}
     libs = sorted({lib for g in groups for lib in
                    ((sources[g],) if isinstance(sources[g], str) else sources[g])})
     _build.build_all(sorted(set(libs) | ({"expm"} if groups & {"logm", "logm4"} else set())))
@@ -1144,6 +1199,8 @@ def main():
                                                                 for _ in range(3)]
             del y
         del a, fro, m, mc
+    if "route" in groups:
+        route_host(torch, C, res)
     if "eig8" in groups:
         res["eig_unrolled sass instructions"] = sass_sizes(_build, "eig", "eig_unrolled")
         res["eig_unrolled MUFU instructions"] = sass_sizes(_build, "eig", "eig_unrolled", "MUFU")

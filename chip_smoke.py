@@ -131,15 +131,48 @@ Builds the port's CUDA kernels from ``fastmath_tpu_torch/kernels/csrc``
     against the FFT path at n = 64 to 8192 on 256 MB batches, which sets
     ``realtransforms.MATMUL_MAX_N``; one JSON line of these rows;
 12. one JSON line of per-kernel times beside their bounds (the batched
-    and factor kernels also at each shape phases 6 and 7 time).
+    and factor kernels also at each shape phases 6 and 7 time);
+13. the routing policy (``ops/_routing.py``) and the rest of the
+    namespace: (a) the sweep that sets the policy's thresholds, each
+    public op with a kernel at one or more sizes a tier (n <= 4 and above)
+    at batches 1 to 16,384 in float32, per call through the kernel and
+    through the plain version (``auto`` with every threshold at 1 and
+    above every batch: the two sides of its choice; timed three times
+    where the plain version is not slower, and on to 1,048,576 problems
+    and 4 GiB an operand where the kernel is still slower at 16,384) and
+    through
+    ``backend="torch"``, the crossover batch beside the threshold the
+    policy holds in one JSON line ``routing`` (also
+    ``chiprun_out/chip_smoke/routing.json``); gated: ``auto`` launches the
+    kernel at every swept batch at or above the threshold and not below
+    (never outside the policy's n-range), ``backend="cuda"`` at every
+    batch; (b) ``parallel`` on the one card:
+    ``make_mesh()`` is ``cuda:0``, ``shard_batch(sym_solve)`` on the 1M x
+    4 x 4 batch is bit for bit ``sym_solve`` and launches
+    ``sym_solve_cf`` once, as the main path does, ``shard_reduce`` of
+    ``nansum`` (sum and mean_weighted) on 1M x 64 with 20% NaN at 1e-6,
+    ``trapprox_sharded`` on the 512 x 64 x 64 block operator and with
+    ``sym_matvec`` on the 1M x 4 batch (which must launch kernel #3)
+    within 0.1 of the trace, ``donating(sym_solve_)`` in the vector's
+    storage; (c) ``utils.profiling``: ``trace_to`` around three solves in
+    ``annotate("fm_solve")`` writes a trace holding the annotation (the
+    solve kernel's event is reported, not gated), ``device_timer`` of one
+    solve is at least phase 4's device time; (d) ``core.checks``:
+    ``debug_nans`` raises on the NaN the solve kernel makes from a zero
+    matrix, ``checked(sym_solve)`` is bit for bit; (e) ``core.cache``: a
+    child process with ``FASTMATH_TPU_TORCH_CACHE_DIR`` set builds,
+    loads and launches the product kernels' library under it.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository beside it, the script exits non-zero
 and prints no result. It imports neither JAX nor ``fastmath_tpu``.
 """
+import contextlib
 import json
+import os
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -2661,6 +2694,7 @@ def phase_lie(torch, rng):
     from fastmath_tpu_torch.kernels import eig as KEIG
     from fastmath_tpu_torch.kernels import expm as KE
     from fastmath_tpu_torch.kernels import logm as KL
+    from fastmath_tpu_torch.ops import _routing as R
     from fastmath_tpu_torch.ops import lie as L
 
     gen = torch.Generator(device=DEV)
@@ -2741,7 +2775,7 @@ def phase_lie(torch, rng):
              lie_normwise(torch, lg[:n], torch.tensor(scipy_map("logm", e[:n]), device=DEV)).cpu().numpy())
     for d, lg in spd_out.items():
         n = 128
-        gate(f"SPD logm {d}x{d} on {lg.shape[0]} ({'eig route' if d >= L._LOGM_SYM_EIG_MIN_D else 'kernel'}) "
+        gate(f"SPD logm {d}x{d} on {lg.shape[0]} ({'eig route' if d >= R.LOGM_SYM_EIG_MIN_D else 'kernel'}) "
              f"normwise vs f64 scipy ({n})",
              lie_normwise(torch, lg[:n], torch.tensor(scipy_map("logm", spds[d][:n]), device=DEV)).cpu().numpy())
     # meanm: the fixed-point residual ||mean_k logm(M^-1 A_k)|| over the mean
@@ -2793,17 +2827,18 @@ def phase_lie(torch, rng):
             f"host {host_ms(torch, fn, reps=5):.4f} ms, device "
             + ("not measured (waits for the card)" if dev is None else f"{dev:.4f} ms"))
 
-    # the crossover that sets _LOGM_SYM_EIG_MIN_D: the public logm per call
-    # on SPD input, the symmetric eig route switched on and off at each d
-    min_d = L._LOGM_SYM_EIG_MIN_D
+    # the crossover that sets _routing.LOGM_SYM_EIG_MIN_D: the public logm
+    # per call on SPD input, the symmetric eig route switched on and off at
+    # each d
+    min_d = R.LOGM_SYM_EIG_MIN_D
     for d, a in spds.items():
-        L._LOGM_SYM_EIG_MIN_D = d
+        R.LOGM_SYM_EIG_MIN_D = d
         sym_ms = call_ms(torch, lambda a=a: T.logm(a), reps=5)
-        L._LOGM_SYM_EIG_MIN_D = L._LOGM_SYM_EIG_MAX_D + 1
+        R.LOGM_SYM_EIG_MIN_D = L._LOGM_SYM_EIG_MAX_D + 1
         ker_ms = call_ms(torch, lambda a=a: T.logm(a), reps=5)
         log(f"  SPD logm {d}x{d} on {a.shape[0]} per call: eig route {sym_ms:.4f} ms, "
             f"kernel route {ker_ms:.4f} ms")
-    L._LOGM_SYM_EIG_MIN_D = min_d
+    R.LOGM_SYM_EIG_MIN_D = min_d
 
     # each kernel alone at its row's shape against its bound, its plain
     # version and, for expm, torch.linalg.matrix_exp (timed only, never
@@ -3125,6 +3160,351 @@ def estimator_rows(torch, row, what, op, shape, full64, nbytes, launches=None):
     return counted == len(calls)
 
 
+# --- phase 13 -----------------------------------------------------------------
+
+# the routing sweep: batches of each swept shape, and the shapes, one or more
+# a tier of each family the policy routes ((family, n); batchlmdiv at n <= 4
+# multiplies by batchinv's inverse under auto, so its row is batchinv's)
+ROUTE_BATCHES = (1, 16, 256, 4096, 16_384)
+ROUTE_EXTEND = (65_536, 262_144, 1_048_576)
+ROUTE_ROWS = (
+    ("sym_solve", 3), ("sym_solve", 4), ("sym_solve", 6), ("sym_solve", 16),
+    ("sym_solve_chain", 4), ("sym_solve_chain", 8),
+    ("sym_matvec", 4), ("sym_matvec", 8), ("sym_addmatvec", 4), ("sym_addmatvec", 8),
+    ("sym_outer", 4), ("sym_outer", 8), ("sym_matmul", 4), ("sym_matmul", 8),
+    ("sym_matvec_chain", 4), ("sym_matvec_chain", 8), ("sym_maxeig", 4), ("sym_maxeig", 8),
+    ("sym_det", 4), ("sym_det", 8), ("sym_invert", 4), ("sym_invert", 8),
+    ("batchinv", 3), ("batchinv", 8), ("batchinv", 16),
+    ("batchdet", 3), ("batchdet", 8), ("batchdet", 16), ("batchlogdet", 3), ("batchlogdet", 8),
+    ("batchlmdiv", 3), ("batchlmdiv", 8), ("batchlmdiv", 16),
+    ("batchchol", 3), ("batchchol", 8), ("batchchol", 16), ("batchchol", 24),
+    ("batchmatvec", 4), ("batchmatvec", 8), ("batchmatvec", 12),
+    ("batchmatmul", 4), ("batchmatmul", 8), ("batchmatmul", 16), ("batchmatmul", 24),
+    ("batchmatmul", 32),
+    ("eig_sym", 4), ("eig_sym", 16), ("expm", 4), ("expm", 16), ("logm", 4), ("logm", 16),
+)
+ROUTE_CHAIN_K = 8  # sym_solve_chain and sym_matvec_chain steps
+NO_BACKEND = ("logm",)  # public ops with no backend argument
+ROUTE_EXTEND_BYTES = 1 << 32  # the extension's largest float32 operand
+B_NANSUM = (1_000_000, 64)  # phase 11's nansum batch
+
+
+@contextlib.contextmanager
+def forced_policy(R, value):
+    """Every swept family's threshold in ``ops/_routing.py`` at ``value``
+    up to the kernels' 32 (1: auto takes every kernel; above any batch:
+    none), restored on exit."""
+    saved = dict(R.MIN_BATCH)
+    R.MIN_BATCH.update({family: ((32, value),) for family, _ in ROUTE_ROWS})
+    try:
+        yield
+    finally:
+        R.MIN_BATCH.clear()
+        R.MIN_BATCH.update(saved)
+
+
+def route_counters(family, n, backend):
+    """The launch counters that show a row's kernel ran: under ``backend``
+    (batchlmdiv at n <= 4 under auto: the inverse kernel's)."""
+    from fastmath_tpu_torch.kernels import batched_cuda as BC
+    from fastmath_tpu_torch.kernels import eig as KEIG
+    from fastmath_tpu_torch.kernels import expm as KE
+    from fastmath_tpu_torch.kernels import logm as KL
+    from fastmath_tpu_torch.kernels import sym_cuda as SC
+    from fastmath_tpu_torch.kernels import sym_factor as SF
+    from fastmath_tpu_torch.kernels import sym_iterate as SI
+    from fastmath_tpu_torch.kernels import sym_products as SP
+
+    if family == "batchlmdiv" and n <= 4 and backend == "auto":
+        return [BC.inv_cf]
+    return {
+        "sym_solve": [SC.sym_solve_cf], "sym_solve_chain": [SC.sym_solve_chain_cf],
+        "sym_matvec": [SP.sym_matvec_cf], "sym_addmatvec": [SP.sym_addmatvec_cf],
+        "sym_outer": [SP.sym_outer_cf], "sym_matmul": [SP.sym_matmul_cf],
+        "sym_matvec_chain": [SI.sym_matvec_chain_cf], "sym_maxeig": [SI.sym_maxeig_cf],
+        "sym_det": [SF.sym_det_cf], "sym_invert": [SF.sym_invert_cf],
+        "batchinv": [BC.inv_cf], "batchdet": [BC.det_cf], "batchlogdet": [BC.logdet_cf],
+        "batchlmdiv": [BC.solve_full_cf], "batchchol": [BC.chol_cf],
+        "batchmatvec": [BC.matvec_full_cf], "batchmatmul": [BC.matmul_cf],
+        "eig_sym": [KEIG.eig_unrolled, KEIG.eig_rolled],
+        "expm": [KE.expm_unrolled, KE.expm_warp], "logm": [KL.logm_unrolled, KL.logm_warp],
+    }[family]
+
+
+def route_call(torch, gen, family, n, b):
+    """``call(backend)``: the public op of ``family`` on ``b`` problems of
+    size ``n`` made on the card (float32); ops with no ``backend``
+    argument ignore it."""
+    import fastmath_tpu_torch as T
+    from fastmath_tpu_torch.kernels import expm as KE
+    from fastmath_tpu_torch.layouts import full_to_sym
+
+    full = spd_on_card(torch, gen, b, n)
+    mat = full_to_sym(full).contiguous()
+    vec = torch.randn(b, n, generator=gen, device=DEV)
+    rnd = torch.randn(b, n, n, generator=gen, device=DEV)
+    if family == "sym_matvec_chain":
+        _, mat, vec, _ = chain_input(torch, gen, n, ROUTE_CHAIN_K, b)
+    if family == "sym_maxeig":
+        mat, _ = maxeig_input(torch, gen, n, b)
+    sym = rnd + rnd.mT
+    e = KE.expm_plain(0.25 * rnd) if family == "logm" else None
+    half = 0.5 * rnd
+    calls = {
+        "sym_solve": lambda be: T.sym_solve(mat, vec, backend=be),
+        "sym_solve_chain": lambda be: T.sym_solve_chain(mat, vec, ROUTE_CHAIN_K, backend=be),
+        "sym_matvec": lambda be: T.sym_matvec(mat, vec, backend=be),
+        "sym_addmatvec": lambda be: T.sym_addmatvec(vec, mat, vec, backend=be),
+        "sym_outer": lambda be: T.sym_outer(vec, backend=be),
+        "sym_matmul": lambda be: T.sym_matmul(rnd, mat, backend=be),
+        "sym_matvec_chain": lambda be: T.sym_matvec_chain(mat, vec, ROUTE_CHAIN_K, backend=be),
+        "sym_maxeig": lambda be: T.sym_maxeig(mat, backend=be),
+        "sym_det": lambda be: T.sym_det(mat, backend=be),
+        "sym_invert": lambda be: T.sym_invert(mat, backend=be),
+        "batchinv": lambda be: T.batchinv(full, backend=be),
+        "batchdet": lambda be: T.batchdet(full, backend=be),
+        "batchlogdet": lambda be: T.batchlogdet(full, backend=be),
+        "batchlmdiv": lambda be: T.batchlmdiv(full, vec, backend=be),
+        "batchchol": lambda be: T.batchchol(full, backend=be),
+        "batchmatvec": lambda be: T.batchmatvec(rnd, vec, backend=be),
+        "batchmatmul": lambda be: T.batchmatmul(rnd, full, backend=be),
+        "eig_sym": lambda be: T.eig_sym(sym, backend=be),
+        "expm": lambda be: T.expm(half, backend=be),
+        "logm": lambda be: T.logm(e),
+    }
+    return calls[family]
+
+
+def launched(counters, fn):
+    """Launches of ``counters`` during one ``fn()``."""
+    before = [c.launches for c in counters]
+    fn()
+    return sum(c.launches for c in counters) - sum(before)
+
+
+def sweep_ms(torch, fn):
+    """call_ms with fewer repetitions where one call takes long (the plain
+    Jacobi and logm at 16 x 16)."""
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    slow = time.perf_counter() - t0 > 0.02
+    return call_ms(torch, fn, reps=3 if slow else 7, warmup=1 if slow else 2)
+
+
+def crossover(batches, kernel_ms, plain_ms):
+    """The smallest swept batch from which the kernel is faster at every
+    larger swept batch too; None if it is not faster at the largest."""
+    cross = None
+    for b, k, p in zip(reversed(batches), reversed(kernel_ms), reversed(plain_ms)):
+        if k >= p:
+            break
+        cross = b
+    return cross
+
+
+def phase_routing_sweep(torch, gen):
+    """(a) of phase 13: each row's public call per call through the kernel
+    and through the plain version (auto with every threshold at 1 and above
+    every batch: the two sides of auto's choice; also ``backend="torch"``),
+    the crossover, and gates on the held policy: auto launches at and above
+    the threshold and not below, ``backend="cuda"`` at every batch. Where
+    the plain version is not slower, both are timed twice more and the
+    medians of the three kept; a row whose kernel is slower at 16,384 goes
+    on at ROUTE_EXTEND (up to ROUTE_EXTEND_BYTES a float32 operand), where
+    the plain version is the cheap side."""
+    from fastmath_tpu_torch.ops import _routing as R
+
+    rows, bad = [], []
+    for family, n in ROUTE_ROWS:
+        gate_family = "batchinv" if family == "batchlmdiv" and n <= 4 else family
+        thr = R.threshold(gate_family, n)
+        row = {"family": family, "n": n, "batches": [], "kernel_ms": [], "plain_ms": [],
+               "torch_ms": [], "threshold": thr}
+
+        def side(call, value):
+            with forced_policy(R, value):
+                return sweep_ms(torch, lambda: call("auto"))
+
+        batches = list(ROUTE_BATCHES)
+        for b in batches:
+            call = route_call(torch, gen, family, n, b)
+            k, p = side(call, 1), side(call, 1 << 62)
+            if k >= p:
+                k = float(np.median([k, side(call, 1), side(call, 1)]))
+                p = float(np.median([p, side(call, 1 << 62), side(call, 1 << 62)]))
+            row["batches"].append(b)
+            row["kernel_ms"].append(k)
+            row["plain_ms"].append(p)
+            row["torch_ms"].append(None if family in NO_BACKEND
+                                   else sweep_ms(torch, lambda: call("torch")))
+            got = launched(route_counters(family, n, "auto"), lambda: call("auto"))
+            want = thr is not None and b >= thr
+            if bool(got) != want:
+                bad.append(f"{family} n={n} b={b}: auto launched {got}, threshold {thr}")
+            if family not in NO_BACKEND:
+                got = launched(route_counters(family, n, "cuda"), lambda: call("cuda"))
+                if not got:
+                    bad.append(f"{family} n={n} b={b}: backend='cuda' launched nothing")
+            del call
+            if b == batches[-1] and k >= p and len(batches) == len(ROUTE_BATCHES):
+                batches += [e for e in ROUTE_EXTEND if e * n * n * 4 <= ROUTE_EXTEND_BYTES]
+        row["crossover"] = crossover(row["batches"], row["kernel_ms"], row["plain_ms"])
+        for key in ("kernel_ms", "plain_ms", "torch_ms"):
+            row[key] = [None if t is None else round(t, 4) for t in row[key]]
+        log(f"  routing {family} n={n}: crossover {row['crossover']}, threshold {thr}")
+        rows.append(row)
+    torch.cuda.synchronize()
+    line = {"routing": rows}
+    (OUT / "routing.json").write_text(json.dumps(line, indent=1))
+    log(json.dumps(line, separators=(",", ":")))
+    if bad:
+        fail("routing policy gates: " + "; ".join(bad))
+
+
+def phase_parallel(torch, rng, solve_ms):
+    """(b)-(e) of phase 13: parallel, checks, profiling and the cache
+    directory on the card."""
+    import fastmath_tpu_torch as T
+    from fastmath_tpu_torch import parallel as PAR
+    from fastmath_tpu_torch.core import checks
+    from fastmath_tpu_torch.kernels import sym_cuda, sym_products
+    from fastmath_tpu_torch.utils import profiling
+
+    # (b) parallel on the one card
+    mesh = PAR.make_mesh()
+    devices = mesh.devices.ravel().tolist()
+    log(f"  make_mesh(): {mesh}")
+    if mesh.shape["dp"] != 1 or devices != [torch.device("cuda", 0)]:
+        fail(f"make_mesh() on one card: {mesh}")
+    full = spd(rng, B_MAIN, N_MAIN)
+    mat = torch.from_numpy(compact(full)).to(DEV)
+    vec = torch.from_numpy(rng.standard_normal((B_MAIN, N_MAIN)).astype(np.float32)).to(DEV)
+    want = T.sym_solve(mat, vec)
+    n_main = launched([sym_cuda.sym_solve_cf], lambda: T.sym_solve(mat, vec))
+    n_shard = launched([sym_cuda.sym_solve_cf],
+                       lambda: PAR.shard_batch(T.sym_solve, mesh)(mat, vec))
+    got = PAR.shard_batch(T.sym_solve, mesh)(mat, vec)
+    log(f"  main path sym_solve {B_MAIN}x{N_MAIN}x{N_MAIN} (auto): {n_main} launch(es) of "
+        f"sym_solve_cf a call; shard_batch: {n_shard}, bit for bit: {torch.equal(got, want)}")
+    if n_main != 1 or n_shard != 1 or not torch.equal(got, want):
+        fail("the main path or shard_batch(sym_solve) did not launch sym_solve_cf once, "
+             "or differs from sym_solve")
+    x = torch.randn(*B_NANSUM, generator=torch.Generator(device=DEV).manual_seed(13),
+                    device=DEV)
+    x[torch.rand(*B_NANSUM, device=DEV) < 0.2] = float("nan")
+    s = PAR.shard_reduce(T.nansum, "sum", mesh)(x)
+    m = PAR.shard_reduce(lambda t: (T.nansum(t), (~torch.isnan(t)).sum()), "mean_weighted",
+                         mesh)(x)
+    err_s = abs((s - T.nansum(x)) / T.nansum(x)).item()
+    err_m = abs((m - T.nanmean(x)) / T.nanmean(x)).item()
+    log(f"  shard_reduce on {B_NANSUM[0]}x{B_NANSUM[1]} (20% NaN): nansum rel {err_s:.3e}, "
+        f"mean_weighted vs nanmean rel {err_m:.3e} (gate 1e-6)")
+    if not (err_s <= 1e-6 and err_m <= 1e-6):
+        fail("shard_reduce disagrees with nansum / nanmean")
+    blocks, bn = EST_BLOCKS
+    a = torch.randn(blocks, bn, bn, generator=torch.Generator(device=DEV).manual_seed(14),
+                    device=DEV)
+    op = a @ a.mT + bn * torch.eye(bn, device=DEV)
+    tr = torch.diagonal(op, dim1=-2, dim2=-1).sum().item()
+    est = PAR.trapprox_sharded(op, None, mesh, samples=64).item()
+    before = sym_products.sym_matvec_cf.launches
+    tr4 = float(np.trace(full, axis1=1, axis2=2).sum(dtype=np.float64))
+    est4 = PAR.trapprox_sharded(lambda v: T.sym_matvec(mat, v), (B_MAIN, N_MAIN), mesh,
+                                samples=8, dtype=torch.float32).item()
+    mv_launches = sym_products.sym_matvec_cf.launches - before
+    log(f"  trapprox_sharded: {blocks} SPD {bn}x{bn} {est:.6e} vs trace {tr:.6e} "
+        f"(rel {abs(est - tr) / tr:.3e}); sym_matvec on {B_MAIN}x{N_MAIN} {est4:.6e} vs "
+        f"{tr4:.6e} (rel {abs(est4 - tr4) / tr4:.3e}), sym_matvec_cf launches {mv_launches} "
+        "(gate 0.1)")
+    if not (abs(est - tr) <= 0.1 * tr and abs(est4 - tr4) <= 0.1 * tr4 and mv_launches >= 1):
+        fail("trapprox_sharded is off the trace or did not launch sym_matvec_cf")
+    v2 = vec.clone()
+    out = PAR.donating(T.sym_solve_, argnums=(1,))(mat, v2)
+    if out.data_ptr() != v2.data_ptr() or not torch.equal(out, want):
+        fail("donating(sym_solve_) did not return the result in the vector's storage")
+    log("  donating(sym_solve_, argnums=(1,)): the result in the vector's storage")
+
+    # (c) utils.profiling
+    logdir = OUT / "trace"
+    shutil.rmtree(logdir, ignore_errors=True)
+    with profiling.trace_to(str(logdir)):
+        with profiling.annotate("fm_solve"):
+            for _ in range(3):
+                T.sym_solve(mat, vec)
+            torch.cuda.synchronize()
+    traces = sorted(logdir.glob("*.json"))
+    if not traces:
+        fail("trace_to wrote no trace")
+    events = json.loads(traces[-1].read_text()).get("traceEvents", [])
+    names = {e.get("name") for e in events}
+    kernels = sorted({e.get("name") for e in events if e.get("cat") == "kernel"})
+    solve_k = [k for k in kernels if "solve_unrolled" in k]
+    log(f"  trace_to: {traces[-1].name}, {len(events)} events, annotation "
+        f"{'fm_solve' in names}, {len(kernels)} kernel names, the solve kernel: "
+        f"{solve_k[:1] or 'not seen (CUPTI recorded no kernel launched through ctypes)'}")
+    if "fm_solve" not in names:
+        fail("the trace does not hold the fm_solve annotation")
+    sink = []
+    with profiling.device_timer("sym_solve", sink) as t:
+        t.result = T.sym_solve(mat, vec)
+    log(f"  device_timer: {sink[0][1] * 1e3:.4f} ms for one {B_MAIN}x{N_MAIN}x{N_MAIN} "
+        f"sym_solve (phase 4's device time {solve_ms:.4f} ms)")
+    if not sink[0][1] * 1e3 >= solve_ms:
+        fail("device_timer's elapsed is under the kernel's device time")
+
+    # (d) core.checks: a singular (zero) problem makes NaN in the kernel
+    bad = mat[:4099].clone()
+    bad[17] = 0.0
+    try:
+        with checks.debug_nans():
+            T.sym_solve(bad, vec[:4099], backend="cuda")
+            torch.cuda.synchronize()
+        fail("debug_nans did not raise on a NaN made by the solve kernel")
+    except FloatingPointError as e:
+        log(f"  debug_nans: {e}")
+    got = checks.checked(T.sym_solve)(mat, vec)
+    if not torch.equal(got, want):
+        fail("checked(sym_solve) differs from sym_solve")
+    log("  checked(sym_solve) on clean input: bit for bit")
+
+
+CACHE_CHILD = r"""
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import fastmath_tpu_torch as T
+from fastmath_tpu_torch.kernels import _build, batched_cuda as BC
+a = torch.eye(4, device="cuda").reshape(1, 16).repeat(8, 1)
+v = torch.ones(8, 4, device="cuda")
+y = BC.launch_matvec_full(a, v)
+torch.cuda.synchronize()
+lib = _build.library_path("batched_products")
+print(json.dumps({"dir": T.core.compilation_cache_dir(), "lib": str(lib),
+                  "exists": lib.exists(), "launches": BC.matvec_full_cf.launches,
+                  "ok": bool(torch.equal(y, v))}))
+"""
+
+
+def phase_cache():
+    """(e) of phase 13: a child process with FASTMATH_TPU_TORCH_CACHE_DIR
+    set builds, loads and launches the product kernels' library there."""
+    cache = OUT / "cache_probe"
+    shutil.rmtree(cache, ignore_errors=True)
+    env = dict(os.environ, FASTMATH_TPU_TORCH_CACHE_DIR=str(cache))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CACHE_CHILD, str(ROOT)], env=env,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"cache probe failed:\n{proc.stdout}\n{proc.stderr}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"  cache probe ({time.perf_counter() - t0:.1f} s): {got}")
+    root = str(cache.resolve())
+    if not (got["ok"] and got["exists"] and got["launches"] == 1 and got["dir"] == root
+            and got["lib"].startswith(root + os.sep)):
+        fail(f"the kernels' library is not under {root}: {got}")
+
+
 def main():
     import torch
 
@@ -3176,9 +3556,15 @@ def main():
     phase_numerics(torch, rng)
     torch.cuda.synchronize()
     log("== phase 12: the kernels line")
+    log(json.dumps({"kernels": kernels}))
+    log("== phase 13: the routing policy and the rest of the namespace")
+    t13 = time.perf_counter()
+    phase_routing_sweep(torch, torch.Generator(device=DEV).manual_seed(SEED))
+    phase_parallel(torch, rng, kernels[0]["ms"])
+    phase_cache()
+    log(f"phase13_seconds={time.perf_counter() - t13:.1f}")
     log(f"total_seconds={time.perf_counter() - t0:.1f}")
     log(smi)
-    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,10 +6,22 @@ every Pallas TPU kernel becomes a CUDA kernel written for Hopper
 (``kernels/csrc``), with a plain PyTorch version beside it that serves
 CPU tensors. The modules that have no kernel in the JAX package
 (``reduce``, ``special``, ``simplex``, ``realtransforms``, ``stochastic``)
-are plain PyTorch on the input's device. This package imports neither
-JAX nor ``fastmath_tpu``.
+are plain PyTorch on the input's device. Whether a call on the card runs
+its kernel or the plain version is the policy of :mod:`.ops._routing`.
+``parallel`` splits a batch over a mesh of devices. This package imports
+neither JAX nor ``fastmath_tpu``.
 """
+__version__ = "0.1.0"
+
 from . import core, kernels, layouts, typing, utils
+from .core.cache import enable_compilation_cache
+
+# honour FASTMATH_TPU_TORCH_CACHE_DIR at import (core/cache.py)
+from .core.cache import _maybe_enable_from_env as _cache_env_hook
+
+_cache_env_hook()
+del _cache_env_hook
+from . import parallel  # noqa: E402
 from .kernels import sym_invert_cf, sym_matvec_cf, sym_solve_cf
 from .ops import batched, lie, qr, realtransforms, reduce, simplex, special, stochastic, sugar, sym
 from .ops.batched import (batchchol, batchdet, batchinv, batchlmdiv, batchlogdet,
@@ -46,4 +58,5 @@ __all__ = ["sym_to_full", "full_to_sym", "sym_diag", "sym_solve", "sym_solve_",
            "erfinv", "gammainc", "gammaincc", "digamma", "trapprox", "vbald", "maxeig_power",
            "core", "layouts", "typing", "utils", "kernels", "batched", "lie", "qr",
            "realtransforms", "reduce", "simplex", "special", "stochastic", "sugar", "sym",
-           "sym_solve_cf", "sym_matvec_cf", "sym_invert_cf"]
+           "sym_solve_cf", "sym_matvec_cf", "sym_invert_cf", "parallel",
+           "enable_compilation_cache", "__version__"]

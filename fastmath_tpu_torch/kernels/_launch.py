@@ -86,6 +86,11 @@ def empty(like, b, width, cf_out):
     return torch.empty(b, width, dtype=like.dtype, device=like.device)
 
 
+#: the tripwire of ``core.checks.debug_nans`` while one is on: it checks
+#: what each launch wrote, which no torch function sees
+_watch = None
+
+
 def launch(lib, wrapper, name, like, *args):
     """Call entry point ``name`` of ``lib`` with the dtype code first and
     the current stream last, raise on a launch error, and count the
@@ -97,6 +102,8 @@ def launch(lib, wrapper, name, like, *args):
         msg = lib.fm_error_string(err).decode()
         raise RuntimeError(f"{name} failed to launch: CUDA error {err} ({msg})")
     wrapper.launches += 1
+    if _watch is not None:
+        _watch.launched(name, args)
 
 
 def cf_flat(t, rows, batch):

@@ -15,35 +15,39 @@ reference itself calls ``jnp.linalg``.
 
 ``backend``:
 
-* ``"auto"``: a CUDA tensor in the kernel's domain always launches the
-  kernel; everything else runs on the tensors' device as above. The
-  domain is real float32/float64, 1 <= n <= 32, ``regularize=False``
-  and, for the solves, at most ``k_cap`` right-hand-side columns (8 up
-  to n = 8, 16 above). ``batchlmdiv`` takes its solve kernel for n > 4
-  only; for n <= 4 it multiplies by ``batchinv``'s inverse, as the
-  reference does. (The reference's batch-size thresholds were measured
-  on a TPU and are not copied; ``batchchol`` takes its kernel at every
-  n <= 32, where the TPU's takes it for n > 16 only.)
+* ``"auto"``: input in the kernel's domain goes through its
+  ``autograd.Function``, which launches the kernel where the policy of
+  :mod:`._routing` says so (a CUDA tensor and a batch of at least the
+  op's threshold there) and runs the kernel's plain version on the
+  tensors' device otherwise;
+  everything else runs as above. The domain is real float32/float64,
+  1 <= n <= 32, ``regularize=False`` and, for the solves, at most
+  ``k_cap`` right-hand-side columns (8 up to n = 8, 16 above).
+  ``batchlmdiv`` takes its solve kernel for n > 4 only; for n <= 4 it
+  multiplies by ``batchinv``'s inverse, as the reference does.
 * ``"cuda"``: forces the kernel (``batchlmdiv`` the solve kernel at any
   n); raises outside its domain or on CPU tensors.
 * ``"torch"``: the plain tiers, on whatever device holds the tensors.
 
-The products route by their own rules (the reference never routes them
-to its kernels by default; these follow the card's measurements, see
-``ROADMAP.md``): ``batchmatvec`` (no ``backend`` argument) launches the
-matvec kernel on a CUDA tensor for square n <= ``MATVEC_KERNEL_MAX``, and
-``batchmatmul`` for every dim <= ``MATMUL_KERNEL_MAX`` under ``"auto"``
-(32, the kernel's whole domain: its tiles beat ``torch.matmul`` there),
-at every dim <= 32 under ``"cuda"``. bf16/f16 compute in float32 and
-round once on output.
+The products' n-ranges are the policy's too (the reference never routes
+them to its kernels by default; these follow the card's measurements):
+under ``"auto"`` ``batchmatvec`` launches the matvec kernel on a CUDA
+tensor for square n <= ``MATVEC_KERNEL_MAX`` and ``batchmatmul`` the
+product kernel for every dim <= ``MATMUL_KERNEL_MAX``, each at its
+family's threshold; under ``"cuda"`` both at every dim <= 32 (square for
+the matvec). bf16/f16 compute in float32 and round once on output.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..core.dtypes import downcast, upcast_half
 from ..kernels._launch import MAX_N, chol_rows, diag_log_sum, diag_product
 from ..layouts.sym import _upper_rows_cols, sym_to_full
+# the products' n-ranges, kept importable here under their old names
+from ._routing import MATMUL_KERNEL_MAX, MATVEC_KERNEL_MAX, nbatch  # noqa: F401
 from .sym import _check_backend, _det_expand, _flat, _use_kernel
 
 __all__ = ["batchdet", "batchinv", "batchmatvec", "batchmatmul", "batchlmdiv", "batchrmdiv",
@@ -57,16 +61,6 @@ LU_UNROLL_MAX = 16
 #: kernel's RHS-column cap is 8 up to it and 16 above
 _PLU_UNROLL_N = 8
 _MATMUL_UNROLL_MAX = 6
-#: ``batchmatvec`` on a CUDA tensor launches the matvec kernel for square
-#: n up to this: on an H100 it ran faster than torch.matmul at n = 4..12
-#: and slower from n = 16 (chip_smoke.py's routing sweep, ROADMAP.md)
-MATVEC_KERNEL_MAX = 12
-#: ``batchmatmul(backend="auto")`` on a CUDA tensor launches the product
-#: kernel where every dim is up to this: it replaces the unrolled tier's
-#: m n (2k - 1) elementwise launches to 6, and on an H100 its staged tiles
-#: ran faster than torch.matmul on square n = 4..32, every size it takes
-#: (the same sweep)
-MATMUL_KERNEL_MAX = 32
 
 _NO_REGULARIZE = ("backend='cuda' does not implement regularize=True (the "
                   "reference's det smoothing is a closed-form-path knob)")
@@ -204,11 +198,11 @@ def _chol_torch(a):
 # ---------------------------------------------------------------------------
 
 
-def _kernel_route(backend, n, a, op):
+def _kernel_route(backend, n, a, op, batch=None):
     """``(domain, kernel)`` of :func:`ops.sym._use_kernel` for the
-    full-storage kernels."""
+    full-storage kernels (``batch``: default the batch of ``a``)."""
     return _use_kernel(backend, True, n, a, op, f"square matrices with 1 <= n <= {MAX_N}",
-                       f"n={n}")
+                       f"n={n}", nbatch(a, core=2) if batch is None else batch)
 
 
 def _square(a, op):
@@ -285,8 +279,8 @@ def batchchol(a: torch.Tensor, backend: str = "auto") -> torch.Tensor:
     The kernel serves 1 <= n <= 32 on compact storage: the lower
     triangle is packed, factored (Cholesky-Banachiewicz for n <= 8, the
     outer-product form with ``rsqrt`` above) and the factor unpacked. On
-    the card ``"auto"`` takes it at every n <= 32 (the reference's TPU
-    routing takes it only for n > 16). The plain tiers: unrolled
+    the card ``"auto"`` takes it at every n <= 32 (:mod:`._routing`; the
+    reference's TPU routing takes it for n > 16 only). The plain tiers: unrolled
     Cholesky-Banachiewicz for n <= 16, ``torch.linalg.cholesky_ex``
     beyond. No pivoting: a matrix that is not SPD gives NaN, with no
     error raised. Differentiable. See the module docstring for
@@ -331,18 +325,26 @@ def batchinv(a: torch.Tensor, regularize: bool = False, backend: str = "auto") -
     return downcast(_inv_torch(a, regularize), half)
 
 
-def batchmatvec(mat: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
+def batchmatvec(mat: torch.Tensor, vec: torch.Tensor, backend: str = "auto") -> torch.Tensor:
     """Batched matrix-vector product ``(..., m, n) @ (..., n) -> (..., m)``;
-    batch dims broadcast. On a CUDA tensor, square n <=
-    ``MATVEC_KERNEL_MAX`` launches the matvec kernel. Otherwise: unrolled
-    (each row summed left to right) for m, n <= 4, ``torch.matmul``
-    beyond. Handles non-square. Differentiable."""
+    batch dims broadcast.
+
+    The matvec kernel serves square real float32/float64 with n <= 32.
+    ``"auto"`` launches it on a CUDA tensor for square n <=
+    ``MATVEC_KERNEL_MAX`` at its threshold in :mod:`._routing`;
+    ``"cuda"`` at every square n <= 32 (and raises outside that domain or
+    on CPU tensors). Otherwise, and under ``"torch"``: unrolled (each row
+    summed left to right) for m, n <= 4, ``torch.matmul`` beyond. Handles
+    non-square. Differentiable. (The reference's ``batchmatvec`` takes no
+    ``backend``: it has no kernel route.)"""
     mat, vec, half = upcast_half(mat, vec)
     m, n = mat.shape[-2:]
     if vec.shape[-1] != n:
         raise ValueError(f"matvec shape mismatch: {tuple(mat.shape)} @ {tuple(vec.shape)}")
-    _, kernel = _use_kernel("auto", m == n, n, mat, "batchmatvec", "", "")
-    if kernel and n <= MATVEC_KERNEL_MAX:
+    _, kernel = _use_kernel(backend, m == n, n, mat, "batchmatvec",
+                            f"square matrices with n <= {MAX_N}", f"{m}x{n}",
+                            nbatch(mat.shape[:-2], vec))
+    if kernel:
         from ..kernels.batched_cuda import MatvecFullFunction
 
         batch = torch.broadcast_shapes(mat.shape[:-2], vec.shape[:-1])
@@ -366,8 +368,9 @@ def batchmatmul(a: torch.Tensor, b: torch.Tensor, backend: str = "auto") -> torc
 
     The kernel (4 x 4 tiles of C a thread from operands staged in shared
     memory, each entry summed over k in order from the first term)
-    serves real float32/float64 with every dim <= 32. ``"auto"`` launches it on a CUDA tensor where every dim is
-    <= ``MATMUL_KERNEL_MAX``; ``"cuda"`` at every dim <= 32 (and raises
+    serves real float32/float64 with every dim <= 32. ``"auto"`` launches
+    it on a CUDA tensor where every dim is <= ``MATMUL_KERNEL_MAX``, at
+    its threshold in :mod:`._routing`; ``"cuda"`` at every dim <= 32 (and raises
     outside that domain or on CPU tensors). Otherwise, and under
     ``"torch"``: unrolled (each entry summed over k in order) when every
     dim is <= 6, ``torch.matmul`` beyond. Differentiable.
@@ -380,8 +383,8 @@ def batchmatmul(a: torch.Tensor, b: torch.Tensor, backend: str = "auto") -> torc
     dims = max(m, k, n)
     _, kernel = _use_kernel(backend, True, dims, a, "batchmatmul",
                             f"real-float batches with every dim <= {MAX_N}",
-                            f"dims {(m, k, n)}")
-    if kernel and (backend == "cuda" or dims <= MATMUL_KERNEL_MAX):
+                            f"dims {(m, k, n)}", nbatch(a, b, core=2))
+    if kernel:
         from ..kernels.batched_cuda import MatmulFunction
 
         batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
@@ -431,7 +434,7 @@ def batchlmdiv(a: torch.Tensor, b: torch.Tensor, regularize: bool = False,
     # the broadcast batch: one shared matrix against many right-hand sides
     nbd = b.dim() - (1 if vector else 2)
     bshape = torch.broadcast_shapes(a.shape[:-2], b.shape[:nbd])
-    domain, kernel = _kernel_route(backend, n, a, "batchlmdiv")
+    domain, kernel = _kernel_route(backend, n, a, "batchlmdiv", math.prod(bshape))
     if (domain and not regularize and k <= k_cap
             and (backend == "cuda" or (backend == "auto" and n > _CLOSED_FORM_MAX))):
         from ..kernels.batched_cuda import SolveFullFunction

@@ -6,13 +6,15 @@ algorithms, constants and semantics.
 
 * ``expm``: scaling and squaring with a fixed-order Taylor core, each
   matrix squaring its own number of times. Real d <= 32 on a CUDA tensor
-  launches kernel #19 (``kernels/expm.py``, float32 and float64) through
+  (at a batch of at least its threshold in :mod:`._routing`) launches
+  kernel #19 (``kernels/expm.py``, float32 and float64) through
   an ``autograd.Function`` with the Mathias backward; everything else runs
   the kernel's plain version, :func:`_expm_core`, on the tensors' device.
 * ``logm``: inverse scaling and squaring (Denman-Beavers square roots,
   the cancellation-free ``A - I`` of Al-Mohy & Higham, a Gregory series).
-  Real d <= 32 on a CUDA tensor launches kernel #20 (``kernels/logm.py``);
-  symmetric batches with ``_LOGM_SYM_EIG_MIN_D <= d <= 32`` on the card
+  Real d <= 32 on a CUDA tensor (at a batch of at least its threshold in
+  :mod:`._routing`) launches kernel #20 (``kernels/logm.py``); symmetric
+  batches with ``_routing.LOGM_SYM_EIG_MIN_D <= d <= 32`` on the card
   take ``V log|w| Vᵀ`` through the eig kernel instead. Elsewhere, as JAX
   on the CPU: :func:`_iss_log_core`. Gradients by the Mathias block rule.
 
@@ -25,8 +27,9 @@ normal matrices, an imaginary spectral shift with a series correction
 otherwise).
 
 ``backend`` of ``expm``: ``"auto"`` launches the kernel on a CUDA tensor
-with real d <= 32 (float64 too: the reference's float32-only gate was its
-TPU compiler's) and runs :func:`_expm_core` otherwise; ``"cuda"`` forces
+with real d <= 32 at a batch of at least its threshold (float64 too: the
+reference's float32-only gate was its TPU compiler's) and runs
+:func:`_expm_core` otherwise; ``"cuda"`` forces
 the kernel (and raises outside its domain or on CPU tensors); ``"torch"``
 runs :func:`_expm_core` on the tensors' device. bf16/f16 compute in
 float32 and round once on output.
@@ -48,19 +51,14 @@ from ..kernels.expm import expm_plain as _expm_core
 from ..kernels.logm import iss_log, launch_logm
 from .batched import batchdet, batchinv
 from .batched import batchmatmul as _bmm
+# the symmetric eig route's bounds, kept importable here under their old names
+from ._routing import LOGM_SYM_EIG_MAX_D as _LOGM_SYM_EIG_MAX_D  # noqa: F401
+from ._routing import LOGM_SYM_EIG_MIN_D as _LOGM_SYM_EIG_MIN_D  # noqa: F401
+from ._routing import logm_eig_route, nbatch, use_kernel
 from .sugar import lmdiv
 from .sym import _use_kernel
 
 __all__ = ["expm", "logm", "meanm", "expm_derivatives"]
-
-_LOGM_SYM_EIG_MAX_D = 32  # symmetric eig route cap = rolled Jacobi tier
-#: lower bound of the symmetric eig route on the card: on an NVIDIA H100
-#: 80GB HBM3 at 700 W, the public logm per call on SPD input on 15,625
-#: (chip_smoke.py phase 10), the kernel route is faster up to d = 16 (1.1492
-#: against 2.3740 ms at 16, groups of 16 lanes) and the route from 17 on
-#: (2.1025 against 9.5420 ms at 17, where the kernel takes groups of 32;
-#: 5.3380 against 9.6069 at 32). The reference's 12 was measured on a TPU.
-_LOGM_SYM_EIG_MIN_D = 17
 
 
 def _as_float(x):
@@ -94,7 +92,8 @@ def expm(X, basis=None, max_order: int = 10000, tol: float = 1e-32, backend: str
     d = X.shape[-1]
     domain, kernel = _use_kernel(backend, not X.is_complex(), d, X, "expm",
                                  f"real input with d <= {MAX_N}",
-                                 f"{'complex' if X.is_complex() else 'real'} input, d={d}")
+                                 f"{'complex' if X.is_complex() else 'real'} input, d={d}",
+                                 nbatch(X, core=2))
     if domain and backend != "torch":
         y = ExpmFunction.apply(X.reshape(-1, d, d), kernel).reshape(X.shape)
     else:
@@ -384,18 +383,20 @@ def _symmetric_mask(A):
 def _logm_plain(mat, sym_route: bool = True):
     """The regular-case batched log, with no branch-cut rescue: ``(L,
     ok)``, non-converged and branch-cut matrices NaN with ``ok`` False.
-    On a CUDA tensor with real d <= 32 the logm kernel, or, for an
-    all-symmetric batch with ``_LOGM_SYM_EIG_MIN_D <= d <= 32`` (one test
-    on the host) and ``sym_route``, :func:`_logm_sym_eig`; elsewhere
+    Where the policy takes the logm kernel (a CUDA tensor, real d <= 32,
+    the batch at its threshold) that kernel, or, for an all-symmetric
+    batch at a size of :func:`._routing.logm_eig_route` (one test on
+    the host) and ``sym_route``, :func:`_logm_sym_eig`; elsewhere
     :func:`_iss_log_core`. :func:`meanm` passes ``sym_route=False``: its
     operands ``mean^-1 A`` are generically not symmetric."""
     A, _ = _as_float(mat)
     d = A.shape[-1]
-    kernel = _on_card(A) and not A.is_complex() and in_domain(d, A.dtype)
+    kernel = use_kernel("auto", family="logm", n=d, batch=nbatch(A, core=2),
+                        supported=not A.is_complex() and in_domain(d, A.dtype),
+                        on_card=_on_card(A))
     if A.numel() == 0:
         return A.clone(), torch.ones(A.shape[:-2], dtype=torch.bool, device=A.device)
-    if (kernel and sym_route and _LOGM_SYM_EIG_MIN_D <= d <= _LOGM_SYM_EIG_MAX_D
-            and bool(_symmetric_mask(A).all())):
+    if kernel and sym_route and logm_eig_route(d) and bool(_symmetric_mask(A).all()):
         return _logm_sym_eig(A)
     if kernel:
         L = launch_logm(A.reshape(-1, d, d)).reshape(A.shape)

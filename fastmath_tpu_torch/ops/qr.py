@@ -22,7 +22,8 @@ three routes:
   path sweeps every matrix until all pass).
 
 ``backend``: ``"auto"`` takes the closed forms for real n <= 3, the
-kernel for real 4 <= n <= 32 (on a CUDA tensor; its plain version on the
+kernel for real 4 <= n <= 32 (on a CUDA tensor at a batch of at least
+its threshold in :mod:`._routing`; its plain version below it and on the
 CPU), the plain Jacobi otherwise; ``"cuda"`` forces the kernel (real 1
 <= n <= 32 on a CUDA tensor, else it raises); ``"torch"`` runs the plain
 Jacobi; ``"analytic"`` forces the closed forms (real n <= 3). Every
@@ -604,6 +605,7 @@ def eig_sym(a, compute_u: bool = False, upper: bool = True, inplace: bool = Fals
     """
     from ..kernels import eig as K
     from ..kernels._launch import MAX_N
+    from ._routing import nbatch
     from .sym import _use_kernel
 
     a = _check_finite_square(a, check_finite)
@@ -618,10 +620,10 @@ def eig_sym(a, compute_u: bool = False, upper: bool = True, inplace: bool = Fals
         raise ValueError("backend='analytic' requires real input with n <= 3")
     use_analytic = backend == "analytic" or (backend == "auto" and analytic_ok)
     # the eig kernel's domain (real float32/float64, 1 <= n <= 32), and whether
-    # this call launches it (a CUDA tensor under "auto" or "cuda")
+    # this call launches it (the policy of ops/_routing.py under "auto")
     domain, kernel = (False, False) if backend == "analytic" else _use_kernel(
         backend, not is_complex, n, a, "eig_sym", f"real symmetric input with n <= {MAX_N}",
-        f"{'complex' if is_complex else 'real'} input, n={n}")
+        f"{'complex' if is_complex else 'real'} input, n={n}", nbatch(a, core=2))
     use_kernel_tier = domain and not use_analytic
     if polish is None:
         polish = compute_u and n >= 2 and not use_analytic and single

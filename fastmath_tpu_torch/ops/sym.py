@@ -32,8 +32,12 @@ compact kernel for those and solves them on that XLA path.
 
 ``backend``:
 
-* ``"auto"``: a CUDA tensor in the kernel's domain always launches the
-  kernel; everything else runs plain PyTorch on the tensors' device.
+* ``"auto"``: input in the kernel's domain goes through its
+  ``autograd.Function``, which launches the kernel where the policy of
+  :mod:`._routing` says so (a CUDA tensor and a batch of at least the
+  op's threshold there) and runs the kernel's plain version on the
+  tensors' device otherwise; everything else runs plain PyTorch on the
+  tensors' device.
   The domain is real float32/float64 and compact storage (or N == 1)
   with N <= 32; for ``sym_outer`` N <= 32, for ``sym_matmul``
   max(K, D) <= 32. (The reference never auto-routes the matvec family,
@@ -48,6 +52,7 @@ compact kernel for those and solves them on that XLA path.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -56,13 +61,12 @@ import torch
 from ..core.dtypes import downcast, upcast_half
 from ..layouts.sym import (MatrixLayout, classify_layout, compact_size, full_to_sym,
                            sym_diag, sym_dim, sym_to_full, tri_index)
+from ._routing import BACKENDS, nbatch, use_kernel
 
 __all__ = ["sym_to_full", "full_to_sym", "sym_diag", "sym_solve", "sym_solve_",
            "sym_solve_chain", "sym_matvec", "sym_addmatvec", "sym_addmatvec_",
            "sym_submatvec", "sym_submatvec_", "sym_outer", "sym_matmul", "sym_matvec_chain",
            "sym_maxeig", "sym_det", "sym_invert", "sym_invert_", "BACKENDS"]
-
-BACKENDS = ("auto", "cuda", "torch")
 
 # N <= this solves by the closed-form adjugate
 _CLOSED_FORM_MAX = 4
@@ -165,23 +169,20 @@ def _check_backend(backend):
 
 
 def _use_kernel(backend, storage: bool, n: int, x: torch.Tensor, op: str, serves: str,
-                got: str):
+                got: str, batch: int):
     """``(domain, kernel)``: whether a kernel takes this call (a storage
     class it reads, ``storage``, and the kernels' size ``n`` and dtypes),
-    and whether the call launches it (see the module docstring).
-    ``serves`` (what the kernel takes) and ``got`` word the error of a
-    forced ``backend="cuda"``."""
+    and whether the call launches it, by the policy of :mod:`._routing`
+    for family ``op`` at size ``n`` and ``batch`` problems. ``serves``
+    (what the kernel takes) and ``got`` word the error of a forced
+    ``backend="cuda"``."""
     from ..kernels._launch import in_domain
 
-    _check_backend(backend)
     domain = storage and in_domain(n, x.dtype)
-    if backend == "cuda":
-        if not domain:
-            raise ValueError(f"backend='cuda': the {op} kernel serves {serves}, "
-                             f"float32/float64 (got {got}, {x.dtype})")
-        if not x.is_cuda:
-            raise ValueError(f"backend='cuda' needs CUDA tensors (got {x.device})")
-    return domain, backend == "cuda" or (backend == "auto" and domain and x.is_cuda)
+    why = (f"the {op} kernel serves {serves}, float32/float64 (got {got}, {x.dtype})"
+           if backend == "cuda" and not domain else "")
+    return domain, use_kernel(backend, family=op, n=n, batch=batch, supported=domain,
+                              on_card=x.is_cuda, why_unsupported=why)
 
 
 def _is_compact(layout, n) -> bool:
@@ -190,14 +191,14 @@ def _is_compact(layout, n) -> bool:
         n == 1 and layout is MatrixLayout.SCALED_IDENTITY)
 
 
-def _compact_route(backend, layout, n, x, op):
+def _compact_route(backend, layout, n, x, op, batch):
     """:func:`_use_kernel` for the kernels of compact storage (or N == 1),
     N <= 32."""
     from ..kernels._launch import MAX_N
 
     return _use_kernel(backend, _is_compact(layout, n), n, x, op,
                        f"compact-symmetric storage (or N == 1), N <= {MAX_N}",
-                       f"layout={layout.name}, N={n}")
+                       f"layout={layout.name}, N={n}", batch)
 
 
 def _is_dense(layout, n) -> bool:
@@ -208,14 +209,14 @@ def _is_dense(layout, n) -> bool:
     return layout is MatrixLayout.FULL or (layout is MatrixLayout.COMPACT_SYM and n > MAX_N)
 
 
-def _route(backend, layout, n, x: torch.Tensor, op: str):
+def _route(backend, layout, n, x: torch.Tensor, op: str, batch: int):
     """``(compact, kernel)``: whether the compact solve machinery serves
     this input, and whether it runs as the CUDA kernel (neither for the
     dense classes, whose ``batchlmdiv`` routes itself)."""
     _check_backend(backend)
     if _is_dense(layout, n):
         return False, False
-    return _is_compact(layout, n), _compact_route(backend, layout, n, x, op)[1]
+    return _is_compact(layout, n), _compact_route(backend, layout, n, x, op, batch)[1]
 
 
 def _flat(t: torch.Tensor, batch, width):
@@ -249,7 +250,8 @@ def _sym_solve_impl(mat, vec, eps, refine, backend, op="sym_solve"):
     layout = classify_layout(mat.shape[-1], n)
     if _is_dense(layout, n):
         return _dense_solve(mat, vec, layout, n, eps, refine, backend)
-    compact, kernel = _route(backend, layout, n, mat, op)
+    batch = torch.broadcast_shapes(mat.shape[:-1], vec.shape[:-1])
+    compact, kernel = _route(backend, layout, n, mat, op, math.prod(batch))
     if not compact:
         # elementwise: scaled identity (N > 1) or diagonal
         d = mat[..., 0:1] if layout is MatrixLayout.SCALED_IDENTITY else mat
@@ -262,7 +264,6 @@ def _sym_solve_impl(mat, vec, eps, refine, backend, op="sym_solve"):
 
     if refine is None:
         refine = 1 if n <= _CLOSED_FORM_MAX else 0
-    batch = torch.broadcast_shapes(mat.shape[:-1], vec.shape[:-1])
     x = SolveFunction.apply(_flat(mat, batch, mat.shape[-1]), _flat(vec, batch, n),
                             _prep_eps(eps, n), int(refine), kernel, False)
     return x.reshape(*batch, n)
@@ -326,7 +327,7 @@ def sym_solve_chain(
     _check_backend(backend)
     if iters == 0:  # before routing: any storage class returns vec, as in JAX
         return downcast(vec, half)
-    compact, kernel = _route(backend, layout, n, mat, "sym_solve_chain")
+    compact, kernel = _route(backend, layout, n, mat, "sym_solve_chain", nbatch(*arrays))
     if iters == 1:
         x = _sym_solve_impl(mat, vec, eps, None, backend, "sym_solve_chain")
         return downcast(x if add_ is None else x + add_, half)
@@ -378,7 +379,7 @@ def sym_matvec(mat: torch.Tensor, vec: torch.Tensor, backend: str = "auto") -> t
     mat, vec, half = upcast_half(mat, vec)
     n = vec.shape[-1]
     layout = classify_layout(mat.shape[-1], n)
-    domain, kernel = _compact_route(backend, layout, n, mat, "sym_matvec")
+    domain, kernel = _compact_route(backend, layout, n, mat, "sym_matvec", nbatch(mat, vec))
     if not domain:
         return downcast(_matvec_torch(mat, vec, layout, n), half)
     from ..kernels.sym_products import MatvecFunction
@@ -393,7 +394,7 @@ def _accmatvec(acc, mat, vec, sign, backend, op):
     acc, mat, vec, half = upcast_half(acc, mat, vec)
     n = vec.shape[-1]
     layout = classify_layout(mat.shape[-1], n)
-    domain, kernel = _compact_route(backend, layout, n, mat, op)
+    domain, kernel = _compact_route(backend, layout, n, mat, op, nbatch(acc, mat, vec))
     if not domain:
         mv = _matvec_torch(mat, vec, layout, n)
         return downcast(acc + mv if sign > 0 else acc - mv, half)
@@ -428,7 +429,7 @@ def sym_outer(x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
     x, half = upcast_half(x)
     n = x.shape[-1]
     domain, kernel = _use_kernel(backend, True, n, x, "sym_outer", f"N <= {MAX_N}",
-                                 f"N={n}")
+                                 f"N={n}", nbatch(x))
     flat = x.reshape(-1, n)
     y = OuterFunction.apply(flat.contiguous(), kernel, False) if domain else outer_plain(flat)
     return downcast(y.reshape(*x.shape[:-1], compact_size(n)), half)
@@ -453,7 +454,8 @@ def sym_matmul(j: torch.Tensor, h: torch.Tensor, backend: str = "auto") -> torch
             f"h last axis {h.shape[-1]} does not match compact size "
             f"{compact_size(k)} for K={k}")
     domain, kernel = _use_kernel(backend, True, max(k, d), j, "sym_matmul",
-                                 f"max(K, D) <= {MAX_N}", f"K={k}, D={d}")
+                                 f"max(K, D) <= {MAX_N}", f"K={k}, D={d}",
+                                 nbatch(j.shape[:-2], h))
     if not domain:
         out = torch.einsum("...ki,...kl,...lj->...ij", j, sym_to_full(h, k), j)
         return downcast(full_to_sym(out), half)
@@ -505,7 +507,8 @@ def sym_matvec_chain(
     add_ = arrays[2] if add is not None else None
     n = vec.shape[-1]
     layout = classify_layout(mat.shape[-1], n)
-    domain, kernel = _compact_route(backend, layout, n, mat, "sym_matvec_chain")
+    domain, kernel = _compact_route(backend, layout, n, mat, "sym_matvec_chain",
+                                    nbatch(*arrays))
     if iters == 0:
         return downcast(vec, half)
     batch = torch.broadcast_shapes(*(a.shape[:-1] for a in arrays))
@@ -588,7 +591,7 @@ def sym_maxeig(
         n = sym_dim(nn)
         layout = classify_layout(nn, n)
         v0 = _default_start(n, mat.dtype, mat.device)
-    domain, kernel = _compact_route(backend, layout, n, mat, "sym_maxeig")
+    domain, kernel = _compact_route(backend, layout, n, mat, "sym_maxeig", nbatch(mat, v0))
     batch = torch.broadcast_shapes(mat.shape[:-1], v0.shape[:-1])
     if domain and (iters > 0 or backend == "cuda"):
         out = MaxeigFunction.apply(_flat(mat, batch, nn), _flat(v0, batch, n), int(iters),
@@ -626,7 +629,8 @@ def sym_det(mat: torch.Tensor, backend: str = "auto") -> torch.Tensor:
     """
     mat, half = upcast_half(mat)
     n = sym_dim(mat.shape[-1])
-    domain, kernel = _compact_route(backend, MatrixLayout.COMPACT_SYM, n, mat, "sym_det")
+    domain, kernel = _compact_route(backend, MatrixLayout.COMPACT_SYM, n, mat, "sym_det",
+                                    nbatch(mat))
     if domain and backend != "torch":
         from ..kernels.sym_factor import SymDetFunction
 
@@ -654,7 +658,8 @@ def sym_invert(mat: torch.Tensor, diag: bool = False, backend: str = "auto") -> 
     """
     mat, half = upcast_half(mat)
     n = sym_dim(mat.shape[-1])
-    domain, kernel = _compact_route(backend, MatrixLayout.COMPACT_SYM, n, mat, "sym_invert")
+    domain, kernel = _compact_route(backend, MatrixLayout.COMPACT_SYM, n, mat, "sym_invert",
+                                    nbatch(mat))
     if domain and backend != "torch":
         from ..kernels.sym_factor import InvertFunction
 

@@ -27,6 +27,7 @@ import fastmath_tpu_torch as T
 from fastmath_tpu_torch.kernels import (batched_cuda, matmul_cf, matvec_full_cf, sym_iterate,
                                         sym_matvec_chain_cf, sym_maxeig_cf)
 from fastmath_tpu_torch.layouts import full_to_sym, sym_to_full
+from fastmath_tpu_torch.ops._routing import threshold
 from fastmath_tpu_torch.ops.batched import MATMUL_KERNEL_MAX
 
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -243,6 +244,7 @@ def _launches():
 def test_public_ops_route_to_kernels(rng):
     dev = "cuda"
     K = MATMUL_KERNEL_MAX
+    B = threshold("batchmatmul", K)  # auto's least batch at K
     mat = torch.tensor(_contraction(rng, 64, 4), device=dev)
     vec = torch.tensor(rng.standard_normal((64, 4)), device=dev)
     full = torch.tensor(rng.standard_normal((64, 4, 4)), device=dev)
@@ -261,10 +263,13 @@ def test_public_ops_route_to_kernels(rng):
         (lambda: T.batchmatmul(torch.ones(5, 7, 7, device=dev), torch.ones(5, 7, 7, device=dev),
                                backend="cuda"), 3, True),
         (lambda: T.batchmatmul(full, full, backend="torch"), 3, False),
-        # auto takes the kernel at every dim up to MATMUL_KERNEL_MAX (the
-        # kernel's whole domain, 32), torch.matmul beyond
-        (lambda: T.batchmatmul(torch.ones(5, K, 3, device=dev), torch.ones(5, 3, K, device=dev)),
+        # auto takes the kernel at every dim up to MATMUL_KERNEL_MAX from
+        # its threshold in ops/_routing.py, torch.matmul below it and beyond
+        (lambda: T.batchmatmul(torch.ones(B, K, 3, device=dev), torch.ones(B, 3, K, device=dev)),
          3, True),
+        *([(lambda: T.batchmatmul(torch.ones(B - 1, K, 3, device=dev),
+                                  torch.ones(B - 1, 3, K, device=dev)), 3, False)]
+          if B > 1 else []),
         (lambda: T.batchmatmul(torch.ones(5, 2, K + 1, device=dev),
                                torch.ones(5, K + 1, 2, device=dev)), 3, False),
     ]
@@ -290,7 +295,7 @@ def test_public_ops_match_cpu(rng):
             lambda m, v, g, x, y: T.sym_matvec_chain(m, v, 9, add=v),
             lambda m, v, g, x, y: T.sym_maxeig(g, iters=20, return_vector=True)[1],
             lambda m, v, g, x, y: T.sym_maxeig(g, iters=20, v0=v),
-            lambda m, v, g, x, y: T.batchmatvec(x, v),
+            lambda m, v, g, x, y: T.batchmatvec(x, v, backend="cuda" if m.is_cuda else "auto"),
             lambda m, v, g, x, y: T.batchmatmul(x, y, backend="cuda" if m.is_cuda else "auto"),
         ]
         for i, call in enumerate(calls):
